@@ -4,18 +4,22 @@
 
 Builds the port's hand-written CUDA kernels from ``src/`` (one ``nvcc``
 per library, all started together), holds each kernel against its plain
-PyTorch version at the shapes the serving path gives it, times it beside
-its bound, then serves full-width stablelm-1.6b (random weights from a
-seed) through ``repro_torch.serve.ServeEngine`` on the paged KV pool
-under the ``exact`` and ``int8`` plans, checking that every request gets
-its tokens, the logits are finite, the prefix cache hits, and that the
-serving run itself launched every kernel.  Any failure raises and exits
-non-zero.  The line before the last is a JSON object with one entry per
-kernel; the last line is the device record.  Needs one CUDA device and
+PyTorch version at the shapes the serving path gives it (the integer
+kernels bit for bit), times it beside its bound, then serves full-width
+stablelm-1.6b (random weights from a seed) through
+``repro_torch.serve.ServeEngine`` on the paged KV pool under the
+``exact``, ``int8``, ``sc`` (bit-true stochastic streams) and ``mixed``
+(int8 qk/pv, stochastic projections) plans, checking that every request
+gets its tokens, the logits are finite, the prefix cache hits where it
+may, and that each serving run itself launched every kernel of its
+plan's path.  Any failure raises and exits non-zero.  The line before
+the last is a JSON object with one entry per kernel; the last line is
+the device record.  Needs one CUDA device and
 the sources of this checkout; imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -27,7 +31,10 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_S = 3.35e12  # H100 SXM: HBM3 bandwidth
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}  # dense tensor-core peaks, per second
+# dense tensor-core peaks, per second; "popc": the CUDA cores' population
+# counts, 16 per clock per SM (CUDA C++ Programming Guide, arithmetic
+# instruction throughput, compute capability 9.0) x 132 SMs x 1980 MHz boost
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "popc": 16 * 132 * 1.98e9}
 D, F, V = 2048, 5632, 100352  # stablelm-1.6b d_model, d_ff, vocab
 BS, HD = 16, 64  # KV block size, head dim
 # (M, K, N) of the int8 GEMMs: one decode step at 8 slots (with how many
@@ -36,6 +43,12 @@ BS, HD = 16, 64  # KV block size, head dim
 DECODE_GEMMS = {(8, D, D): 24 * 4, (8, D, F): 24 * 2, (8, F, D): 24, (8, D, V): 1}
 PREFILL_GEMMS = [(1531, D, D), (3072, D, F), (3072, F, D), (1531, D, V)]
 DECODE_FILLS = [130, 170, 230, 290, 330, 370, 400, 410]  # kv_len of 8 slots mid-run
+# the sc plan runs every weight GEMM of DECODE_GEMMS through bts_encode +
+# stoch_matmul; its admission prefill packs 4 requests of up to 160 tokens
+SC_PREFILL_GEMM = (640, D, F)
+# (B, M, K, N) of the batched int8 qk and pv products of one decode layer
+# under mixed: 8 slots x 32 KV heads, one query row, the 32-block view
+QKPV_DECODE = [(256, 1, HD, 512), (256, 1, 512, HD)]
 # paged attention against its plain version: float32 1e-4 (same math; the
 # kernel takes keys 32-64 at a time and rescales); bf16 2e-2 (the kernel
 # rounds p to bf16 before the PV product, as the reference kernel does;
@@ -90,6 +103,22 @@ def time_ms(fn, reps: int = 10) -> float:
     else:
         raise RuntimeError("the host could not queue the timed launches ahead of the device")
     return sum(a.elapsed_time(b) for a, b in events) / reps
+
+
+def wall_ms(fn, reps: int = 1) -> float:
+    """Mean time of ``reps`` calls on the host's clock, the device
+    synchronized before and after.  For plain versions that launch more
+    small kernels per call than the device's launch queue holds, so the
+    queued-launch method of ``time_ms`` cannot take them; their host gaps
+    are included, which is small beside the hundreds of milliseconds they
+    run."""
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
 
 
 def check_kernels(dev, g) -> None:
@@ -233,6 +262,174 @@ def time_kernels(dev, g, timer=time_ms) -> dict:
     return out
 
 
+def _codes(g, dev, *shape) -> torch.Tensor:
+    """Random int8 codes in [-127, 127], as quantize gives them."""
+    return torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
+
+
+def check_stochastic(dev, g) -> None:
+    """The stochastic kernels and the batched int8 entry against their plain
+    versions on the card, bit for bit: ``bts_encode`` under every generator
+    over every code -127..127 and at ragged, activation and full weight
+    shapes; ``stoch_matmul`` at ragged M/N/K, the decode shapes (M = 8
+    against every weight, the lm_head included), a prefill shape and a
+    batch; the batched int8 GEMM at the decode qk/pv shapes (256 heads,
+    K = 64 and K = the 512-position view) and ragged ones."""
+    from repro_torch.core.bitstream import GENERATORS
+    from repro_torch.kernels.bts_encode import bts_encode
+    from repro_torch.kernels.bts_encode.ref import bts_encode_ref
+    from repro_torch.kernels.int8_matmul import ops as i8
+    from repro_torch.kernels.int8_matmul.ref import int8_matmul_acc_ref
+    from repro_torch.kernels.stoch_matmul import ops as sm
+    from repro_torch.kernels.stoch_matmul.ref import stoch_matmul_packed_ref
+
+    def codes(*shape):
+        return _codes(g, dev, *shape)
+
+    for gen in GENERATORS:
+        shapes = []
+        for q in (torch.arange(-127, 128, dtype=torch.int8, device=dev), codes(37, 50),
+                  codes(1, 3), codes(8, F), codes(D, F)):
+            words, sign = bts_encode(q, gen)
+            want_w, want_s = bts_encode_ref(q, gen)
+            assert torch.equal(words, want_w) and torch.equal(sign, want_s), (gen, q.shape)
+            shapes.append(tuple(q.shape))
+        log(f"[bts encode] {gen} at {shapes} (every code -127..127 first): words and signs "
+            "equal the plain version bit for bit")
+    pairs = [("thermometer", "bresenham"), ("lfsr", "lfsr"), ("bresenham", "thermometer"),
+             ("lfsr", "thermometer")]
+    ragged = [((), 5, 100, 33), ((), 70, 1000, 129), ((), 1, 17, 5), ((), 9, 2048, 200),
+              ((4,), 3, 64, 40)]
+    path = [((), m, k, n) for m, k, n in list(DECODE_GEMMS) + [SC_PREFILL_GEMM]]
+    for i, (lead, m, k, n) in enumerate(ragged + path):
+        x_gen, w_gen = pairs[i % len(pairs)] if i < len(ragged) else pairs[0]
+        xs, sx = bts_encode_ref(codes(*lead, m, k), x_gen)
+        ws, sw = bts_encode_ref(codes(*lead, n, k), w_gen)
+        got = sm.stoch_matmul_packed(xs, sx, ws, sw)
+        assert torch.equal(got, stoch_matmul_packed_ref(xs, sx, ws, sw)), (lead, m, k, n)
+        log(f"[stoch matmul] {'B=%d ' % lead[0] if lead else ''}M={m} K={k} N={n} "
+            f"({x_gen} x {w_gen}): int32 accumulators equal the plain version bit for bit")
+    for b, m, k, n in QKPV_DECODE + [(3, 5, 100, 33), (128, 160, HD, 176)]:
+        x, w_t = codes(b, m, k), codes(b, n, k)
+        assert torch.equal(i8.int8_gemm_batched(x, w_t), int8_matmul_acc_ref(x, w_t)), (b, m, k, n)
+        log(f"[int8 gemm batched] B={b} M={m} K={k} N={n}: int32 accumulators equal the "
+            "plain version bit for bit")
+
+
+def time_stochastic(dev, g, timer=time_ms, plain_timer=wall_ms) -> dict:
+    """The stochastic kernels and the batched int8 entry at the serving
+    path's shapes beside their bounds:
+    the activation encodes and stochastic GEMMs of one ``sc`` decode step
+    (M = 8, every weight GEMM of ``DECODE_GEMMS``), and the batched int8
+    qk/pv products of one ``mixed`` decode step (24 layers x qk, pv)."""
+    from repro_torch.kernels.bts_encode import bts_encode
+    from repro_torch.kernels.bts_encode.ref import bts_encode_ref
+    from repro_torch.kernels.int8_matmul import ops as i8
+    from repro_torch.kernels.int8_matmul.ref import int8_matmul_acc_ref
+    from repro_torch.kernels.stoch_matmul import ops as sm
+    from repro_torch.kernels.stoch_matmul.ref import stoch_matmul_packed_ref
+
+    def codes(*shape):
+        return _codes(g, dev, *shape)
+
+    out = {}
+    k_ms = p_ms = 0.0
+    n_bytes = err = 0
+    for k, count in ((D, 24 * 6 + 1), (F, 24)):  # q,k,v,o,up,gate per layer + lm_head; down
+        q = codes(8, k)
+        w_k, s_k = bts_encode(q, "thermometer")
+        w_p, s_p = bts_encode_ref(q, "thermometer")
+        err = max(err, (w_k.long() - w_p.long()).abs().max().item(),
+                  (s_k.long() - s_p.long()).abs().max().item())
+        t_k = timer(lambda: bts_encode(q, "thermometer"))
+        t_p = timer(lambda: bts_encode_ref(q, "thermometer"), reps=3)
+        k_ms, p_ms, n_bytes = k_ms + count * t_k, p_ms + count * t_p, n_bytes + count * 18 * 8 * k
+        bb, _ = bound_ms(18 * 8 * k, 0, "int8")
+        log(f"[time bts encode] activations 8 x {k} x{count} per step: kernel_ms {t_k:.4f} "
+            f"plain_ms {t_p:.4f} bound_ms {bb:.5f} (bytes)")
+    assert err == 0, ("bts_encode at decode shapes", err)
+    b_ms, b_by = bound_ms(n_bytes, 0, "int8")
+    out["bts_encode"] = dict(
+        name="bts_encode", route="cuda",
+        source="src/repro_torch/kernels/bts_encode/csrc/bts_encode.cu",
+        replaces="src/repro/kernels/bts_encode/kernel.py:54", max_abs_err=float(err),
+        ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    log(f"[time bts encode] all activation encodes of one sc decode step (M=8): kernel_ms "
+        f"{k_ms:.4f} plain_ms {p_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) library_ms none (no "
+        "PyTorch call encodes stochastic streams)")
+    for r, c in ((D, F), (V, D)):  # weight encodes at prepare: up/gate, lm_head
+        q = codes(r, c)
+        t_k = timer(lambda: bts_encode(q, "bresenham"), reps=3)
+        bb, _ = bound_ms(18 * r * c, 0, "int8")
+        log(f"[time bts encode] weight {r} x {c} (bresenham, once at prepare): kernel_ms "
+            f"{t_k:.4f} bound_ms {bb:.4f} (bytes)")
+
+    k_ms = p_ms = 0.0
+    n_bytes = n_ops = err = 0
+    for (m, k, n), count in DECODE_GEMMS.items():
+        xs, sx = bts_encode(codes(m, k), "thermometer")
+        ws, sw = bts_encode(codes(n, k), "bresenham")
+        diff = (sm.stoch_matmul_packed(xs, sx, ws, sw).long()
+                - stoch_matmul_packed_ref(xs, sx, ws, sw).long())
+        err = max(err, diff.abs().max().item())
+        t_k = timer(lambda: sm.stoch_matmul_packed(xs, sx, ws, sw))
+        t_p = plain_timer(lambda: stoch_matmul_packed_ref(xs, sx, ws, sw))
+        nb, ops = 17 * (m + n) * k + 4 * m * n, 4 * m * n * k
+        k_ms, p_ms = k_ms + count * t_k, p_ms + count * t_p
+        n_bytes, n_ops = n_bytes + count * nb, n_ops + count * ops
+        bb, by = bound_ms(nb, ops, "popc")
+        log(f"[time stoch matmul] M={m} K={k} N={n} x{count} per step: kernel_ms {t_k:.4f} "
+            f"plain_ms {t_p:.4f} bound_ms {bb:.4f} ({by}; bytes alone "
+            f"{nb / HBM_BYTES_S * 1e3:.4f})")
+        del xs, sx, ws, sw, diff
+    assert err == 0, ("stoch_matmul at decode shapes", err)
+    b_ms, b_by = bound_ms(n_bytes, n_ops, "popc")
+    out["stoch_matmul_packed"] = dict(
+        name="stoch_matmul_packed", route="cuda",
+        source="src/repro_torch/kernels/stoch_matmul/csrc/stoch_matmul.cu",
+        replaces="src/repro/kernels/stoch_matmul/kernel.py:50", max_abs_err=float(err),
+        ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    log(f"[time stoch matmul] all weight GEMMs of one sc decode step (M=8): kernel_ms "
+        f"{k_ms:.4f} plain_ms {p_ms:.4f} bound_ms {b_ms:.4f} ({b_by}; bytes alone "
+        f"{n_bytes / HBM_BYTES_S * 1e3:.4f}) library_ms none (no PyTorch call computes an "
+        "AND-popcount product); kernel "
+        f"{n_ops / max(k_ms, 1e-9) / 1e9:.2f} T popc/s of {PEAK_OPS['popc'] / 1e12:.2f}")
+    m, k, n = SC_PREFILL_GEMM
+    xs, sx = bts_encode(codes(m, k), "thermometer")
+    ws, sw = bts_encode(codes(n, k), "bresenham")
+    t_k = timer(lambda: sm.stoch_matmul_packed(xs, sx, ws, sw), reps=3)
+    bb, by = bound_ms(17 * (m + n) * k + 4 * m * n, 4 * m * n * k, "popc")
+    log(f"[time stoch matmul] prefill M={m} K={k} N={n}: kernel_ms {t_k:.4f} bound_ms "
+        f"{bb:.4f} ({by}); kernel {4 * m * n * k / max(t_k, 1e-9) / 1e9:.2f} T popc/s")
+    del xs, sx, ws, sw
+
+    k_ms = p_ms = 0.0
+    n_bytes = ops = err = 0
+    for b, m, k, n in QKPV_DECODE:
+        x, w_t = codes(b, m, k), codes(b, n, k)
+        diff = i8.int8_gemm_batched(x, w_t).long() - int8_matmul_acc_ref(x, w_t).long()
+        err = max(err, diff.abs().max().item())
+        t_k = timer(lambda: i8.int8_gemm_batched(x, w_t))
+        t_p = timer(lambda: int8_matmul_acc_ref(x, w_t), reps=3)
+        k_ms, p_ms = k_ms + 24 * t_k, p_ms + 24 * t_p
+        n_bytes += 24 * (b * (m + n) * k + 4 * b * m * n)
+        ops += 24 * 2 * b * m * n * k
+        log(f"[time int8 gemm batched] B={b} M={m} K={k} N={n} x24 per step: kernel_ms "
+            f"{t_k:.4f} plain_ms {t_p:.4f}")
+    assert err == 0, ("int8 gemm batched at decode shapes", err)
+    b_ms, b_by = bound_ms(n_bytes, ops, "int8")
+    out["int8_gemm_batched"] = dict(
+        name="int8_gemm_batched", route="cuda",
+        source="src/repro_torch/kernels/int8_matmul/csrc/int8_matmul.cu",
+        replaces="src/repro/kernels/int8_matmul/kernel.py:38", max_abs_err=float(err),
+        ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    log(f"[time int8 gemm batched] all qk/pv products of one mixed decode step: kernel_ms "
+        f"{k_ms:.4f} plain_ms {p_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) library_ms none "
+        "(no single PyTorch call gives a batch of int8 products in int32: torch._int_mm "
+        "takes one 2-D product)")
+    return out
+
+
 def make_prompts(vocab: int, rng) -> list:
     """12 prompts of 96-384 tokens; six share a 256-token prefix, and three
     of those (8-10) are admitted only after the first retirements, so
@@ -245,9 +442,28 @@ def make_prompts(vocab: int, rng) -> list:
             for i, n in enumerate(lens)]
 
 
-def serve(cfg, params, prompts, dev, gen: int = 32, max_len: int = 512) -> dict:
-    """Phase 6: the engine under both plans; returns, for each plan, the
-    launches per kernel as counted inside that serving run only."""
+def make_sc_prompts(vocab: int, rng) -> list:
+    """4 prompts of 64-160 tokens: the stochastic plans' request set, sized
+    so their bit-true prefill stays a few seconds."""
+    return [rng.integers(0, vocab, n, dtype=np.int32) for n in (160, 64, 128, 96)]
+
+
+# the kernels each plan's serving path must launch: qk/pv run in the paged
+# kernel when exact; under mixed they are int8 and take the gathered view
+PLAN_KERNELS = {
+    "exact": ("paged_attention_decode", "paged_attention_prefill"),
+    "int8": ("paged_attention_decode", "paged_attention_prefill", "int8_gemm"),
+    "sc": ("paged_attention_decode", "paged_attention_prefill", "bts_encode",
+           "stoch_matmul_packed"),
+    "mixed": ("bts_encode", "stoch_matmul_packed", "int8_gemm_batched"),
+}
+
+
+def serve(cfg, params, prompts, dev, plans, gen: int, max_len: int = 512) -> dict:
+    """Phase 6: the engine under each plan; returns, for each plan, the
+    launches per kernel as counted inside that serving run only.  One
+    plan's prepared weight caches (int8 codes, streams) are freed before
+    the next plan's are made."""
     from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.models.model import Model
     from repro_torch.models.transformer import ModelOptions
@@ -256,9 +472,14 @@ def serve(cfg, params, prompts, dev, gen: int = 32, max_len: int = 512) -> dict:
     serve_cfg = ServeConfig(max_slots=8, max_len=max_len, chunk_steps=8, kv_block_size=BS,
                             attn_impl="flash", seed=0)
     by_plan = {}
-    for plan in ("exact", "int8"):
+    for plan in plans:
         model = Model(cfg, ModelOptions(plan=plan, attn_impl="flash"), device=dev)
-        ServeEngine(model, params, serve_cfg, device=dev).generate_batch(prompts[1:2], 2)
+        warm = ServeEngine(model, params, serve_cfg, device=dev)
+        warm.generate_batch(prompts[1:2], 2)
+        del warm
+        _free(dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
         engine = ServeEngine(model, params, serve_cfg, device=dev)  # fresh: no warm prefix
         _sync(dev)
         reset_launches()
@@ -271,9 +492,8 @@ def serve(cfg, params, prompts, dev, gen: int = 32, max_len: int = 512) -> dict:
         assert all(((o.tokens >= 0) & (o.tokens < cfg.vocab)).all() for o in outs)
         ps, st = engine.prefix_stats, engine.phase_stats
         if dev.type == "cuda":
-            assert counts["paged_attention_decode"] > 0, counts
-            assert counts["paged_attention_prefill"] > 0, counts
-            assert plan == "exact" or counts["int8_gemm"] > 0, counts
+            missing = [k for k in PLAN_KERNELS[plan] if counts[k] == 0]
+            assert not missing, (plan, "kernels of the path never launched", missing, counts)
         if plan == "exact":
             assert ps["hits"] > 0, ps
         else:
@@ -289,14 +509,15 @@ def serve(cfg, params, prompts, dev, gen: int = 32, max_len: int = 512) -> dict:
             f"{ps or 'off'}; launches {counts}; peak memory {peak:.1f} GiB")
         by_plan[plan] = counts
         del engine
+        _free(dev)
     return by_plan
 
 
-def profile_decode_chunk(cfg, params, prompts, dev) -> None:
+def profile_decode_chunk(cfg, params, prompts, dev, plans) -> None:
     """Where a decode chunk's time goes: one engine round of 8 decode steps
-    at 8 busy slots under ``torch.profiler`` — host time of the round
-    against the device time of the kernels it ran (their sum over the
-    round; the rest of the round the device is idle)."""
+    (8 slots, up to 8 of them busy) under ``torch.profiler`` — host time of
+    the round against the device time of the kernels it ran (their sum over
+    the round; the rest of the round the device is idle)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models.model import Model
@@ -305,7 +526,8 @@ def profile_decode_chunk(cfg, params, prompts, dev) -> None:
 
     serve_cfg = ServeConfig(max_slots=8, max_len=512, chunk_steps=8, kv_block_size=BS,
                             attn_impl="flash")
-    for plan in ("exact", "int8"):
+    busy = min(8, len(prompts))
+    for plan in plans:
         model = Model(cfg, ModelOptions(plan=plan, attn_impl="flash"), device=dev)
         engine = ServeEngine(model, params, serve_cfg, device=dev)
         for p in prompts[:8]:
@@ -314,7 +536,7 @@ def profile_decode_chunk(cfg, params, prompts, dev) -> None:
         _sync(dev)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            engine.step()  # a pure decode chunk: 8 steps x 8 slots
+            engine.step()  # a pure decode chunk: 8 steps
             _sync(dev)
             host_ms = (time.perf_counter() - t0) * 1e3
         rows = [(getattr(e, "self_device_time_total", 0.0), e.key, e.count)
@@ -322,10 +544,12 @@ def profile_decode_chunk(cfg, params, prompts, dev) -> None:
         dev_ms = sum(r[0] for r in rows) / 1e3
         top = sorted(rows, reverse=True)[:5]
         share = f"{dev_ms / host_ms:.1%}" if dev_ms > 0 else "not measured"
-        log(f"[profile {plan}] one decode chunk (8 steps x 8 slots): host {host_ms:.1f} ms "
+        log(f"[profile {plan}] one decode chunk (8 steps x 8 slots, {busy} busy): host "
+            f"{host_ms:.1f} ms "
             f"(profiled), device kernels {dev_ms:.2f} ms, device busy {share}; top: "
             + "; ".join(f"{k[:48]} {t / 1e3:.2f} ms x{c}" for t, k, c in top))
         del engine
+        _free(dev)
 
 
 def flash_vs_naive(cfg, params, prompts, dev) -> None:
@@ -369,8 +593,9 @@ def flash_vs_naive(cfg, params, prompts, dev) -> None:
 def small_card_vs_cpu(dev) -> None:
     """A reduced float32 stablelm served with the kernels on ``dev`` and with
     their plain versions on the CPU: greedy tokens must agree (all of them
-    under exact; under int8 a last-bit difference in an activation can move
-    one code, so 90%)."""
+    under exact; under int8, sc and mixed the integer products are exact
+    given the codes, but a last-bit difference in a float activation can
+    move one code, so 90%)."""
     from repro_torch.configs import get_arch
     from repro_torch.models.model import Model
     from repro_torch.models.transformer import ModelOptions
@@ -381,7 +606,7 @@ def small_card_vs_cpu(dev) -> None:
     prompts = [rng.integers(0, small.vocab, n, dtype=np.int32) for n in (5, 19, 12, 33, 8)]
     scfg = ServeConfig(max_slots=3, max_len=64, chunk_steps=4, kv_block_size=8)
     params = Model(small, device="cpu").init(seed=3)
-    for plan in ("exact", "int8"):
+    for plan in ("exact", "int8", "sc", "mixed"):
         toks = {}
         for where in ("cpu", dev):
             m = Model(small, ModelOptions(plan=plan, attn_impl="flash"), device=where)
@@ -400,6 +625,13 @@ def _to(tree, device):
     if isinstance(tree, list):
         return [_to(v, device) for v in tree]
     return tree.to(device)
+
+
+def _free(dev) -> None:
+    """Drop what the last engine held (its prepared weight caches)."""
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
 
 
 def _sync(dev) -> None:
@@ -438,21 +670,25 @@ def main() -> None:
 
     g = torch.Generator(device=dev).manual_seed(1234)
     check_kernels(dev, g)
-    kernels = time_kernels(dev, g)
+    check_stochastic(dev, g)
+    kernels = {**time_kernels(dev, g), **time_stochastic(dev, g)}
 
     cfg = get_arch("stablelm-1.6b")
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff, cfg.vocab,
             cfg.dtype) == (24, 2048, 32, 64, 5632, 100352, "bfloat16")
     params = Model(cfg, device=dev).init(seed=0)
     prompts = make_prompts(cfg.vocab, np.random.default_rng(0))
-    launches = serve(cfg, params, prompts, dev)
-    profile_decode_chunk(cfg, params, prompts, dev)
+    launches = serve(cfg, params, prompts, dev, ("exact", "int8"), gen=32)
+    profile_decode_chunk(cfg, params, prompts, dev, ("exact", "int8"))
     flash_vs_naive(cfg, params, prompts, dev)
+    sc_prompts = make_sc_prompts(cfg.vocab, np.random.default_rng(1))
+    launches.update(serve(cfg, params, sc_prompts, dev, ("sc", "mixed"), gen=16))
+    profile_decode_chunk(cfg, params, sc_prompts, dev, ("sc", "mixed"))
     del params
     torch.cuda.empty_cache()
     small_card_vs_cpu(dev)
 
-    # launches: summed over the two serving runs; launches_by_plan: each run's own
+    # launches: summed over the four serving runs; launches_by_plan: each run's own
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_plan",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for name, rec in kernels.items():

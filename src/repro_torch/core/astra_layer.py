@@ -5,18 +5,23 @@ single entry point every model GEMM goes through:
 
 * ``exact`` — ``torch.matmul(x, w.to(x.dtype))``;
 * ``int8``  — ASTRA's expectation: per-tensor int8 activations,
-  per-output-channel int8 weights, an exact int32 product and dequant.
-  On a CUDA tensor the product always runs the hand-written int8 kernel
-  (``kernels.int8_matmul``) whatever ``use_pallas`` says — the reference's
-  kernel and its XLA path are bit-identical; on a CPU tensor it runs the
-  kernel's plain version;
-* ``sc``    — the bit-true stochastic-stream mode, not ported yet.
+  per-output-channel int8 weights, an exact int32 product and dequant;
+* ``sc``    — the bit-true stochastic-stream mode: the same codes become
+  128-bit streams (``x_gen`` for activations, ``w_gen`` for weights) and
+  the OSSM array ANDs, popcounts and sums them with their signs.
+
+On a CUDA tensor the products always run the hand-written kernels
+(``kernels.int8_matmul``; ``kernels.bts_encode`` and
+``kernels.stoch_matmul``) whatever ``use_pallas`` says — the reference's
+kernels and its jnp paths are bit-identical; on a CPU tensor they run the
+kernels' plain versions.
 
 ``cc`` is a plain :class:`ComputeConfig` or a :class:`BoundSite` (a named
 GEMM site bound to an :class:`~repro_torch.core.plan.ExecutionPlan`).
-Weights may come with their int8 codes cached (``wq_t``: codes ``[N, K]``
-and scales ``[1, N]``, exactly ``quantize(w, axis=0)`` transposed) and a
-cast copy (``wc``), computed once at load instead of every call.
+Weights may come with caches computed once at load instead of every call:
+int8 codes (``wq_t``: codes ``[N, K]`` and scales ``[1, N]``, exactly
+``quantize(w, axis=0)`` transposed), their streams (``wsc_t``, a
+:class:`~repro_torch.core.ossm.WeightStreams`) and a cast copy (``wc``).
 """
 from __future__ import annotations
 
@@ -25,11 +30,11 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from repro_torch.core.bitstream import STREAM_LEN
+from repro_torch.core.ossm import WeightStreams
 from repro_torch.core.quant import QTensor, quantize
 
 MODES = ("exact", "int8", "sc")
-SC_TODO = ("the 'sc' stochastic-stream mode is not ported yet (ROADMAP queue 1: "
-           "sc mode with bts_encode and stoch_matmul)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,36 +84,74 @@ def quantize_weight_t(w: torch.Tensor) -> QTensor:
     return QTensor(wq.q.t().contiguous(), wq.scale)
 
 
+def encode_weight_t(w: torch.Tensor, w_gen: str) -> WeightStreams:
+    """The streams of ``quantize(w [K, N], axis=0)``'s codes under
+    ``w_gen``, K-contiguous (``[N, K, 4]`` words, ``[N, K]`` signs), with
+    the scales ``[1, N]`` — what the ``sc`` mode encodes from ``w``."""
+    from repro_torch.kernels.bts_encode import bts_encode
+
+    wq_t = quantize_weight_t(w)
+    words, sign = bts_encode(wq_t.q, w_gen)
+    return WeightStreams(words, sign, wq_t.scale, w_gen)
+
+
 def astra_matmul(x: torch.Tensor, w: torch.Tensor,
                  cc: Union[ComputeConfig, BoundSite] = EXACT, *,
                  wq_t: Optional[QTensor] = None,
+                 wsc_t: Optional[WeightStreams] = None,
                  wc: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``[..., K] @ [K, N]`` under the site's execution mode."""
     cc = resolve_cc(cc)
     if cc.mode == "exact":
         w_x = wc if wc is not None and wc.dtype == x.dtype else w.to(x.dtype)
         return torch.matmul(x, w_x)
-    if cc.mode == "sc":
-        raise NotImplementedError(SC_TODO)
-    from repro_torch.kernels.int8_matmul.ops import int8_matmul_t
-
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     xq = quantize(x2, axis=None, scale=cc.act_scale)
-    if wq_t is None:
-        wq_t = quantize_weight_t(w)
-    out = int8_matmul_t(xq, wq_t)
+    if cc.mode == "int8":
+        from repro_torch.kernels.int8_matmul.ops import int8_matmul_t
+
+        out = int8_matmul_t(xq, wq_t if wq_t is not None else quantize_weight_t(w))
+    else:
+        from repro_torch.kernels.stoch_matmul.ops import stoch_matmul
+
+        if wsc_t is None or wsc_t.gen != cc.w_gen:
+            wsc_t = encode_weight_t(w, cc.w_gen)
+        out = stoch_matmul(xq, wsc_t, cc.x_gen)
     return out.reshape(*lead, w.shape[-1]).to(x.dtype)
 
 
 def astra_batched_matmul(x: torch.Tensor, w: torch.Tensor,
                          cc: Union[ComputeConfig, BoundSite]) -> torch.Tensor:
-    """Batched GEMM with a per-batch second operand (attention qk/pv).
+    """Batched GEMM with a per-batch second operand: ``[..., M, K] @
+    [..., K, N]`` with shared leading dims (the attention qk/pv products).
 
-    Exact only in this slice; a quantized dynamic site raises until its
-    slice lands (the uniform ``int8`` plan pins qk/pv to exact)."""
+    Exact mode is a plain matmul.  A quantized mode gives each batch
+    element (each slot and KV head) its own per-tensor ``x`` scale and its
+    own per-output-column ``w`` scale, as the reference's ``vmap`` of
+    ``astra_matmul`` does, and runs every element's product in one launch
+    of the batched int8 or stochastic kernel."""
     if runs_exact(cc):
         return torch.matmul(x, w.to(x.dtype))
-    raise NotImplementedError(
-        f"quantized dynamic GEMM sites ({resolve_cc(cc).mode} qk/pv, e.g. the "
-        "'mixed' preset) are not ported yet (ROADMAP queue 1)")
+    cc = resolve_cc(cc)
+    lead = x.shape[:-2]
+    m, k = x.shape[-2:]
+    n = w.shape[-1]
+    xf = x.reshape(-1, m, k)
+    wf = w.broadcast_to(*lead, k, n).reshape(-1, k, n)
+    xq = quantize(xf, axis=(1, 2), scale=cc.act_scale)
+    wq = quantize(wf, axis=1)  # [B, 1, N]
+    w_t = wq.q.transpose(1, 2).contiguous()  # [B, N, K]
+    if cc.mode == "int8":
+        from repro_torch.kernels.int8_matmul.ops import int8_gemm_batched
+
+        out = (int8_gemm_batched(xq.q, w_t).to(torch.float32) * xq.scale) * wq.scale
+    else:
+        from repro_torch.kernels.bts_encode import bts_encode
+        from repro_torch.kernels.stoch_matmul.ops import stoch_matmul_packed
+
+        xs, sx = bts_encode(xq.q, cc.x_gen)
+        ws, sw = bts_encode(w_t, cc.w_gen)
+        acc = stoch_matmul_packed(xs, sx, ws, sw)
+        out = acc.to(torch.float32) * STREAM_LEN * xq.scale * wq.scale
+    return out.reshape(*lead, m, n).to(x.dtype)

@@ -7,11 +7,16 @@ counter) and ``ref.py`` (the plain PyTorch version of the same function).
 On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
 launches the kernel or raises.
 
-* ``int8_matmul``     — int8 x int8 -> int32 GEMM on the tensor cores
+* ``int8_matmul``     — int8 x int8 -> int32 GEMM on the tensor cores,
+  one product or a batch of them per launch
   (replaces ``repro.kernels.int8_matmul``)
 * ``paged_attention`` — streaming-softmax decode and causal suffix
   prefill straight from the paged KV pool through the block table
   (replaces ``repro.kernels.paged_attention.paged_attention_kernel``)
+* ``bts_encode``      — the B-to-S encoder: int8 codes -> packed 128-bit
+  stochastic streams and signs (replaces ``repro.kernels.bts_encode``)
+* ``stoch_matmul``    — the OSSM array: AND, popcount and signed sum of
+  packed streams (replaces ``repro.kernels.stoch_matmul``)
 
 ``kernel_wrappers``, ``reset_launches`` and ``launch_counts`` read and
 clear every wrapper's launch counter, so a harness can count what one
@@ -21,14 +26,19 @@ run launched.
 
 def kernel_wrappers() -> dict:
     """Every counted kernel wrapper, by name."""
-    from repro_torch.kernels.int8_matmul.ops import int8_gemm
+    from repro_torch.kernels.bts_encode.ops import bts_encode
+    from repro_torch.kernels.int8_matmul.ops import int8_gemm, int8_gemm_batched
     from repro_torch.kernels.paged_attention.ops import (
         paged_attention_decode, paged_attention_prefill,
     )
+    from repro_torch.kernels.stoch_matmul.ops import stoch_matmul_packed
     return {
         "paged_attention_decode": paged_attention_decode,
         "paged_attention_prefill": paged_attention_prefill,
         "int8_gemm": int8_gemm,
+        "int8_gemm_batched": int8_gemm_batched,
+        "bts_encode": bts_encode,
+        "stoch_matmul_packed": stoch_matmul_packed,
     }
 
 

@@ -1,4 +1,5 @@
-"""Build hand-written CUDA kernels with ``nvcc`` and bind them with ctypes.
+"""Build hand-written CUDA kernels with ``nvcc`` and bind them with ctypes;
+the launch helpers the wrappers share (``check``, ``sm_count``, ``split_k``).
 
 Each kernel package keeps its sources under ``csrc/``.  At first use the
 sources are compiled for Hopper (``sm_90a``) into a shared library with a
@@ -15,6 +16,7 @@ not the sum.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -32,6 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LIBRARIES: Dict[str, Tuple[str, ...]] = {
     "int8_matmul": ("int8_matmul/csrc/int8_matmul.cu",),
     "paged_attention": ("paged_attention/csrc/paged_attention.cu",),
+    "bts_encode": ("bts_encode/csrc/bts_encode.cu",),
+    "stoch_matmul": ("stoch_matmul/csrc/stoch_matmul.cu",),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -110,3 +114,25 @@ def check(rc: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a launch function."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def split_k(blocks: int, k: int, step: int, want: int) -> Tuple[int, int]:
+    """(K per split, number of splits) for a kernel whose ``blocks`` output
+    tiles walk K in ``step``s: when they are fewer than ``want`` blocks, K
+    is split across more blocks (each split a multiple of ``step`` and at
+    least two steps long) whose int32 partial sums meet by atomic add,
+    which is exact in any order."""
+    splits = 1
+    if blocks < want:
+        splits = max(1, min(-(-want // blocks), -(-k // (2 * step))))
+    kps = -(-k // splits)
+    kps = -(-kps // step) * step
+    return kps, -(-k // kps)

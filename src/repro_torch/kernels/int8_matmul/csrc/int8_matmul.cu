@@ -17,10 +17,13 @@
 // tiles (row pitch 80 bytes: the eight fragment rows land on distinct
 // banks).  Ragged M/N/K edges are zero-filled in the tile loads and masked
 // in the stores, so callers pass tensors as they are, without padding.
-// Decode-sized problems (M <= 16) take a 16-row tile, and when the output
+// Decode-sized problems (M <= 16) take a 16-row tile.  When the output
 // tiles alone cannot fill the SMs, gridDim.z splits K: partial sums meet
 // through atomicAdd on int32, which is exact in any order, so the result
-// stays bit-identical to the plain version.  Not yet here: wgmma, TMA and
+// stays bit-identical to the plain version.  A separate instantiation runs
+// gridDim.z over a batch of independent products as well (the attention
+// qk/pv products of every slot and KV head under a quantized plan, one
+// launch per layer and site).  Not yet here: wgmma, TMA and
 // a multi-stage pipeline (loads and math of one block do not overlap).
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -68,10 +71,10 @@ __device__ __forceinline__ void load_tile(int8_t* smem, const int8_t* __restrict
   }
 }
 
-template <int BM, int BN, int WM, int WN>
+template <int BM, int BN, int WM, int WN, bool BATCHED>
 __global__ void __launch_bounds__(THREADS)
 int8_gemm_kernel(const int8_t* __restrict__ X, const int8_t* __restrict__ Wt,
-                 int32_t* __restrict__ C, int M, int N, int K, int kps) {
+                 int32_t* __restrict__ C, int M, int N, int K, int kps, int splits) {
   static_assert(WM * WN * 32 == THREADS, "four warps per block");
   constexpr int WTM = BM / WM, WTN = BN / WN;  // warp tile
   constexpr int TM = WTM / 16, TN = WTN / 8;   // mma tiles per warp
@@ -83,7 +86,20 @@ int8_gemm_kernel(const int8_t* __restrict__ X, const int8_t* __restrict__ Wt,
   const int g = lane >> 2, t = lane & 3;  // mma fragment group / thread-in-group
   const int wm = warp / WN, wn = warp % WN;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int k_begin = blockIdx.z * kps;
+  int k_split = blockIdx.z;
+  if constexpr (BATCHED) {
+    // blockIdx.z = batch element * splits + K split; batch elements are
+    // contiguous [M, K], [N, K] and [M, N] matrices one after another.
+    // (A separate instantiation: carrying these offsets cost the
+    // single-product kernel 15-27% at prefill shapes on an H100, as
+    // chip_smoke.py timed it with and without them.)
+    const int batch = blockIdx.z / splits;
+    k_split = blockIdx.z % splits;
+    X += (size_t)batch * M * K;
+    Wt += (size_t)batch * N * K;
+    C += (size_t)batch * M * N;
+  }
+  const int k_begin = k_split * kps;
   const int k_end = min(K, k_begin + kps);
   const bool vec = (K % 16) == 0;
 
@@ -126,7 +142,7 @@ int8_gemm_kernel(const int8_t* __restrict__ X, const int8_t* __restrict__ Wt,
     __syncthreads();
   }
 
-  const bool split = gridDim.z > 1;
+  const bool split = BATCHED ? splits > 1 : gridDim.z > 1;
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
@@ -146,20 +162,25 @@ int8_gemm_kernel(const int8_t* __restrict__ X, const int8_t* __restrict__ Wt,
 
 }  // namespace
 
-// x [M,K] int8, wt [N,K] int8, c [M,N] int32 (zeroed by the caller when
-// splits > 1).  cfg 0: 16x64 tiles (decode), cfg 1: 64x128 tiles.
-extern "C" int int8_gemm_launch(const void* x, const void* wt, void* c, int M, int N,
-                                int K, int kps, int splits, int cfg, void* stream) {
+// x [B,M,K] int8, wt [B,N,K] int8, c [B,M,N] int32 (zeroed by the caller
+// when splits > 1): B independent products in one launch.  cfg 0: 16x64
+// tiles (decode), cfg 1: 64x128 tiles.
+extern "C" int int8_gemm_batched_launch(const void* x, const void* wt, void* c, int B, int M,
+                                        int N, int K, int kps, int splits, int cfg,
+                                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int8_t* X = static_cast<const int8_t*>(x);
   const int8_t* W = static_cast<const int8_t*>(wt);
   int32_t* C = static_cast<int32_t*>(c);
-  if (cfg == 0) {
-    dim3 grid((N + 63) / 64, (M + 15) / 16, splits);
-    int8_gemm_kernel<16, 64, 1, 4><<<grid, THREADS, 0, s>>>(X, W, C, M, N, K, kps);
-  } else {
-    dim3 grid((N + 127) / 128, (M + 63) / 64, splits);
-    int8_gemm_kernel<64, 128, 2, 2><<<grid, THREADS, 0, s>>>(X, W, C, M, N, K, kps);
-  }
+  const dim3 grid0((N + 63) / 64, (M + 15) / 16, B * splits);
+  const dim3 grid1((N + 127) / 128, (M + 63) / 64, B * splits);
+  if (cfg == 0 && B == 1)
+    int8_gemm_kernel<16, 64, 1, 4, false><<<grid0, THREADS, 0, s>>>(X, W, C, M, N, K, kps, splits);
+  else if (cfg == 0)
+    int8_gemm_kernel<16, 64, 1, 4, true><<<grid0, THREADS, 0, s>>>(X, W, C, M, N, K, kps, splits);
+  else if (B == 1)
+    int8_gemm_kernel<64, 128, 2, 2, false><<<grid1, THREADS, 0, s>>>(X, W, C, M, N, K, kps, splits);
+  else
+    int8_gemm_kernel<64, 128, 2, 2, true><<<grid1, THREADS, 0, s>>>(X, W, C, M, N, K, kps, splits);
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,6 +11,6 @@ import torch
 
 
 def int8_matmul_acc_ref(x: torch.Tensor, w_t: torch.Tensor) -> torch.Tensor:
-    """int8 ``x [M, K]`` times int8 ``w_t [N, K]`` (K-contiguous weight)
-    -> exact int32 accumulator ``[M, N]``."""
-    return (x.to(torch.float64) @ w_t.to(torch.float64).t()).to(torch.int32)
+    """int8 ``x [..., M, K]`` times int8 ``w_t [..., N, K]`` (K-contiguous
+    weight) -> exact int32 accumulator ``[..., M, N]``."""
+    return (x.to(torch.float64) @ w_t.to(torch.float64).transpose(-1, -2)).to(torch.int32)

@@ -10,7 +10,10 @@ through the paged-attention kernel.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \
       --mode int8 --batch 12 --prompt-mix 96,256,384 --gen 32 --max-slots 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \
+      --mode sc --batch 4 --prompt-mix 64,160 --gen 16 --max-slots 8
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu --gen 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu --plan mixed
 """
 from __future__ import annotations
 

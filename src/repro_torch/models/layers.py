@@ -4,8 +4,9 @@ Plain functions on tensors with parameters in nested dicts.  Every GEMM
 goes through :func:`dense` -> ``core.astra_matmul`` so the execution plan
 decides its mode per site.  A dense parameter dict holds the float32
 master ``w`` (``[d_in, d_out]``) and optional ``b``; ``prepare`` in
-``models.transformer`` may add ``wq_t`` (cached int8 codes) and ``wc``
-(a cast copy in the model dtype), which :func:`dense` passes along.
+``models.transformer`` may add ``wq_t`` (cached int8 codes), ``wsc_t``
+(cached streams) and ``wc`` (a cast copy in the model dtype), which
+:func:`dense` passes along.
 """
 from __future__ import annotations
 
@@ -34,7 +35,7 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, bias: bool = False,
 
 
 def dense(p, x: torch.Tensor, cc: SiteOrCC = EXACT) -> torch.Tensor:
-    y = astra_matmul(x, p["w"], cc, wq_t=p.get("wq_t"), wc=p.get("wc"))
+    y = astra_matmul(x, p["w"], cc, wq_t=p.get("wq_t"), wsc_t=p.get("wsc_t"), wc=p.get("wc"))
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y
@@ -137,5 +138,7 @@ def head_apply(p, emb_p, x: torch.Tensor, cfg: ArchConfig, cc: SiteOrCC = EXACT)
     embedding table transposed (its cached codes live beside it)."""
     if cfg.tie_embeddings:
         return astra_matmul(x, emb_p["table"].t(), cc, wq_t=emb_p.get("head_wq_t"),
+                            wsc_t=emb_p.get("head_wsc_t"),
                             wc=emb_p.get("head_wc")).to(torch.float32)
-    return astra_matmul(x, p["w"], cc, wq_t=p.get("wq_t"), wc=p.get("wc")).to(torch.float32)
+    return astra_matmul(x, p["w"], cc, wq_t=p.get("wq_t"), wsc_t=p.get("wsc_t"),
+                        wc=p.get("wc")).to(torch.float32)

@@ -5,7 +5,8 @@ division, half-to-even rounding, clip), including the example the
 reference's round-trip property pins (``amax_milli=1, seed=0``) — only
 the codes are compared there, the bound itself is the reference's open
 issue.  ``astra_matmul`` under ``int8`` is then bit-identical too, and
-plan resolution and the site registries must agree exactly.
+plan resolution and the site registries must agree exactly.  The ``sc``
+mode and quantized dynamic sites are held in ``test_torch_sc.py``.
 """
 import dataclasses
 
@@ -18,6 +19,7 @@ import numpy as np  # noqa: E402
 
 from repro.configs import ARCHS as JAX_ARCHS  # noqa: E402
 from repro.core.astra_layer import ComputeConfig as JaxCC  # noqa: E402
+from repro.core.astra_layer import astra_batched_matmul as jax_astra_batched_matmul  # noqa: E402
 from repro.core.astra_layer import astra_matmul as jax_astra_matmul  # noqa: E402
 from repro.core.plan import ExecutionPlan as JaxPlan  # noqa: E402
 from repro.core.plan import kv_sites as jax_kv_sites  # noqa: E402
@@ -85,15 +87,22 @@ def test_astra_matmul_int8_bit_exact(rng, act_scale):
 
 
 def test_astra_matmul_exact_and_unported_modes(rng):
+    """Exact is a plain matmul; the modes the first slice refused (``sc``,
+    and quantized qk/pv under ``mixed``) now run and give the reference's
+    values."""
     x = rng.standard_normal((3, 16)).astype(np.float32)
     w = rng.standard_normal((16, 8)).astype(np.float32)
     got = astra_matmul(torch.from_numpy(x), torch.from_numpy(w), ComputeConfig("exact"))
     np.testing.assert_allclose(got.numpy(), x @ w, rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="sc"):
-        astra_matmul(torch.from_numpy(x), torch.from_numpy(w), ComputeConfig("sc"))
-    plan = ExecutionPlan.from_spec("mixed")
-    with pytest.raises(NotImplementedError, match="mixed"):
-        astra_batched_matmul(torch.from_numpy(x), torch.from_numpy(w), plan.site("L0.attn.qk"))
+    got = astra_matmul(torch.from_numpy(x), torch.from_numpy(w), ComputeConfig("sc"))
+    want = jax_astra_matmul(jnp.asarray(x), jnp.asarray(w), JaxCC("sc"))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    plan, jplan = ExecutionPlan.from_spec("mixed"), JaxPlan.from_spec("mixed")
+    got = astra_batched_matmul(torch.from_numpy(x)[None], torch.from_numpy(w)[None],
+                               plan.site("L0.attn.qk"))
+    want = jax_astra_batched_matmul(jnp.asarray(x)[None], jnp.asarray(w)[None],
+                                    jplan.site("L0.attn.qk"))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 @pytest.mark.parametrize("spec", ["exact", "int8", "mixed", "sc",

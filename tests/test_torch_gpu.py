@@ -7,8 +7,9 @@ without JAX:
 
   PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 
-Tolerances: int8 accumulators bit-exact; paged attention float32 1e-5
-(same math, keys streamed in chunks with rescaling), bf16 2e-2 (the
+Tolerances: int8 accumulators (one product or a batch), stream words,
+signs and stochastic accumulators bit-exact; paged attention float32
+1e-5 (same math, keys streamed in chunks with rescaling), bf16 2e-2 (the
 kernel rounds p to bf16 before the PV product, like the reference
 kernel; the plain version keeps p in float32).
 """
@@ -17,12 +18,17 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core.bitstream import GENERATORS  # noqa: E402
+from repro_torch.kernels.bts_encode import bts_encode  # noqa: E402
+from repro_torch.kernels.bts_encode.ref import bts_encode_ref  # noqa: E402
 from repro_torch.kernels.int8_matmul import ops as int8_ops  # noqa: E402
 from repro_torch.kernels.int8_matmul.ref import int8_matmul_acc_ref  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pa_ops  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
     paged_decode_ref, paged_prefill_ref,
 )
+from repro_torch.kernels.stoch_matmul import ops as sm_ops  # noqa: E402
+from repro_torch.kernels.stoch_matmul.ref import stoch_matmul_packed_ref  # noqa: E402
 
 
 def _paged_inputs(rng, b, kvh, g, hd, bs, w, n_blocks):
@@ -74,3 +80,43 @@ def test_paged_kernels_match_plain_on_card(cuda, dtype, g):
     got = pa_ops.paged_attention_prefill(tqs, tk, tv, tt, ts).float()
     want = paged_prefill_ref(tqs, tk, tv, tt, ts)
     torch.testing.assert_close(got, want, atol=tol, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,m,k,n", [(256, 1, 64, 512), (256, 1, 512, 64), (64, 37, 64, 130),
+                                     (3, 5, 100, 33)])
+def test_int8_batched_kernel_bit_exact_on_card(cuda, b, m, k, n):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randint(-127, 128, (b, m, k), generator=g, device=cuda, dtype=torch.int8)
+    w_t = torch.randint(-127, 128, (b, n, k), generator=g, device=cuda, dtype=torch.int8)
+    assert torch.equal(int8_ops.int8_gemm_batched(x, w_t), int8_matmul_acc_ref(x, w_t))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(255,), (37, 50), (2048, 5632)])
+@pytest.mark.parametrize("gen", GENERATORS)
+def test_bts_encode_kernel_bit_exact_on_card(cuda, gen, shape):
+    q = torch.arange(-127, 128, dtype=torch.int8, device=cuda)
+    if shape != (255,):
+        g = torch.Generator(device=cuda).manual_seed(2)
+        q = torch.randint(-127, 128, shape, generator=g, device=cuda, dtype=torch.int8)
+    words, sign = bts_encode(q, gen)
+    want_w, want_s = bts_encode_ref(q, gen)
+    assert torch.equal(words, want_w) and torch.equal(sign, want_s)
+
+
+def _streams(cuda, lead, rows, k, gen, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randint(-127, 128, (*lead, rows, k), generator=g, device=cuda, dtype=torch.int8)
+    return bts_encode_ref(q, gen)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lead,m,k,n", [((), 8, 2048, 2048), ((), 8, 5632, 2048),
+                                        ((), 5, 100, 33), ((), 70, 1000, 129),
+                                        ((), 384, 2048, 5632), ((4,), 3, 64, 40)])
+def test_stoch_matmul_kernel_bit_exact_on_card(cuda, lead, m, k, n):
+    xs, sx = _streams(cuda, lead, m, k, "thermometer", 3)
+    ws, sw = _streams(cuda, lead, n, k, "bresenham", 4)
+    got = sm_ops.stoch_matmul_packed(xs, sx, ws, sw)
+    assert torch.equal(got, stoch_matmul_packed_ref(xs, sx, ws, sw))

@@ -124,9 +124,28 @@ def test_int8_plain_bit_exact_against_reference(rng, m, k, n):
 
 
 def test_int8_split_plan_covers_k():
-    """Split-K plans cover K exactly once with 64-aligned chunks."""
-    for m, n, k in [(8, 2048, 2048), (8, 2048, 5632), (8, 100352, 2048), (3000, 5632, 2048),
-                    (8, 5, 17)]:
-        cfg, kps, splits = int8_ops.split_plan(m, n, k, 132)
+    """Split-K plans cover K exactly once with 64-aligned chunks, for one
+    product and for the batched decode qk/pv shapes (256 heads)."""
+    for m, n, k, b in [(8, 2048, 2048, 1), (8, 2048, 5632, 1), (8, 100352, 2048, 1),
+                       (3000, 5632, 2048, 1), (8, 5, 17, 1), (1, 512, 64, 256),
+                       (1, 64, 512, 256), (384, 512, 64, 32)]:
+        cfg, kps, splits = int8_ops.split_plan(m, n, k, 132, b)
         assert cfg == (0 if m <= 16 else 1)
         assert kps % 64 == 0 and (splits - 1) * kps < k <= splits * kps
+        assert b * splits <= 65535
+
+
+@pytest.mark.parametrize("b,m,k,n", [(6, 1, 16, 40), (4, 9, 37, 5), (3, 20, 64, 16)])
+def test_int8_batched_plain_bit_exact(rng, b, m, k, n):
+    """The batched entry's plain version: each element's accumulator equals
+    its own product, and the CPU path launches nothing."""
+    x = rng.integers(-127, 128, (b, m, k)).astype(np.int8)
+    w_t = rng.integers(-127, 128, (b, n, k)).astype(np.int8)
+    before = int8_ops.int8_gemm_batched.launches
+    acc = int8_ops.int8_gemm_batched(*_t(x, w_t))
+    assert acc.dtype == torch.int32 and acc.shape == (b, m, n)
+    want = np.einsum("bmk,bnk->bmn", x.astype(np.int64), w_t.astype(np.int64))
+    np.testing.assert_array_equal(acc.numpy(), want)
+    assert int8_ops.int8_gemm_batched.launches == before
+    with pytest.raises(ValueError, match="B, M, K"):
+        int8_ops.int8_gemm_batched(*_t(x, w_t[:1]))

@@ -128,7 +128,8 @@ def _run_reference(jcfg, jparams, plan, tokens, feed):
     return outs
 
 
-@pytest.mark.parametrize("plan,atol", [("exact", 1e-4), ("int8", 2e-3)])
+@pytest.mark.parametrize("plan,atol", [("exact", 1e-4), ("int8", 2e-3), ("sc", 2e-3),
+                                       ("mixed", 2e-3)])
 @pytest.mark.parametrize("attn_impl", ["naive", "flash"])
 def test_suffix_and_decode_logits_match_reference(pair, rng, plan, atol, attn_impl):
     jcfg, tcfg, jparams, tparams = pair

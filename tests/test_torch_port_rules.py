@@ -104,7 +104,7 @@ def test_every_kernel_has_plain_version_counter_and_note():
     from repro_torch.kernels import _build
 
     pkgs = _kernel_packages()
-    assert pkgs == ["int8_matmul", "paged_attention"]
+    assert pkgs == ["bts_encode", "int8_matmul", "paged_attention", "stoch_matmul"]
     for pkg in pkgs:
         ops = importlib.import_module(f"repro_torch.kernels.{pkg}.ops")
         importlib.import_module(f"repro_torch.kernels.{pkg}.ref")

@@ -4,9 +4,13 @@ Same reduced config (stablelm-1.6b here; qwen1.5-0.5b, with QKV bias,
 RMSNorm and tied embeddings, in ``test_torch_serve_qwen.py``), same
 weights (bridged from the reference's pytree), same prompts: the port's ``ServeEngine`` must emit exactly the
 tokens of ``repro.serve.ServeEngine`` on the paged pool, with and
-without prefix reuse, under the ``exact`` and ``int8`` plans.  Fewer
-slots than requests forces admission after retirements (prefix hits at
-block-aligned starts) and free slots riding along in decode.  On the
+without prefix reuse, under the ``exact``, ``int8``, ``sc`` (bit-true
+streams) and ``mixed`` (int8 qk/pv, sc projections) plans.  Fewer slots
+than requests forces admission after retirements (prefix hits at
+block-aligned starts), free slots riding along in decode, and reused
+slots and pool blocks: under ``mixed`` the per-column scales of ``v`` in
+the pv product span every gathered position, stale block contents
+included, so the port's pool must hold the reference's stale bytes.  On the
 port side both ``naive`` and ``flash`` (the kernel's plain version on the
 CPU) run; the reference runs ``naive`` across the matrix plus one
 ``flash`` case (its Pallas kernels in interpret mode are slow).
@@ -87,7 +91,7 @@ def _torch_engine(arch, plan, prefix, attn_impl):
 
 
 @pytest.mark.parametrize("prefix", [True, False], ids=["prefix", "noprefix"])
-@pytest.mark.parametrize("plan", ["exact", "int8"])
+@pytest.mark.parametrize("plan", ["exact", "int8", "sc", "mixed"])
 @pytest.mark.parametrize("attn_impl", ["naive", "flash"])
 def test_greedy_tokens_match_reference(arch, plan, prefix, attn_impl):
     want, jstats = _jax_tokens(arch, plan, prefix)
