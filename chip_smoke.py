@@ -9,7 +9,10 @@ kernels bit for bit), times it beside its bound, then serves full-width
 stablelm-1.6b (random weights from a seed) through
 ``repro_torch.serve.ServeEngine`` on the paged KV pool under the
 ``exact``, ``int8``, ``sc`` (bit-true stochastic streams) and ``mixed``
-(int8 qk/pv, stochastic projections) plans, checking that every request
+(int8 qk/pv, stochastic projections) plans, calibrates static scales
+with ``Model.calibrate`` and serves the calibrated ``int8`` plan and the
+``exact`` plan on an int8 KV pool (``int8-kvq``, ``exact-kvq``: the
+paged kernel's dequantizing branch), checking that every request
 gets its tokens, the logits are finite, the prefix cache hits where it
 may, and that each serving run itself launched every kernel of its
 plan's path.  Any failure raises and exits non-zero.  The line before
@@ -19,6 +22,7 @@ the sources of this checkout; imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import os
@@ -34,7 +38,9 @@ HBM_BYTES_S = 3.35e12  # H100 SXM: HBM3 bandwidth
 # dense tensor-core peaks, per second; "popc": the CUDA cores' population
 # counts, 16 per clock per SM (CUDA C++ Programming Guide, arithmetic
 # instruction throughput, compute capability 9.0) x 132 SMs x 1980 MHz boost
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "popc": 16 * 132 * 1.98e9}
+# "fp32": float32 FMA outside the tensor cores (67 TFLOP/s), the int8
+# KV pool's attention, which computes on dequantized float32 K/V
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "popc": 16 * 132 * 1.98e9, "fp32": 67e12}
 D, F, V = 2048, 5632, 100352  # stablelm-1.6b d_model, d_ff, vocab
 BS, HD = 16, 64  # KV block size, head dim
 # (M, K, N) of the int8 GEMMs: one decode step at 8 slots (with how many
@@ -54,6 +60,9 @@ QKPV_DECODE = [(256, 1, HD, 512), (256, 1, 512, HD)]
 # rounds p to bf16 before the PV product, as the reference kernel does;
 # the plain version keeps p in float32: 2^-8 relative on O(1) outputs)
 F32_TOL, BF16_TOL = 1e-4, 2e-2
+# the int8-pool branch against its plain version: float32 on both sides
+# (q float32, K/V dequantized to the same float32 k * scale), so F32_TOL
+INT8_POOL_TOL = F32_TOL
 
 
 def log(msg: str) -> None:
@@ -430,6 +439,124 @@ def time_stochastic(dev, g, timer=time_ms, plain_timer=wall_ms) -> dict:
     return out
 
 
+def _int8_pool(g, dev, n_blocks, kvh, hd):
+    """Random int8 K/V pools and per-KV-head float32 scales (what
+    calibration gives: ~absmax / 127)."""
+    pools = [torch.randint(-127, 128, (n_blocks, kvh, BS, hd), generator=g, device=dev,
+                           dtype=torch.int8) for _ in range(2)]
+    scales = [torch.rand(kvh, generator=g, device=dev) * 0.02 + 0.01 for _ in range(2)]
+    return (*pools, *scales)
+
+
+def check_int8_pool(dev, g) -> None:
+    """The paged kernel's int8-pool branch against its plain version at
+    reduced shapes: decode (G 1 and 4, softcap, kv_len 0 to the full
+    table, scratch entries) and causal prefill (mid-block starts), head
+    dims 16 and 64, float32 within ``INT8_POOL_TOL``."""
+    from repro_torch.kernels.paged_attention import ops as pa
+    from repro_torch.kernels.paged_attention.ref import paged_decode_ref, paged_prefill_ref
+
+    for hd in (16, 64):
+        for grp in (1, 4):
+            for softcap in (0.0, 30.0):
+                kvh, w, nb = 8, 5, 48
+                kv_len = torch.tensor([0, 1, BS, BS + 1, w * BS], dtype=torch.int32, device=dev)
+                table = torch.randint(1, nb, (5, w), generator=g, device=dev, dtype=torch.int32)
+                table[1, 0] = 0  # entries at scratch block 0
+                table[4, 3] = 0
+                q = torch.randn(5, kvh * grp, hd, generator=g, device=dev)
+                kp, vp, ks, vs = _int8_pool(g, dev, nb, kvh, hd)
+                got = pa.paged_attention_decode(q, kp, vp, table, kv_len, ks, vs,
+                                                softcap=softcap)
+                want = paged_decode_ref(q, kp, vp, table, kv_len, softcap=softcap,
+                                        k_scale=ks, v_scale=vs)
+                err = (got - want).abs().max().item()
+                assert err <= INT8_POOL_TOL, ("int8 pool decode", hd, grp, softcap, err)
+                assert not got[0].any(), "kv_len 0 must give zeros"
+                log(f"[int8 pool decode] hd={hd} G={grp} softcap={softcap} kv_len "
+                    f"{kv_len.tolist()}: max|kernel-plain| {err:.2e} <= {INT8_POOL_TOL}")
+        for grp in (1, 4):
+            kvh, w, nb, s = 4, 8, 64, 37
+            start = torch.tensor([0, 7, BS, BS + 9, 3 * BS], dtype=torch.int32, device=dev)
+            table = torch.randint(1, nb, (5, w), generator=g, device=dev, dtype=torch.int32)
+            q = torch.randn(5, kvh * grp, s, hd, generator=g, device=dev)
+            kp, vp, ks, vs = _int8_pool(g, dev, nb, kvh, hd)
+            got = pa.paged_attention_prefill(q, kp, vp, table, start, ks, vs)
+            want = paged_prefill_ref(q, kp, vp, table, start, k_scale=ks, v_scale=vs)
+            err = (got - want).abs().max().item()
+            assert err <= INT8_POOL_TOL, ("int8 pool prefill", hd, grp, err)
+            log(f"[int8 pool prefill] hd={hd} G={grp} S={s} starts {start.tolist()}: "
+                f"max|kernel-plain| {err:.2e} <= {INT8_POOL_TOL}")
+
+
+def time_int8_pool(dev, g, timer=time_ms) -> dict:
+    """The int8-pool branch at the serving shapes — decode of 8 slots x 32
+    heads x 64 at ``DECODE_FILLS``, causal prefill of 8 cold 384-token
+    suffixes — held against its plain version within ``INT8_POOL_TOL``
+    and timed beside its bound (int8 K/V read once, float32 queries and
+    outputs; float32 operations)."""
+    from repro_torch.kernels.paged_attention import ops as pa
+    from repro_torch.kernels.paged_attention.ref import paged_decode_ref, paged_prefill_ref
+
+    out = {}
+    src = "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu"
+    replaces = "src/repro/kernels/paged_attention/kernel.py:146"  # its int8 branch, :96-98
+    h = kvh = 32
+    w, nb = 32, 321
+    kv_len = torch.tensor(DECODE_FILLS, dtype=torch.int32, device=dev)
+    table = (torch.randperm(nb - 1, generator=g, device=dev)[: 8 * w].reshape(8, w) + 1).int()
+    q = torch.randn(8, h, HD, generator=g, device=dev)
+    kp, vp, ks, vs = _int8_pool(g, dev, nb, kvh, HD)
+
+    def kernel():
+        return pa.paged_attention_decode(q, kp, vp, table, kv_len, ks, vs)
+
+    def plain():
+        return paged_decode_ref(q, kp, vp, table, kv_len, k_scale=ks, v_scale=vs)
+
+    err = (kernel() - plain()).abs().max().item()
+    assert err <= INT8_POOL_TOL, ("int8 pool decode at serving shapes", err)
+    k_ms, p_ms = timer(kernel), timer(plain)
+    fill = sum(DECODE_FILLS)
+    n_bytes = 2 * q.numel() * 4 + 2 * fill * kvh * HD + table.numel() * 4 + 2 * kvh * 4
+    b_ms, b_by = bound_ms(n_bytes, 4 * fill * h * HD, "fp32")
+    out["paged_attention_decode_int8"] = dict(
+        name="paged_attention_decode_int8", route="cuda", source=src, replaces=replaces,
+        max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None)
+    log(f"[time int8 pool decode] B=8 H=32 hd=64 int8 K/V, f32 q, kv_len {DECODE_FILLS}: "
+        f"max|kernel-plain| {err:.2e} <= {INT8_POOL_TOL}; kernel_ms {k_ms:.4f} plain_ms "
+        f"{p_ms:.4f} bound_ms {b_ms:.4f} ({b_by}; {n_bytes / 1e6:.2f} MB) library_ms none "
+        "(no PyTorch call attends through a block table)")
+
+    s = 384
+    start = torch.zeros(8, dtype=torch.int32, device=dev)
+    qs = torch.randn(8, h, s, HD, generator=g, device=dev)
+    tbl = table[:, : s // BS].contiguous()
+
+    def kernel_p():
+        return pa.paged_attention_prefill(qs, kp, vp, tbl, start, ks, vs)
+
+    def plain_p():
+        return paged_prefill_ref(qs, kp, vp, tbl, start, k_scale=ks, v_scale=vs)
+
+    err = (kernel_p() - plain_p()).abs().max().item()
+    assert err <= INT8_POOL_TOL, ("int8 pool prefill at serving shapes", err)
+    k_ms, p_ms = timer(kernel_p, reps=5), timer(plain_p, reps=3)
+    pairs = 8 * s * (s + 1) // 2
+    n_bytes = 2 * qs.numel() * 4 + 2 * 8 * s * kvh * HD + tbl.numel() * 4 + 2 * kvh * 4
+    b_ms, b_by = bound_ms(n_bytes, 4 * pairs * h * HD, "fp32")
+    out["paged_attention_prefill_int8"] = dict(
+        name="paged_attention_prefill_int8", route="cuda", source=src, replaces=replaces,
+        max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None)
+    log(f"[time int8 pool prefill] B=8 S=384 H=32 hd=64 int8 K/V cold: max|kernel-plain| "
+        f"{err:.2e} <= {INT8_POOL_TOL}; kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} bound_ms "
+        f"{b_ms:.4f} ({b_by}) library_ms none (no PyTorch call attends through a block "
+        "table)")
+    return out
+
+
 def make_prompts(vocab: int, rng) -> list:
     """12 prompts of 96-384 tokens; six share a 256-token prefix, and three
     of those (8-10) are admitted only after the first retirements, so
@@ -449,31 +576,49 @@ def make_sc_prompts(vocab: int, rng) -> list:
 
 
 # the kernels each plan's serving path must launch: qk/pv run in the paged
-# kernel when exact; under mixed they are int8 and take the gathered view
+# kernel when exact (its int8 branch on an int8 pool); under mixed they are
+# int8 and take the gathered view
 PLAN_KERNELS = {
     "exact": ("paged_attention_decode", "paged_attention_prefill"),
     "int8": ("paged_attention_decode", "paged_attention_prefill", "int8_gemm"),
     "sc": ("paged_attention_decode", "paged_attention_prefill", "bts_encode",
            "stoch_matmul_packed"),
     "mixed": ("bts_encode", "stoch_matmul_packed", "int8_gemm_batched"),
+    "exact-kvq": ("paged_attention_decode", "paged_attention_prefill",
+                  "paged_attention_decode_int8", "paged_attention_prefill_int8"),
+    "int8-kvq": ("paged_attention_decode", "paged_attention_prefill",
+                 "paged_attention_decode_int8", "paged_attention_prefill_int8", "int8_gemm"),
 }
 
 
-def serve(cfg, params, prompts, dev, plans, gen: int, max_len: int = 512) -> dict:
-    """Phase 6: the engine under each plan; returns, for each plan, the
-    launches per kernel as counted inside that serving run only.  One
-    plan's prepared weight caches (int8 codes, streams) are freed before
-    the next plan's are made."""
-    from repro_torch.kernels import launch_counts, reset_launches
+def plain_runs(*plans) -> list:
+    """Serving runs ``(label, plan, kv_quant)`` of preset plans on a
+    pool in the model dtype."""
+    return [(p, p, "none") for p in plans]
+
+
+def _serving_model(cfg, dev, plan, kv_quant="none"):
     from repro_torch.models.model import Model
     from repro_torch.models.transformer import ModelOptions
+
+    return Model(cfg, ModelOptions(plan=plan, attn_impl="flash", kv_quant=kv_quant), device=dev)
+
+
+def serve(cfg, params, prompts, dev, runs, gen: int, max_len: int = 512):
+    """Phase 6: the engine for each ``(label, plan, kv_quant)`` run; returns
+    each run's launches per kernel, counted inside that serving run only,
+    and its greedy tokens ``[requests, gen]``.  Plans that may reuse
+    prefixes (exact, or static calibrated scales) must hit the prefix
+    cache.  One run's prepared weight caches (int8 codes, streams) are
+    freed before the next run's are made."""
+    from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.serve import ServeConfig, ServeEngine
 
     serve_cfg = ServeConfig(max_slots=8, max_len=max_len, chunk_steps=8, kv_block_size=BS,
                             attn_impl="flash", seed=0)
-    by_plan = {}
-    for plan in plans:
-        model = Model(cfg, ModelOptions(plan=plan, attn_impl="flash"), device=dev)
+    by_plan, tokens = {}, {}
+    for label, plan, kv_quant in runs:
+        model = _serving_model(cfg, dev, plan, kv_quant)
         warm = ServeEngine(model, params, serve_cfg, device=dev)
         warm.generate_batch(prompts[1:2], 2)
         del warm
@@ -490,46 +635,77 @@ def serve(cfg, params, prompts, dev, plans, gen: int, max_len: int = 512) -> dic
         counts = launch_counts()
         assert [o.gen_len for o in outs] == [gen] * len(prompts), [o.gen_len for o in outs]
         assert all(((o.tokens >= 0) & (o.tokens < cfg.vocab)).all() for o in outs)
-        ps, st = engine.prefix_stats, engine.phase_stats
+        ps, st, kv = engine.prefix_stats, engine.phase_stats, engine.kv_stats
         if dev.type == "cuda":
-            missing = [k for k in PLAN_KERNELS[plan] if counts[k] == 0]
-            assert not missing, (plan, "kernels of the path never launched", missing, counts)
-        if plan == "exact":
-            assert ps["hits"] > 0, ps
+            missing = [k for k in PLAN_KERNELS[label] if counts[k] == 0]
+            assert not missing, (label, "kernels of the path never launched", missing, counts)
+        if plan == "exact" or kv_quant != "none":  # exact or static calibrated scales
+            assert kv["prefix_cache"] and ps["hits"] > 0, (label, ps)
         else:
-            assert not engine.kv_stats["prefix_cache"]  # dynamic scales: reuse gated off
+            assert not kv["prefix_cache"]  # dynamic scales: reuse gated off
+        item = 1 if kv_quant == "int8" else (2 if cfg.dtype == "bfloat16" else 4)
+        assert kv["kv_quant"] == kv_quant
+        assert kv["bytes_per_block"] == cfg.n_layers * 2 * cfg.n_kv_heads * BS * cfg.head_dim * item
         ttft = np.mean([o.timing.ttft_s for o in outs]) * 1e3
         peak = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0.0
-        log(f"[serve {plan}] {cfg.name} ({cfg.n_layers}L d{cfg.d_model}), "
+        log(f"[serve {label}] {cfg.name} ({cfg.n_layers}L d{cfg.d_model}), "
             f"{len(prompts)} requests x {gen} tokens, 8 slots: decode "
             f"{st['decode_tokens'] / st['decode_s']:.1f} tok/s ({st['decode_tokens']} "
             f"tokens in {st['decode_s']:.3f} s), prefill "
             f"{st['prefill_tokens'] / st['prefill_s']:.1f} tok/s, mean TTFT {ttft:.1f} ms, "
-            f"end to end {len(prompts) * gen / wall:.1f} tok/s in {wall:.2f} s; prefix "
+            f"end to end {len(prompts) * gen / wall:.1f} tok/s in {wall:.2f} s; kv pool "
+            f"{kv_quant} {kv['bytes_per_block']} B/block, {kv['pool_bytes']} B; prefix "
             f"{ps or 'off'}; launches {counts}; peak memory {peak:.1f} GiB")
-        by_plan[plan] = counts
+        by_plan[label] = counts
+        tokens[label] = np.stack([o.tokens for o in outs])
         del engine
         _free(dev)
-    return by_plan
+    return by_plan, tokens
 
 
-def profile_decode_chunk(cfg, params, prompts, dev, plans) -> None:
+def calibrate(cfg, params, prompts, dev):
+    """Phase 6b: ``Model.calibrate`` of the int8 plan over the packed
+    prompts, on the card; returns the calibrated plan.  Every GEMM site
+    gets a static activation scale and every KV storage site a per-head
+    scale vector, all finite and positive."""
+    from repro_torch.core.plan import kv_sites, model_sites
+    from repro_torch.serve.prefill import pack_prompts
+
+    model = _serving_model(cfg, dev, "int8")
+    tokens, _ = pack_prompts(prompts, cfg, device=dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    plan = model.calibrate(params, {"tokens": tokens}).plan
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    assert {s for s, _ in plan.act_scales} == set(model_sites(cfg)), len(plan.act_scales)
+    assert {s for s, _ in plan.kv_scales} == set(kv_sites(cfg)), len(plan.kv_scales)
+    vals = [a for _, a in plan.act_scales] + [x for _, v in plan.kv_scales for x in v]
+    assert all(np.isfinite(vals)) and min(vals) > 0, (min(vals), max(vals))
+    log(f"[calibrate] {cfg.name} int8 plan over {tuple(tokens.shape)} packed prompt tokens "
+        f"on {dev}: {len(plan.act_scales)} site activation scales + {len(plan.kv_scales)} KV "
+        f"storage-site scales ({cfg.n_kv_heads} heads each) in {secs:.2f} s; act scales "
+        f"{min(a for _, a in plan.act_scales):.3e}..{max(a for _, a in plan.act_scales):.3e}")
+    del model
+    _free(dev)
+    return plan
+
+
+def profile_decode_chunk(cfg, params, prompts, dev, runs) -> None:
     """Where a decode chunk's time goes: one engine round of 8 decode steps
     (8 slots, up to 8 of them busy) under ``torch.profiler`` — host time of
     the round against the device time of the kernels it ran (their sum over
     the round; the rest of the round the device is idle)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.models.model import Model
-    from repro_torch.models.transformer import ModelOptions
     from repro_torch.serve import ServeConfig, ServeEngine
 
     serve_cfg = ServeConfig(max_slots=8, max_len=512, chunk_steps=8, kv_block_size=BS,
                             attn_impl="flash")
     busy = min(8, len(prompts))
-    for plan in plans:
-        model = Model(cfg, ModelOptions(plan=plan, attn_impl="flash"), device=dev)
-        engine = ServeEngine(model, params, serve_cfg, device=dev)
+    for label, plan, kv_quant in runs:
+        engine = ServeEngine(_serving_model(cfg, dev, plan, kv_quant), params, serve_cfg,
+                             device=dev)
         for p in prompts[:8]:
             engine.submit(p, 32)
         engine.step()  # admission prefill + the first chunk, untraced
@@ -544,7 +720,7 @@ def profile_decode_chunk(cfg, params, prompts, dev, plans) -> None:
         dev_ms = sum(r[0] for r in rows) / 1e3
         top = sorted(rows, reverse=True)[:5]
         share = f"{dev_ms / host_ms:.1%}" if dev_ms > 0 else "not measured"
-        log(f"[profile {plan}] one decode chunk (8 steps x 8 slots, {busy} busy): host "
+        log(f"[profile {label}] one decode chunk (8 steps x 8 slots, {busy} busy): host "
             f"{host_ms:.1f} ms "
             f"(profiled), device kernels {dev_ms:.2f} ms, device busy {share}; top: "
             + "; ".join(f"{k[:48]} {t / 1e3:.2f} ms x{c}" for t, k, c in top))
@@ -593,30 +769,37 @@ def flash_vs_naive(cfg, params, prompts, dev) -> None:
 def small_card_vs_cpu(dev) -> None:
     """A reduced float32 stablelm served with the kernels on ``dev`` and with
     their plain versions on the CPU: greedy tokens must agree (all of them
-    under exact; under int8, sc and mixed the integer products are exact
-    given the codes, but a last-bit difference in a float activation can
-    move one code, so 90%)."""
+    under exact; under int8, sc, mixed and the calibrated int8 plan on an
+    int8 pool the integer products are exact given the codes, but a
+    last-bit difference in a float activation can move one code, so 90%).
+    Both sides of the int8-pool case use the scales one CPU calibration
+    gave."""
     from repro_torch.configs import get_arch
     from repro_torch.models.model import Model
     from repro_torch.models.transformer import ModelOptions
     from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.serve.prefill import pack_prompts
 
     small = get_arch("stablelm-1.6b").reduced(dtype="float32")
     rng = np.random.default_rng(7)
     prompts = [rng.integers(0, small.vocab, n, dtype=np.int32) for n in (5, 19, 12, 33, 8)]
     scfg = ServeConfig(max_slots=3, max_len=64, chunk_steps=4, kv_block_size=8)
     params = Model(small, device="cpu").init(seed=3)
-    for plan in ("exact", "int8", "sc", "mixed"):
+    calibrated = Model(small, ModelOptions(plan="int8"), device="cpu").calibrate(
+        params, {"tokens": pack_prompts(prompts, small)[0]}).plan
+    runs = plain_runs("exact", "int8", "sc", "mixed") + [("int8-kvq", calibrated, "int8")]
+    for label, plan, kv_quant in runs:
         toks = {}
         for where in ("cpu", dev):
-            m = Model(small, ModelOptions(plan=plan, attn_impl="flash"), device=where)
+            m = Model(small, ModelOptions(plan=plan, attn_impl="flash", kv_quant=kv_quant),
+                      device=where)
             outs = ServeEngine(m, _to(params, m.device), scfg,
                                device=where).generate_batch(prompts, 10)
             toks[str(where)] = np.stack([o.tokens for o in outs])
         agree = (toks["cpu"] == toks[str(dev)]).mean()
-        log(f"[small {plan}] reduced stablelm float32 on {dev} (kernels) vs cpu (plain "
+        log(f"[small {label}] reduced stablelm float32 on {dev} (kernels) vs cpu (plain "
             f"versions): {agree:.0%} of greedy tokens equal")
-        assert agree == 1.0 if plan == "exact" else agree >= 0.9, (plan, agree)
+        assert agree == 1.0 if plan == "exact" else agree >= 0.9, (label, agree)
 
 
 def _to(tree, device):
@@ -644,6 +827,7 @@ def main() -> None:
         sys.exit("chip_smoke: no CUDA device visible (torch.cuda.is_available() is False)")
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.configs import get_arch
+    from repro_torch.core.plan import ExecutionPlan
     from repro_torch.kernels import _build
     from repro_torch.models.model import Model
 
@@ -670,29 +854,42 @@ def main() -> None:
 
     g = torch.Generator(device=dev).manual_seed(1234)
     check_kernels(dev, g)
+    check_int8_pool(dev, g)
     check_stochastic(dev, g)
-    kernels = {**time_kernels(dev, g), **time_stochastic(dev, g)}
+    kernels = {**time_kernels(dev, g), **time_int8_pool(dev, g), **time_stochastic(dev, g)}
 
     cfg = get_arch("stablelm-1.6b")
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff, cfg.vocab,
             cfg.dtype) == (24, 2048, 32, 64, 5632, 100352, "bfloat16")
     params = Model(cfg, device=dev).init(seed=0)
     prompts = make_prompts(cfg.vocab, np.random.default_rng(0))
-    launches = serve(cfg, params, prompts, dev, ("exact", "int8"), gen=32)
-    profile_decode_chunk(cfg, params, prompts, dev, ("exact", "int8"))
+    launches, tokens = serve(cfg, params, prompts, dev, plain_runs("exact", "int8"), gen=32)
+    profile_decode_chunk(cfg, params, prompts, dev, plain_runs("exact", "int8"))
     flash_vs_naive(cfg, params, prompts, dev)
+    # calibrated static scales: the int8 plan and exact's KV on an int8 pool
+    plan = calibrate(cfg, params, prompts, dev)
+    kvq_runs = [("int8-kvq", plan, "int8"),
+                ("exact-kvq", dataclasses.replace(ExecutionPlan.from_spec("exact"),
+                                                  kv_scales=plan.kv_scales), "int8")]
+    kvq_launches, kvq_tokens = serve(cfg, params, prompts, dev, kvq_runs, gen=32)
+    launches.update(kvq_launches)
+    for label, toks in kvq_tokens.items():
+        agree = (toks == tokens["exact"]).mean()
+        log(f"[agreement {label}] greedy tokens equal to the bf16-pool exact run: {agree:.1%} "
+            "(reported, not gated: random weights at bf16)")
+    profile_decode_chunk(cfg, params, prompts, dev, kvq_runs)
     sc_prompts = make_sc_prompts(cfg.vocab, np.random.default_rng(1))
-    launches.update(serve(cfg, params, sc_prompts, dev, ("sc", "mixed"), gen=16))
-    profile_decode_chunk(cfg, params, sc_prompts, dev, ("sc", "mixed"))
+    launches.update(serve(cfg, params, sc_prompts, dev, plain_runs("sc", "mixed"), gen=16)[0])
+    profile_decode_chunk(cfg, params, sc_prompts, dev, plain_runs("sc", "mixed"))
     del params
     torch.cuda.empty_cache()
     small_card_vs_cpu(dev)
 
-    # launches: summed over the four serving runs; launches_by_plan: each run's own
+    # launches: summed over the six serving runs; launches_by_plan: each run's own
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_plan",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for name, rec in kernels.items():
-        rec["launches_by_plan"] = {plan: c[name] for plan, c in launches.items()}
+        rec["launches_by_plan"] = {label: c[name] for label, c in launches.items()}
         rec["launches"] = sum(rec["launches_by_plan"].values())
     print(json.dumps({"kernels": [{k: rec[k] for k in keys} for rec in kernels.values()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

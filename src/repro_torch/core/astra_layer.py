@@ -18,6 +18,10 @@ kernels' plain versions.
 
 ``cc`` is a plain :class:`ComputeConfig` or a :class:`BoundSite` (a named
 GEMM site bound to an :class:`~repro_torch.core.plan.ExecutionPlan`).
+While a plan calibrates (it carries an observer), every bound GEMM feeds
+its activation's absmax to the observer before it runs, and the dynamic
+qk/pv products leave the caller's exact fast path for
+:func:`astra_batched_matmul`'s exact matmul, as in the reference.
 Weights may come with caches computed once at load instead of every call:
 int8 codes (``wq_t``: codes ``[N, K]`` and scales ``[1, N]``, exactly
 ``quantize(w, axis=0)`` transposed), their streams (``wsc_t``, a
@@ -67,14 +71,26 @@ class BoundSite:
     def resolved(self) -> ComputeConfig:
         return self.plan.resolve_group(self.sites)
 
+    @property
+    def observing(self) -> bool:
+        return getattr(self.plan, "_observer", None) is not None
+
 
 def resolve_cc(cc: Union[ComputeConfig, BoundSite]) -> ComputeConfig:
     return cc.resolved() if isinstance(cc, BoundSite) else cc
 
 
 def runs_exact(cc: Union[ComputeConfig, BoundSite]) -> bool:
-    """Whether this GEMM takes the plain exact path."""
-    return resolve_cc(cc).mode == "exact"
+    """Whether this GEMM takes the plain exact path: neither quantized nor
+    tapped by a calibration observer."""
+    return resolve_cc(cc).mode == "exact" and not (
+        isinstance(cc, BoundSite) and cc.observing)
+
+
+def _maybe_observe(cc: Union[ComputeConfig, BoundSite], x: torch.Tensor) -> None:
+    """Feed ``x``'s absmax to the plan's calibration observer, if any."""
+    if isinstance(cc, BoundSite) and cc.observing:
+        cc.plan._observer.record(cc.sites, x)
 
 
 def quantize_weight_t(w: torch.Tensor) -> QTensor:
@@ -101,6 +117,7 @@ def astra_matmul(x: torch.Tensor, w: torch.Tensor,
                  wsc_t: Optional[WeightStreams] = None,
                  wc: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``[..., K] @ [K, N]`` under the site's execution mode."""
+    _maybe_observe(cc, x)
     cc = resolve_cc(cc)
     if cc.mode == "exact":
         w_x = wc if wc is not None and wc.dtype == x.dtype else w.to(x.dtype)
@@ -133,7 +150,10 @@ def astra_batched_matmul(x: torch.Tensor, w: torch.Tensor,
     of the batched int8 or stochastic kernel."""
     if runs_exact(cc):
         return torch.matmul(x, w.to(x.dtype))
+    _maybe_observe(cc, x)
     cc = resolve_cc(cc)
+    if cc.mode == "exact":  # observed while calibrating
+        return torch.matmul(x, w.to(x.dtype))
     lead = x.shape[:-2]
     m, k = x.shape[-2:]
     n = w.shape[-1]

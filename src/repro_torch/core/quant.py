@@ -8,6 +8,7 @@ the reference on the same float32 inputs.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -27,6 +28,15 @@ def _safe_scale(amax: torch.Tensor) -> torch.Tensor:
     return torch.where(amax > 0, amax / MAG_MAX, torch.ones_like(amax))
 
 
+@functools.lru_cache(maxsize=4096)
+def _device_scale(scale: float, device: torch.device) -> torch.Tensor:
+    """A static (calibrated) scale as a float32 tensor on ``device``, made
+    once: built from the Python float at every call it would be a
+    host-to-card copy that makes the host wait for the card, at every
+    quantized GEMM."""
+    return torch.tensor(scale, dtype=torch.float32, device=device)
+
+
 def quantize(x: torch.Tensor, axis: Optional[int] = None,
              scale: Optional[torch.Tensor] = None) -> QTensor:
     """Symmetric int8 quantization.
@@ -42,6 +52,8 @@ def quantize(x: torch.Tensor, axis: Optional[int] = None,
         else:
             amax = xf.abs().amax(dim=axis, keepdim=True)
         scale = _safe_scale(amax)
+    elif isinstance(scale, (int, float)):
+        scale = _device_scale(float(scale), xf.device)
     else:
         scale = torch.as_tensor(scale, dtype=torch.float32, device=xf.device)
     q = torch.clamp(torch.round(xf / scale), -MAG_MAX, MAG_MAX).to(torch.int8)

@@ -20,8 +20,14 @@ launches the kernel or raises.
 
 ``kernel_wrappers``, ``reset_launches`` and ``launch_counts`` read and
 clear every wrapper's launch counter, so a harness can count what one
-run launched.
+run launched.  The paged-attention wrappers' launches on int8 pools (the
+kernel's dequantizing branch) are also counted apart, as
+``paged_attention_decode_int8`` and ``paged_attention_prefill_int8``.
 """
+
+# counters of a wrapper's int8-pool branch -> the wrapper that keeps them
+INT8_BRANCHES = {"paged_attention_decode_int8": "paged_attention_decode",
+                 "paged_attention_prefill_int8": "paged_attention_prefill"}
 
 
 def kernel_wrappers() -> dict:
@@ -43,9 +49,16 @@ def kernel_wrappers() -> dict:
 
 
 def reset_launches() -> None:
-    for fn in kernel_wrappers().values():
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
         fn.launches = 0
+    for parent in INT8_BRANCHES.values():
+        wrappers[parent].int8_launches = 0
 
 
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+    wrappers = kernel_wrappers()
+    counts = {name: fn.launches for name, fn in wrappers.items()}
+    counts.update({name: wrappers[parent].int8_launches
+                   for name, parent in INT8_BRANCHES.items()})
+    return counts

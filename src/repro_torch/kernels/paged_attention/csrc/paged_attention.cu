@@ -3,13 +3,17 @@
 // Replaces: src/repro/kernels/paged_attention/kernel.py ::
 // paged_attention_kernel, both modes — single-query decode (key position
 // < lens[b]) and causal suffix prefill (row r of a tile sits at absolute
-// position lens[b] + r % q_len; keys at or before it are visible).
+// position lens[b] + r % q_len; keys at or before it are visible) — over
+// float32/bf16 pools and over int8 pools (the kernel's quantized branch,
+// kernel.py:96-98: float32 queries, each streamed K/V element dequantized
+// as float(k) * k_scale[h], the reference's float32 product).
 //
 // What bounds it on an H100: decode reads every live K/V position of every
-// slot once per step (2 * kv_len * KVH * hd * itemsize bytes) against
-// ~4 * kv_len * H * hd flops, so HBM bytes bound it (floor: bytes /
-// 3.35 TB/s).  Prefill over S suffix rows reuses each K/V position S times
-// and becomes compute bound once S passes a few hundred.
+// slot once per step (2 * kv_len * KVH * hd * itemsize bytes: 1 byte an
+// element in an int8 pool, half of bf16) against ~4 * kv_len * H * hd
+// flops, so HBM bytes bound it (floor: bytes / 3.35 TB/s).  Prefill over S
+// suffix rows reuses each K/V position S times and becomes compute bound
+// once S passes a few hundred.
 //
 // Design: one 128-thread block per (row tile, KV head, slot).  The block
 // reads its slot's fill and block-table row from device memory (no host
@@ -19,7 +23,12 @@
 // zero), converts K/V to float32 in shared memory with 16-byte loads, and
 // updates running max m, denominator l and the float32 accumulator held
 // in registers, with the reference's m_safe/alpha guards for fully masked
-// rows and p rounded to the pool dtype before the PV product.  GQA is
+// rows and p rounded to V's compute dtype before the PV product (bf16 for
+// a bf16 pool; float32, so no rounding, for float32 and int8 pools: the
+// reference rounds p to the dequantized v's float32).  The query type TQ
+// and the pool type TKV are separate template parameters: an int8 pool
+// loads 16 codes per 16-byte vector and scales them by the KV head's
+// float32 scale on the way into shared memory.  GQA is
 // native: the G query heads of a KV head are rows of the same tile, so K/V
 // is read once per KV head.  The plain FMA loops do not use the tensor
 // cores and a decode block covers one slot's whole fill; split-K
@@ -28,6 +37,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int THREADS = 128;
@@ -35,11 +46,12 @@ constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(int8_t v) { return static_cast<float>(v); }
 
-// p.astype(v.dtype) of the reference: round to the pool dtype, back to f32
-template <typename T> __device__ __forceinline__ float round_to(float v);
-template <> __device__ __forceinline__ float round_to<float>(float v) { return v; }
-template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
+// p.astype(v.dtype) of the reference, v as the kernel computes with it:
+// a bf16 pool rounds p to bf16; float32 and (dequantized) int8 pools keep it
+template <typename TKV> __device__ __forceinline__ float round_p(float v) { return v; }
+template <> __device__ __forceinline__ float round_p<__nv_bfloat16>(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
@@ -52,17 +64,20 @@ __device__ __forceinline__ void load_vec(const T* __restrict__ src, float (&dst)
   for (int i = 0; i < VEC; ++i) dst[i] = to_f(e[i]);
 }
 
-template <typename T, int D, int RT, int KC>
+template <typename TQ, typename TKV, int D, int RT, int KC>
 __global__ void __launch_bounds__(THREADS)
-paged_attention_kernel(const T* __restrict__ q,          // [B, KVH, R, D] pool dtype
-                       const T* __restrict__ k_pool,     // [NB, KVH, BS, D]
-                       const T* __restrict__ v_pool,     // [NB, KVH, BS, D]
+paged_attention_kernel(const TQ* __restrict__ q,          // [B, KVH, R, D]
+                       const TKV* __restrict__ k_pool,    // [NB, KVH, BS, D]
+                       const TKV* __restrict__ v_pool,    // [NB, KVH, BS, D]
                        const int32_t* __restrict__ table,  // [B, W]
                        const int32_t* __restrict__ lens,   // [B]
+                       const float* __restrict__ k_scale,  // [KVH] (int8 pools)
+                       const float* __restrict__ v_scale,  // [KVH] (int8 pools)
                        float* __restrict__ out,            // [B, KVH, R, D]
                        int KVH, int R, int BS, int W, int q_len, int causal,
                        float scale, float softcap) {
-  constexpr int VEC = 16 / sizeof(T);
+  constexpr bool QUANT = std::is_same<TKV, int8_t>::value;
+  constexpr int VEC = 16 / sizeof(TKV);
   constexpr int NACC = (RT * D + THREADS - 1) / THREADS;
   static_assert(D % VEC == 0, "head dim must be whole 16-byte vectors");
   __shared__ float qs[RT][D];
@@ -85,6 +100,11 @@ paged_attention_kernel(const T* __restrict__ q,          // [B, KVH, R, D] pool 
   }
   n_keys = max(0, min(n_keys, W * BS));
   const size_t row_base = ((size_t)b * KVH + h) * R;
+  float k_sc = 1.f, v_sc = 1.f;
+  if constexpr (QUANT) {
+    k_sc = k_scale[h];
+    v_sc = v_scale[h];
+  }
 
   for (int e = tid; e < RT * D; e += THREADS) {
     const int r = e / D, d = e % D;
@@ -111,8 +131,15 @@ paged_attention_kernel(const T* __restrict__ q,          // [B, KVH, R, D] pool 
       float kf[VEC], vf[VEC];
       if (kp < n_keys) {
         const size_t off = (((size_t)pg[j] * KVH + h) * BS + kp % BS) * D + dv;
-        load_vec<T, VEC>(k_pool + off, kf);
-        load_vec<T, VEC>(v_pool + off, vf);
+        load_vec<TKV, VEC>(k_pool + off, kf);
+        load_vec<TKV, VEC>(v_pool + off, vf);
+        if constexpr (QUANT) {
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) {
+            kf[i] *= k_sc;
+            vf[i] *= v_sc;
+          }
+        }
       } else {
 #pragma unroll
         for (int i = 0; i < VEC; ++i) kf[i] = vf[i] = 0.f;
@@ -150,7 +177,7 @@ paged_attention_kernel(const T* __restrict__ q,          // [B, KVH, R, D] pool 
         const float s = ps[r][j];
         const float p = s > NEG_INF / 2 ? expf(s - m_safe) : 0.f;
         lsum += p;
-        ps[r][j] = round_to<T>(p);
+        ps[r][j] = round_p<TKV>(p);
       }
       l_s[r] = alpha * l_s[r] + lsum;
       m_s[r] = mx;
@@ -180,59 +207,80 @@ paged_attention_kernel(const T* __restrict__ q,          // [B, KVH, R, D] pool 
   }
 }
 
-template <typename T, int D, int RT, int KC>
-void launch(const void* q, const void* kp, const void* vp, const int32_t* table,
-            const int32_t* lens, float* out, int B, int KVH, int R, int BS, int W,
-            int q_len, int causal, float scale, float softcap, cudaStream_t s) {
-  dim3 grid((R + RT - 1) / RT, KVH, B);
-  paged_attention_kernel<T, D, RT, KC><<<grid, THREADS, 0, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp),
-      table, lens, out, KVH, R, BS, W, q_len, causal, scale, softcap);
+struct Args {
+  const void *q, *kp, *vp;
+  const int32_t *table, *lens;
+  const float *k_scale, *v_scale;
+  float* out;
+  int B, KVH, R, BS, W, q_len, causal;
+  float scale, softcap;
+};
+
+template <typename TQ, typename TKV, int D, int RT, int KC>
+void launch(const Args& a, cudaStream_t s) {
+  dim3 grid((a.R + RT - 1) / RT, a.KVH, a.B);
+  paged_attention_kernel<TQ, TKV, D, RT, KC><<<grid, THREADS, 0, s>>>(
+      static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.kp),
+      static_cast<const TKV*>(a.vp), a.table, a.lens, a.k_scale, a.v_scale, a.out, a.KVH,
+      a.R, a.BS, a.W, a.q_len, a.causal, a.scale, a.softcap);
 }
 
 // Row tiles: 1 (decode, G = 1), 8 (decode with GQA) or 32 rows (prefill).
-template <typename T, int D>
-void launch_rows(const void* q, const void* kp, const void* vp, const int32_t* table,
-                 const int32_t* lens, float* out, int B, int KVH, int R, int BS, int W,
-                 int q_len, int causal, float scale, float softcap, cudaStream_t s) {
-  if (R == 1)
-    launch<T, D, 1, 64>(q, kp, vp, table, lens, out, B, KVH, R, BS, W, q_len, causal,
-                        scale, softcap, s);
-  else if (R <= 8)
-    launch<T, D, 8, 64>(q, kp, vp, table, lens, out, B, KVH, R, BS, W, q_len, causal,
-                        scale, softcap, s);
+template <typename TQ, typename TKV, int D>
+void launch_rows(const Args& a, cudaStream_t s) {
+  if (a.R == 1)
+    launch<TQ, TKV, D, 1, 64>(a, s);
+  else if (a.R <= 8)
+    launch<TQ, TKV, D, 8, 64>(a, s);
   else
-    launch<T, D, 32, 32>(q, kp, vp, table, lens, out, B, KVH, R, BS, W, q_len, causal,
-                         scale, softcap, s);
+    launch<TQ, TKV, D, 32, 32>(a, s);
+}
+
+// dtype code: 0 float32 pool and queries, 1 bf16 pool and queries,
+// 2 int8 pool with float32 queries and per-KV-head scales
+template <int D>
+int launch_dtype(const Args& a, int dtype, cudaStream_t s) {
+  switch (dtype) {
+    case 0:
+      launch_rows<float, float, D>(a, s);
+      return 0;
+    case 1:
+      launch_rows<__nv_bfloat16, __nv_bfloat16, D>(a, s);
+      return 0;
+    case 2:
+      if (a.k_scale == nullptr || a.v_scale == nullptr) return 1;
+      launch_rows<float, int8_t, D>(a, s);
+      return 0;
+    default:
+      return 1;
+  }
 }
 
 }  // namespace
 
-// q [B,KVH,R,D] in pool dtype; pools [NB,KVH,BS,D]; table [B,W] int32;
-// lens [B] int32 (kv_len in decode, suffix start when causal); out
-// [B,KVH,R,D] float32, already divided by the softmax denominator.
+// q [B,KVH,R,D] (the pool dtype; float32 for an int8 pool); pools
+// [NB,KVH,BS,D]; table [B,W] int32; lens [B] int32 (kv_len in decode,
+// suffix start when causal); k_scale/v_scale [KVH] float32 for an int8
+// pool, null otherwise; out [B,KVH,R,D] float32, already divided by the
+// softmax denominator.  dtype: 0 float32, 1 bf16, 2 int8 (see launch_dtype).
 extern "C" int paged_attention_launch(const void* q, const void* kp, const void* vp,
-                                      const void* table, const void* lens, void* out,
+                                      const void* table, const void* lens,
+                                      const void* k_scale, const void* v_scale, void* out,
                                       int B, int KVH, int R, int D, int BS, int W,
                                       int q_len, int causal, float scale, float softcap,
-                                      int is_bf16, void* stream) {
+                                      int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int32_t* tb = static_cast<const int32_t*>(table);
-  const int32_t* ln = static_cast<const int32_t*>(lens);
-  float* o = static_cast<float*>(out);
-  if (D == 64 && is_bf16)
-    launch_rows<__nv_bfloat16, 64>(q, kp, vp, tb, ln, o, B, KVH, R, BS, W, q_len, causal,
-                                   scale, softcap, s);
-  else if (D == 64)
-    launch_rows<float, 64>(q, kp, vp, tb, ln, o, B, KVH, R, BS, W, q_len, causal, scale,
-                           softcap, s);
-  else if (D == 16 && is_bf16)
-    launch_rows<__nv_bfloat16, 16>(q, kp, vp, tb, ln, o, B, KVH, R, BS, W, q_len, causal,
-                                   scale, softcap, s);
+  const Args a{q, kp, vp, static_cast<const int32_t*>(table),
+               static_cast<const int32_t*>(lens), static_cast<const float*>(k_scale),
+               static_cast<const float*>(v_scale), static_cast<float*>(out),
+               B, KVH, R, BS, W, q_len, causal, scale, softcap};
+  int bad;
+  if (D == 64)
+    bad = launch_dtype<64>(a, dtype, s);
   else if (D == 16)
-    launch_rows<float, 16>(q, kp, vp, tb, ln, o, B, KVH, R, BS, W, q_len, causal, scale,
-                           softcap, s);
+    bad = launch_dtype<16>(a, dtype, s);
   else
-    return static_cast<int>(cudaErrorInvalidValue);
+    bad = 1;
+  if (bad) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,18 +2,23 @@
 
 Port of ``repro.kernels.paged_attention.ref``: deliberately gather-then-
 mask (``pool[table]`` -> dense logical view -> masked softmax in float32),
-the memory-hungry formulation the kernel streams away.
+the memory-hungry formulation the kernel streams away.  An int8 pool is
+dequantized right after the gather (``k.float() * k_scale`` per KV head).
 """
 from __future__ import annotations
 
 import torch
 
 
-def _gather(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """pool [n_blocks, KVH, bs, hd], table [B, W] -> [B, KVH, W*bs, hd]."""
+def _gather(pool: torch.Tensor, table: torch.Tensor, scale=None) -> torch.Tensor:
+    """pool [n_blocks, KVH, bs, hd], table [B, W] -> [B, KVH, W*bs, hd];
+    ``scale [KVH]`` dequantizes an int8 pool into the float32 view."""
     b, w = table.shape
     g = pool[table.long()]  # [B, W, KVH, bs, hd]
-    return g.movedim(2, 1).reshape(b, pool.shape[1], -1, pool.shape[3])
+    out = g.movedim(2, 1).reshape(b, pool.shape[1], -1, pool.shape[3])
+    if scale is not None:
+        out = out.to(torch.float32) * scale.to(torch.float32)[None, :, None, None]
+    return out
 
 
 def _softcap(s: torch.Tensor, softcap: float) -> torch.Tensor:
@@ -32,13 +37,14 @@ def _masked_attn(qg, k, v, mask, scale, softcap):
     return torch.einsum("bhgsl,bhld->bhgsd", p / denom, v)
 
 
-def paged_decode_ref(q, k_pool, v_pool, table, kv_len, *, softcap=0.0):
+def paged_decode_ref(q, k_pool, v_pool, table, kv_len, *, softcap=0.0,
+                     k_scale=None, v_scale=None):
     """q [B, H, hd] -> [B, H, hd] float32: keys at positions >= kv_len[b]
     are invisible; kv_len == 0 yields zeros (matching the kernel)."""
     b, h, hd = q.shape
     kvh = k_pool.shape[1]
-    k = _gather(k_pool, table)
-    v = _gather(v_pool, table)
+    k = _gather(k_pool, table, k_scale)
+    v = _gather(v_pool, table, v_scale)
     kv_len = kv_len.to(q.device)
     mask = torch.arange(k.shape[2], device=q.device)[None, None] < kv_len[:, None, None]
     qg = q.reshape(b, kvh, h // kvh, 1, hd)
@@ -46,13 +52,14 @@ def paged_decode_ref(q, k_pool, v_pool, table, kv_len, *, softcap=0.0):
     return torch.where(kv_len[:, None, None] > 0, o, torch.zeros_like(o))
 
 
-def paged_prefill_ref(q, k_pool, v_pool, table, start, *, softcap=0.0):
+def paged_prefill_ref(q, k_pool, v_pool, table, start, *, softcap=0.0,
+                      k_scale=None, v_scale=None):
     """q [B, H, S, hd] -> [B, H, S, hd] float32: causal against absolute
     positions ``start[b] + i`` over the gathered context view."""
     b, h, s, hd = q.shape
     kvh = k_pool.shape[1]
-    k = _gather(k_pool, table)
-    v = _gather(v_pool, table)
+    k = _gather(k_pool, table, k_scale)
+    v = _gather(v_pool, table, v_scale)
     q_pos = start.to(q.device)[:, None] + torch.arange(s, device=q.device)[None]
     mask = q_pos[:, :, None] >= torch.arange(k.shape[2], device=q.device)[None, None]
     qg = q.reshape(b, kvh, h // kvh, s, hd)

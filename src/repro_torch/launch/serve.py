@@ -6,7 +6,10 @@ reports measured decode tok/s, mean TTFT, the pool and prefix-cache
 counters, and how many times each hand-written kernel launched.  Weights
 are random (``init_params`` from ``--seed``).  Runs on the card unless
 ``--device cpu``; ``--attn-impl flash`` (the default) routes attention
-through the paged-attention kernel.
+through the paged-attention kernel.  ``--calibrate`` bakes static
+activation and KV scales into the plan from one exact pass over the run's
+packed prompts (which turns prefix reuse back on under ``int8``/``mixed``);
+``--kv-quant int8`` then stores the pool as int8 blocks.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \
       --mode int8 --batch 12 --prompt-mix 96,256,384 --gen 32 --max-slots 8
@@ -14,6 +17,9 @@ through the paged-attention kernel.
       --mode sc --batch 4 --prompt-mix 64,160 --gen 16 --max-slots 8
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu --gen 8
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu --plan mixed
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode int8 --calibrate --kv-quant int8
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu --mode int8 \
+      --calibrate --kv-quant int8
 """
 from __future__ import annotations
 
@@ -29,7 +35,8 @@ from repro_torch.core.astra_layer import MODES
 from repro_torch.kernels import _build, launch_counts, reset_launches
 from repro_torch.models.model import Model
 from repro_torch.models.transformer import ModelOptions
-from repro_torch.serve import SamplerConfig, ServeConfig, ServeEngine
+from repro_torch.serve import SamplerConfig, ServeConfig, ServeEngine, kv_quant_reject_reason
+from repro_torch.serve.prefill import pack_prompts
 
 
 def prompt_lengths(args) -> list:
@@ -70,6 +77,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--attn-impl", default="flash", choices=list(ModelOptions.ATTN_IMPLS),
                     help="flash = the paged-attention kernel; naive = plain attention "
                          "over the gathered view")
+    ap.add_argument("--calibrate", action="store_true",
+                    help="PTQ pass over the packed prompts: static per-site activation "
+                         "scales and per-KV-head storage scales")
+    ap.add_argument("--kv-quant", default="none", choices=list(ModelOptions.KV_QUANTS),
+                    help="int8 = int8 KV pool with the calibrated scales (needs "
+                         "--calibrate, or a plan that carries them)")
     return ap
 
 
@@ -89,11 +102,21 @@ def main(argv=None):
     params = model.init(args.seed)
     lengths = prompt_lengths(args)
     prompts = make_prompts(cfg, lengths, args.seed)
+    if args.calibrate:
+        cal_tokens, _ = pack_prompts(prompts, cfg, device=model.device)
+        model = model.calibrate(params, {"tokens": cal_tokens})
+        print(f"calibrated {len(model.plan.act_scales)} site activation scales"
+              f" + {len(model.plan.kv_scales)} KV storage-site scales")
+    if args.kv_quant != "none":
+        reason = kv_quant_reject_reason(model, args.kv_block_size)
+        if reason is not None:
+            ap.error(f"--kv-quant: {reason}")
     serve_cfg = ServeConfig(
         max_slots=args.max_slots or len(prompts), max_len=max(lengths) + args.gen + 1,
         chunk_steps=args.chunk_steps, sampler=SamplerConfig(args.temperature, args.top_k),
         seed=args.seed, kv_block_size=args.kv_block_size,
-        kv_pool_blocks=args.kv_pool_blocks, prefix_cache=not args.no_prefix_cache)
+        kv_pool_blocks=args.kv_pool_blocks, prefix_cache=not args.no_prefix_cache,
+        kv_quant=args.kv_quant)
     engine = ServeEngine(model, params, serve_cfg, device=model.device)
     engine.generate_batch(prompts[:1], min(args.gen, 2))  # warm-up, not timed
     reset_launches()
@@ -108,8 +131,9 @@ def main(argv=None):
           f"{sorted(set(lengths))}), {args.gen} new tokens each on {model.device}: "
           f"{n_tok / dt:.1f} tok/s, mean TTFT {ttft * 1e3:.1f} ms")
     kv = engine.kv_stats
-    line = (f"  kv pool: {kv['pool_blocks']} blocks x {kv['block_size']} tok "
-            f"({kv['bytes_per_block']} B/block, {kv['pool_bytes'] / 1e6:.2f} MB)")
+    line = (f"  kv pool: {kv['pool_blocks']} blocks x {kv['block_size']} tok, "
+            f"{kv['kv_quant']} storage ({kv['bytes_per_block']} B/block, "
+            f"{kv['pool_bytes'] / 1e6:.2f} MB)")
     if not kv["prefix_cache"]:
         line += f"; prefix cache off: {kv['prefix_cache_off_reason']}"
     print(line)

@@ -9,8 +9,11 @@ Port of ``repro.models.attention`` for this slice:
   starts anywhere inside a block (the prefix-cache admission path).
 
 The paged pool is ``PagedKVCache(k, v)`` with ``[n_blocks, n_kv, bs, hd]``
-tensors shared by every slot through per-slot block tables.  Block 0 is
-the scratch sink for padded and overrun writes.  The port writes the pool
+tensors shared by every slot through per-slot block tables, or
+``QuantPagedKVCache`` with int8 blocks and calibrated per-KV-head scales
+(writes quantize, the gathered view dequantizes, the kernel dequantizes
+each streamed block).  Block 0 is the scratch sink for padded and
+overrun writes.  The port writes the pool
 **in place** (``index_put_``): a functional copy of a full-width pool per
 layer per step would cost more than the step itself.  Where several rows
 write one position — only ever the scratch block — every duplicate
@@ -32,7 +35,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.astra_layer import (
     BoundSite, ComputeConfig, EXACT, astra_batched_matmul, runs_exact,
 )
-from repro_torch.core.plan import SiteBinding, as_binding
+from repro_torch.core.plan import SiteBinding, as_binding, observe_kv
+from repro_torch.core.quant import MAG_MAX
 from repro_torch.device import torch_dtype
 from repro_torch.models.layers import apply_rope, dense, dense_init
 
@@ -49,6 +53,34 @@ class PagedKVCache(NamedTuple):
 
     k: torch.Tensor  # [n_blocks, n_kv, block_size, hd]
     v: torch.Tensor
+
+
+class QuantPagedKVCache(NamedTuple):
+    """Int8 block pool plus static per-KV-head scales (the plan's
+    calibrated ``L{li}.kv.{k,v}`` sites): every stored block is a pure
+    function of the token path, so prefix reuse stays legal."""
+
+    k: torch.Tensor  # [n_blocks, n_kv, block_size, hd] int8
+    v: torch.Tensor
+    k_scale: torch.Tensor  # [n_kv] float32
+    v_scale: torch.Tensor
+
+
+AnyPagedKVCache = Union[PagedKVCache, QuantPagedKVCache]
+
+
+def kv_quantize(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Symmetric int8 codes of a KV tensor with KV heads on axis -3
+    (``[..., n_kv, S, hd]``) against per-head ``scale [n_kv]``."""
+    s = torch.as_tensor(scale, dtype=torch.float32, device=x.device)[..., None, None]
+    q = torch.round(x.to(torch.float32) / s)
+    return torch.clamp(q, -MAG_MAX, MAG_MAX).to(torch.int8)
+
+
+def kv_dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`kv_quantize` (up to the <= scale/2 rounding)."""
+    s = torch.as_tensor(scale, dtype=torch.float32, device=q.device)[..., None, None]
+    return q.to(torch.float32) * s
 
 
 class BlockTables(NamedTuple):
@@ -140,15 +172,18 @@ def attn_seq(p, x: torch.Tensor, cfg: ArchConfig, *, kind: str = "attn",
              sites: Union[ComputeConfig, SiteBinding] = EXACT, use_flash: bool = False,
              positions: Optional[torch.Tensor] = None, return_cache: bool = False,
              max_len: Optional[int] = None) -> Tuple[torch.Tensor, Optional[KVCache]]:
-    """Full-sequence causal attention through ``_sdpa``."""
+    """Full-sequence causal attention through ``_sdpa``.  A calibration
+    pass (observing qk/pv) never takes the flash kernel, as in the
+    reference."""
     if kind != "attn":
         raise NotImplementedError(f"{kind!r} blocks are not ported yet "
                                   "(ROADMAP queue 1: other block kinds)")
-    if use_flash and x.device.type == "cuda":
-        raise NotImplementedError("the flash_attention kernel is not ported yet "
-                                  "(ROADMAP queue 1: dense layout)")
     b, s, _ = x.shape
     sites = as_binding(sites)
+    if (use_flash and x.device.type == "cuda" and _dyn_exact(sites("qk"))
+            and _dyn_exact(sites("pv"))):
+        raise NotImplementedError("the flash_attention kernel is not ported yet "
+                                  "(ROADMAP queue 1: dense layout)")
     if positions is None:
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
     q = _split_heads(dense(p["wq"], x, sites("q_proj")), cfg.n_heads, cfg.head_dim)
@@ -156,6 +191,7 @@ def attn_seq(p, x: torch.Tensor, cfg: ArchConfig, *, kind: str = "attn",
     v = _split_heads(dense(p["wv"], x, sites("kv_proj")), cfg.n_kv_heads, cfg.head_dim)
     q = apply_rope(q, positions, cfg.rope_pct, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_pct, cfg.rope_theta)
+    observe_kv(sites, k, v)  # calibration tap: what the pool would store
     o = _sdpa(q, k, v, causal=True, window=0, softcap=cfg.logit_softcap,
               qk=sites("qk"), pv=sites("pv"))
     out = dense(p["wo"], _merge_heads(o), sites("o_proj"))
@@ -176,14 +212,29 @@ def init_paged_cache(cfg: ArchConfig, n_blocks: int, block_size: int,
                         torch.zeros(shape, dtype=dt, device=device))
 
 
-def _paged_view(cache: PagedKVCache, table: torch.Tensor):
-    """Gather each slot's logical KV: table [B, W] -> k/v [B, n_kv, W*bs, hd]."""
+def init_paged_quant_cache(cfg: ArchConfig, n_blocks: int, block_size: int,
+                           k_scale, v_scale, device=None) -> QuantPagedKVCache:
+    """Zeroed int8 block pool with calibrated per-KV-head scales."""
+    shape = (n_blocks, cfg.n_kv_heads, block_size, cfg.head_dim)
+    return QuantPagedKVCache(
+        torch.zeros(shape, dtype=torch.int8, device=device),
+        torch.zeros(shape, dtype=torch.int8, device=device),
+        torch.as_tensor(k_scale, dtype=torch.float32, device=device),
+        torch.as_tensor(v_scale, dtype=torch.float32, device=device))
+
+
+def _paged_view(cache: AnyPagedKVCache, table: torch.Tensor):
+    """Gather each slot's logical KV: table [B, W] -> k/v [B, n_kv, W*bs, hd];
+    an int8 pool is dequantized after the gather."""
     def gather(pool):
         nb, kvh, bs, hd = pool.shape
         g = pool[table.long()]  # [B, W, kv, bs, hd]
         return g.movedim(1, 2).reshape(table.shape[0], kvh, -1, hd)
 
-    return gather(cache.k), gather(cache.v)
+    k, v = gather(cache.k), gather(cache.v)
+    if isinstance(cache, QuantPagedKVCache):
+        k, v = kv_dequantize(k, cache.k_scale), kv_dequantize(v, cache.v_scale)
+    return k, v
 
 
 def _last_writer(pb: torch.Tensor, off: torch.Tensor, bs: int, n_blocks: int) -> torch.Tensor:
@@ -204,10 +255,13 @@ def _pool_write(pool: torch.Tensor, pb: torch.Tensor, off: torch.Tensor,
     pool[pb.long(), :, off.long()] = src
 
 
-def _paged_write_token(cache: PagedKVCache, table: torch.Tensor, slot: torch.Tensor,
-                       k_new: torch.Tensor, v_new: torch.Tensor) -> PagedKVCache:
+def _paged_write_token(cache: AnyPagedKVCache, table: torch.Tensor, slot: torch.Tensor,
+                       k_new: torch.Tensor, v_new: torch.Tensor) -> AnyPagedKVCache:
     """Write one token per batch row at logical position ``slot [B]``;
-    k_new/v_new [B, n_kv, 1, hd].  In place; returns the same cache."""
+    k_new/v_new [B, n_kv, 1, hd], quantized first for an int8 pool.  In
+    place; returns the same cache."""
+    if isinstance(cache, QuantPagedKVCache):
+        k_new, v_new = kv_quantize(k_new, cache.k_scale), kv_quantize(v_new, cache.v_scale)
     bs = cache.k.shape[2]
     b = slot.shape[0]
     pb = table[torch.arange(b, device=slot.device), (slot // bs).long()]
@@ -242,7 +296,7 @@ def attn_decode(p, x: torch.Tensor, cache, pos: torch.Tensor, cfg: ArchConfig, *
     if kind != "attn":
         raise NotImplementedError(f"{kind!r} blocks are not ported yet "
                                   "(ROADMAP queue 1: other block kinds)")
-    if not isinstance(cache, PagedKVCache):
+    if not isinstance(cache, (PagedKVCache, QuantPagedKVCache)):
         raise NotImplementedError("decode over dense per-slot caches arrives with the "
                                   "dense layout (ROADMAP queue 1)")
     assert tables is not None, "paged decode needs a BlockTables"
@@ -264,7 +318,7 @@ def attn_decode(p, x: torch.Tensor, cache, pos: torch.Tensor, cfg: ArchConfig, *
         from repro_torch.kernels.paged_attention import paged_attention_decode
 
         o = paged_attention_decode(q[:, :, 0], cache.k, cache.v, tables.table, kv_len,
-                                   softcap=cfg.logit_softcap)[:, :, None]
+                                   *_scales(cache), softcap=cfg.logit_softcap)[:, :, None]
     else:
         k_log, v_log = _paged_view(cache, tables.table)
         o = _sdpa(q, k_log, v_log, causal=False, window=0, kv_len=kv_len,
@@ -272,14 +326,23 @@ def attn_decode(p, x: torch.Tensor, cache, pos: torch.Tensor, cfg: ArchConfig, *
     return dense(p["wo"], _merge_heads(o), sites("o_proj")), cache
 
 
-def attn_prefill_paged(p, x: torch.Tensor, cache: PagedKVCache, table: torch.Tensor,
+def _scales(cache: AnyPagedKVCache):
+    """(k_scale, v_scale) of an int8 pool, (None, None) of a float one."""
+    if isinstance(cache, QuantPagedKVCache):
+        return cache.k_scale, cache.v_scale
+    return None, None
+
+
+def attn_prefill_paged(p, x: torch.Tensor, cache: AnyPagedKVCache, table: torch.Tensor,
                        start: torch.Tensor, cfg: ArchConfig, *,
                        sites: Union[ComputeConfig, SiteBinding] = EXACT,
                        ctx_blocks: int, use_kernel: bool = False):
     """Suffix prefill with past: causal attention of the packed suffixes
     (``x [B, S_suf, D]`` starting at ``start [B]``) against prefix KV
     already resident in the pool.  ``ctx_blocks`` bounds the context view
-    and must cover the longest ``start + S_suf``."""
+    and must cover the longest ``start + S_suf``.  On an int8 pool the
+    suffix is quantized, written, and read back quantized by its own
+    attention."""
     b, s, _ = x.shape
     sites = as_binding(sites)
     start = start.to(x.device)
@@ -289,6 +352,8 @@ def attn_prefill_paged(p, x: torch.Tensor, cache: PagedKVCache, table: torch.Ten
     v = _split_heads(dense(p["wv"], x, sites("kv_proj")), cfg.n_kv_heads, cfg.head_dim)
     q = apply_rope(q, positions, cfg.rope_pct, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_pct, cfg.rope_theta)
+    if isinstance(cache, QuantPagedKVCache):
+        k, v = kv_quantize(k, cache.k_scale), kv_quantize(v, cache.v_scale)
     _paged_write_span(cache.k, table, start, k)
     _paged_write_span(cache.v, table, start, v)
     ctx_tbl = table[:, :ctx_blocks]
@@ -296,7 +361,7 @@ def attn_prefill_paged(p, x: torch.Tensor, cache: PagedKVCache, table: torch.Ten
     if use_kernel and _dyn_exact(qk_b) and _dyn_exact(pv_b):
         from repro_torch.kernels.paged_attention import paged_attention_prefill
 
-        o = paged_attention_prefill(q, cache.k, cache.v, ctx_tbl, start,
+        o = paged_attention_prefill(q, cache.k, cache.v, ctx_tbl, start, *_scales(cache),
                                     softcap=cfg.logit_softcap)
     else:
         k_log, v_log = _paged_view(cache, ctx_tbl)

@@ -29,6 +29,17 @@ class Model:
     def plan(self) -> ExecutionPlan:
         return self.opts.plan
 
+    def with_plan(self, plan) -> "Model":
+        """The same model under another plan (any ``from_spec`` form)."""
+        return dataclasses.replace(
+            self, opts=dataclasses.replace(self.opts, plan=ExecutionPlan.from_spec(plan)))
+
+    def calibrate(self, params, batch) -> "Model":
+        """PTQ calibration: one exact forward over ``batch`` with per-site
+        observers; returns the model with static activation and KV scales
+        baked into its plan."""
+        return self.with_plan(self.plan.calibrate(self, params, batch))
+
     # ------------------------------------------------------------- params
     def init(self, seed: int = 0) -> Dict[str, Any]:
         return init_params(self.cfg, seed, self.device)
@@ -54,4 +65,7 @@ class Model:
                               ctx_blocks)
 
     def init_decode_state(self, batch: int, max_len: int, paged=None):
-        return init_decode_state(self.cfg, batch, max_len, paged, device=self.device)
+        """``paged=(n_blocks, block_size)`` pools; with ``opts.kv_quant="int8"``
+        they are int8 with the plan's calibrated per-KV-head scales."""
+        return init_decode_state(self.cfg, batch, max_len, paged, device=self.device,
+                                 kv_quant=self.opts.kv_quant, plan=self.plan)

@@ -10,7 +10,8 @@ thing in both packages.
 Parameters: ``{"embedding": {"table"}, "head": {"w"} | {}, "final_norm",
 "layers": [{"pre_norm", "core": {"wq","wk","wv","wo"}, "post_norm",
 "mlp": {"up","gate","down"}}, ...]}``, float32 masters.  Serving state:
-``{"layers": [PagedKVCache, ...]}`` — one block pool per layer.
+``{"layers": [PagedKVCache | QuantPagedKVCache, ...]}`` — one block pool
+per layer, int8 under ``kv_quant="int8"``.
 """
 from __future__ import annotations
 
@@ -37,7 +38,8 @@ class ModelOptions:
     ``from_spec`` form (preset name, mode string, JSON rules, dict).
     ``attn_impl``: ``naive`` = plain attention over the gathered view;
     ``flash`` = the paged-attention kernel on decode and suffix prefill.
-    ``kv_quant``: only ``none`` in this slice."""
+    ``kv_quant``: ``int8`` stores the paged pools as int8 against the
+    plan's calibrated per-KV-head scales."""
 
     plan: Optional[Union[ExecutionPlan, str, dict, ComputeConfig]] = None
     attn_impl: str = "naive"
@@ -53,9 +55,6 @@ class ModelOptions:
         if self.kv_quant not in self.KV_QUANTS:
             raise ValueError(f"kv_quant={self.kv_quant!r} unknown; valid: "
                              f"{', '.join(self.KV_QUANTS)}")
-        if self.kv_quant != "none":
-            raise NotImplementedError("kv_quant='int8' is not ported yet (ROADMAP "
-                                      "queue 1: calibration with kv_quant)")
         plan = self.plan
         if plan is None:
             plan = ExecutionPlan.from_spec("exact")
@@ -87,10 +86,18 @@ def layer_group(cfg: ArchConfig, li: int) -> Tuple[int, ...]:
     return (li,)
 
 
-@functools.lru_cache(maxsize=64)
 def _layer_sites(plan: ExecutionPlan, cfg: ArchConfig) -> Tuple[SiteBinding, ...]:
+    if plan._observer is not None:  # an observing plan never enters a cache
+        return _layer_sites_uncached(plan, cfg)
+    return _layer_sites_cached(plan, cfg)
+
+
+def _layer_sites_uncached(plan: ExecutionPlan, cfg: ArchConfig) -> Tuple[SiteBinding, ...]:
     return tuple(plan.binding(kind, layer_group(cfg, li))
                  for li, kind in enumerate(cfg.layer_kinds))
+
+
+_layer_sites_cached = functools.lru_cache(maxsize=64)(_layer_sites_uncached)
 
 
 # ------------------------------------------------------------------ params
@@ -235,14 +242,29 @@ def suffix_forward(params, tokens: torch.Tensor, cfg: ArchConfig, opts: ModelOpt
 
 
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
-                      paged: Optional[Tuple[int, int]] = None, device=None):
+                      paged: Optional[Tuple[int, int]] = None, device=None,
+                      kv_quant: str = "none", plan: Optional[ExecutionPlan] = None):
     """Zeroed serving state: ``paged = (n_blocks, block_size)`` gives one
     block pool per layer (no batch axis: block tables carry slot
-    identity).  The dense per-slot layout arrives with its own slice."""
+    identity).  ``kv_quant="int8"`` makes each pool int8 with the per-head
+    scales ``plan.kv_group_scale`` gives over the layer's group (the
+    reference's one pool per scanned group).  The dense per-slot layout
+    arrives with its own slice."""
     _check_supported(cfg)
     if paged is None:
         raise NotImplementedError("the dense per-slot KV layout is not ported yet "
                                   "(ROADMAP queue 1: dense layout); pass paged=")
     n_blocks, block_size = paged
-    return {"layers": [attn.init_paged_cache(cfg, n_blocks, block_size, device)
-                       for _ in cfg.layer_kinds]}
+    if kv_quant == "none":
+        return {"layers": [attn.init_paged_cache(cfg, n_blocks, block_size, device)
+                           for _ in cfg.layer_kinds]}
+    if plan is None:
+        raise ValueError("kv_quant='int8' needs a calibrated plan")
+    layers = []
+    for li in range(cfg.n_layers):
+        grp = layer_group(cfg, li)
+        k_scale = plan.kv_group_scale(tuple(f"L{l}.kv.k" for l in grp))
+        v_scale = plan.kv_group_scale(tuple(f"L{l}.kv.v" for l in grp))
+        layers.append(attn.init_paged_quant_cache(cfg, n_blocks, block_size, k_scale,
+                                                  v_scale, device))
+    return {"layers": layers}

@@ -14,9 +14,12 @@ Every decode step runs all ``max_slots`` rows, free ones included (at
 position 0 with a stale token, their writes landing in scratch block 0),
 exactly as the reference does: under a plan with dynamic int8 scales the
 activation absmax spans every row, so the port must carry the same rows
-to give the same tokens.  The dense layout, chunked prefill, KV
-quantization, fault containment and the chip-model accounting come with
-later slices (ROADMAP.md).
+to give the same tokens.  ``ServeConfig.kv_quant="int8"`` stores the
+pool as int8 against the plan's calibrated per-KV-head scales; the engine
+refuses it unless the KV is a pure function of the token path
+(:func:`kv_quant_reject_reason`).  The dense layout, chunked prefill,
+fault containment and the chip-model accounting come with later slices
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.plan import model_sites
+from repro_torch.core.plan import kv_sites, model_sites
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.attention import BlockTables
 from repro_torch.models.model import Model
@@ -53,6 +56,7 @@ class ServeConfig:
     kv_pool_blocks: int = 0  # physical blocks incl. scratch; 0 = slot floor + 2 slots
     prefix_cache: bool = True  # radix-tree prefix reuse
     attn_impl: Optional[str] = None  # None inherits the model's; "naive" | "flash"
+    kv_quant: Optional[str] = None  # None inherits the model's; "none" | "int8"
 
 
 @dataclasses.dataclass
@@ -107,6 +111,28 @@ def _kv_deterministic(model: Model) -> bool:
     return True
 
 
+def kv_quant_reject_reason(model: Model, kv_block_size: int) -> Optional[str]:
+    """Why ``kv_quant="int8"`` cannot run on this engine (None = legal).
+    The prefix cache replays pooled int8 blocks, so their contents must be
+    a pure function of the token path: the paged layout, static activation
+    scales on every quantized GEMM site, and a calibrated scale for every
+    KV storage site."""
+    if kv_block_size <= 0:
+        return ("kv_quant='int8' requires the paged KV layout (kv_block_size > 0): "
+                "dense per-slot caches stay in the model dtype")
+    if not _kv_deterministic(model):
+        return ("kv_quant='int8' requires deterministic KV: every quantized GEMM site "
+                "must carry a static calibrated act_scale — dynamic per-tensor scales "
+                "would make pooled int8 blocks depend on admission history; run "
+                "Model.calibrate or use an exact/static plan")
+    missing = [s for s in kv_sites(model.cfg) if model.plan.kv_scale(s) is None]
+    if missing:
+        more = f" (+{len(missing) - 1} more site(s))" if len(missing) > 1 else ""
+        return (f"kv_quant='int8' needs calibrated KV scales but the plan carries none "
+                f"for {missing[0]!r}{more}; run Model.calibrate before enabling kv_quant")
+    return None
+
+
 class ServeEngine:
     def __init__(self, model: Model, params, config: Optional[ServeConfig] = None, *,
                  device: DeviceLike = None, clock: Optional[Callable[[], float]] = None):
@@ -120,11 +146,19 @@ class ServeEngine:
         if config.attn_impl is not None and config.attn_impl != model.opts.attn_impl:
             model = dataclasses.replace(
                 model, opts=dataclasses.replace(model.opts, attn_impl=config.attn_impl))
+        if config.kv_quant is not None and config.kv_quant != model.opts.kv_quant:
+            # the engine owns the KV storage dtype, as it owns attn_impl
+            model = dataclasses.replace(
+                model, opts=dataclasses.replace(model.opts, kv_quant=config.kv_quant))
         if config.kv_block_size <= 0:
             raise ValueError(
                 f"kv_block_size={config.kv_block_size}: the dense per-slot KV layout "
                 "is not ported yet (ROADMAP queue 1: dense layout); use a paged "
                 "block size > 0")
+        if model.opts.kv_quant != "none":
+            reason = kv_quant_reject_reason(model, config.kv_block_size)
+            if reason is not None:
+                raise ValueError(reason)
         cfg = model.cfg
         if any(k != "attn" for k in cfg.layer_kinds):
             raise NotImplementedError(f"{cfg.name}: serving ports pure global-attention "
@@ -163,13 +197,16 @@ class ServeEngine:
         elif not _kv_deterministic(model):
             self._prefix_off_reason = (
                 "non-deterministic KV: a quantized GEMM site runs with dynamic "
-                "scales (calibrated static scales arrive with the calibration slice)")
+                "scales (run Model.calibrate for static scales)")
         else:
             self._prefix = RadixPrefixTree(bs)
         self._states = model.init_decode_state(config.max_slots, config.max_len,
                                                paged=(n_blocks, bs))
+        # storage of one block over every layer's K and V pools, at the
+        # pools' dtype (int8 under kv_quant); per-head scales are not per block
         self._pool.bytes_per_block = sum(
-            t[0].numel() * t.element_size() for st in self._states["layers"] for t in st)
+            t[0].numel() * t.element_size() for st in self._states["layers"]
+            for t in (st.k, st.v))
         self._cur_tok = torch.zeros((config.max_slots, 1), dtype=torch.int32,
                                     device=self.device)
         # host-clock seconds and tokens of admission prefills and decode

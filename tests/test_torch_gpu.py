@@ -11,7 +11,9 @@ Tolerances: int8 accumulators (one product or a batch), stream words,
 signs and stochastic accumulators bit-exact; paged attention float32
 1e-5 (same math, keys streamed in chunks with rescaling), bf16 2e-2 (the
 kernel rounds p to bf16 before the PV product, like the reference
-kernel; the plain version keeps p in float32).
+kernel; the plain version keeps p in float32); on int8 pools float32
+1e-5 (both sides dequantize to the same float32 K/V and compute in
+float32).
 """
 import numpy as np
 import pytest
@@ -80,6 +82,38 @@ def test_paged_kernels_match_plain_on_card(cuda, dtype, g):
     got = pa_ops.paged_attention_prefill(tqs, tk, tv, tt, ts).float()
     want = paged_prefill_ref(tqs, tk, tv, tt, ts)
     torch.testing.assert_close(got, want, atol=tol, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [16, 64])
+@pytest.mark.parametrize("g", [1, 4])
+def test_int8_pool_kernels_match_plain_on_card(cuda, hd, g):
+    """The int8-pool branch, decode and causal: ragged fills, kv_len 0
+    (zeros), starts at 0, mid-block and past a block edge; both counters
+    count the launch."""
+    kvh, bs, w, s = 4, 16, 6, 5
+    rng = np.random.default_rng(1)
+    kv_len = np.asarray([0, 1, bs - 1, bs + 1, 3 * bs + 7, w * bs], np.int32)
+    start = np.asarray([0, 3, bs, bs + 7, 2 * bs, 0], np.int32)
+    table = rng.integers(1, 40, (6, w)).astype(np.int32)
+    table[1, 0] = 0  # an entry at scratch block 0
+    q = rng.standard_normal((6, kvh * g, hd)).astype(np.float32)
+    qs = rng.standard_normal((6, kvh * g, s, hd)).astype(np.float32)
+    kp, vp = (rng.integers(-127, 128, (40, kvh, bs, hd)).astype(np.int8) for _ in range(2))
+    ks, vs = (rng.uniform(0.005, 0.03, kvh).astype(np.float32) for _ in range(2))
+    tq, tqs, tk, tv, tt, tl, ts, tks, tvs = (
+        x.to(cuda) for x in _t(q, qs, kp, vp, table, kv_len, start, ks, vs))
+    before = (pa_ops.paged_attention_decode.int8_launches,
+              pa_ops.paged_attention_prefill.int8_launches)
+    got = pa_ops.paged_attention_decode(tq, tk, tv, tt, tl, tks, tvs)
+    want = paged_decode_ref(tq, tk, tv, tt, tl, k_scale=tks, v_scale=tvs)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    assert not got[0].any()  # kv_len 0 -> zeros
+    got = pa_ops.paged_attention_prefill(tqs, tk, tv, tt, ts, tks, tvs)
+    want = paged_prefill_ref(tqs, tk, tv, tt, ts, k_scale=tks, v_scale=tvs)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    assert (pa_ops.paged_attention_decode.int8_launches,
+            pa_ops.paged_attention_prefill.int8_launches) == (before[0] + 1, before[1] + 1)
 
 
 @pytest.mark.gpu

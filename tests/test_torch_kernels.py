@@ -93,10 +93,16 @@ def test_paged_decode_plain_bf16(rng):
 
 
 def test_paged_wrappers_refuse_int8_pools(rng):
+    """An int8 pool without its calibrated per-KV-head scales is refused,
+    as the reference kernel refuses it."""
     q, kp, vp, table = _paged_inputs(rng, 2, 2, 1, 16, 4, 3, 8)
     kq = torch.zeros(kp.shape, dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match="kv_quant"):
+    scale = torch.ones(2)
+    with pytest.raises(ValueError, match="k_scale/v_scale"):
         pa_ops.paged_attention_decode(*_t(q), kq, kq, *_t(table, np.ones(2, np.int32)))
+    with pytest.raises(ValueError, match="k_scale/v_scale"):
+        pa_ops.paged_attention_prefill(*_t(q[:, :, None]), kq, kq,
+                                       *_t(table, np.zeros(2, np.int32)), scale)
 
 
 @pytest.mark.parametrize("m,k,n", [(8, 64, 96), (33, 128, 40), (1, 17, 5), (130, 256, 128)])
