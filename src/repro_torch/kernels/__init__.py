@@ -12,7 +12,13 @@ launches the kernel or raises.
   (replaces ``repro.kernels.int8_matmul``)
 * ``paged_attention`` — streaming-softmax decode and causal suffix
   prefill straight from the paged KV pool through the block table
-  (replaces ``repro.kernels.paged_attention.paged_attention_kernel``)
+  (replaces ``repro.kernels.paged_attention.paged_attention_kernel``),
+  and ``dense_attention_decode``, the same decode over dense per-slot
+  caches (replaces ``dense_attention_kernel``)
+* ``flash_attention`` — streaming-softmax attention over full sequences,
+  causal with an optional sliding window, GQA folded over the query axis
+  (bf16 on the tensor cores, float32 on FMA tiles): the dense layout's
+  prefill (replaces ``repro.kernels.flash_attention``)
 * ``bts_encode``      — the B-to-S encoder: int8 codes -> packed 128-bit
   stochastic streams and signs (replaces ``repro.kernels.bts_encode``)
 * ``stoch_matmul``    — the OSSM array: AND, popcount and signed sum of
@@ -33,14 +39,17 @@ INT8_BRANCHES = {"paged_attention_decode_int8": "paged_attention_decode",
 def kernel_wrappers() -> dict:
     """Every counted kernel wrapper, by name."""
     from repro_torch.kernels.bts_encode.ops import bts_encode
+    from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.int8_matmul.ops import int8_gemm, int8_gemm_batched
     from repro_torch.kernels.paged_attention.ops import (
-        paged_attention_decode, paged_attention_prefill,
+        dense_attention_decode, paged_attention_decode, paged_attention_prefill,
     )
     from repro_torch.kernels.stoch_matmul.ops import stoch_matmul_packed
     return {
         "paged_attention_decode": paged_attention_decode,
         "paged_attention_prefill": paged_attention_prefill,
+        "dense_attention_decode": dense_attention_decode,
+        "flash_attention": flash_attention,
         "int8_gemm": int8_gemm,
         "int8_gemm_batched": int8_gemm_batched,
         "bts_encode": bts_encode,

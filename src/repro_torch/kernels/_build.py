@@ -34,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LIBRARIES: Dict[str, Tuple[str, ...]] = {
     "int8_matmul": ("int8_matmul/csrc/int8_matmul.cu",),
     "paged_attention": ("paged_attention/csrc/paged_attention.cu",),
+    "flash_attention": ("flash_attention/csrc/flash_attention.cu",),
     "bts_encode": ("bts_encode/csrc/bts_encode.cu",),
     "stoch_matmul": ("stoch_matmul/csrc/stoch_matmul.cu",),
 }
@@ -114,6 +115,16 @@ def check(rc: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a launch function."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")
+
+
+def aligned(t):
+    """``t`` contiguous with a 16-byte aligned start, copied only when it is
+    not (the kernels read 16-byte vectors)."""
+    import torch
+
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 @functools.lru_cache(maxsize=None)

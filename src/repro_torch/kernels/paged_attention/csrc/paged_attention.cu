@@ -6,7 +6,12 @@
 // position lens[b] + r % q_len; keys at or before it are visible) — over
 // float32/bf16 pools and over int8 pools (the kernel's quantized branch,
 // kernel.py:96-98: float32 queries, each streamed K/V element dequantized
-// as float(k) * k_scale[h], the reference's float32 product).
+// as float(k) * k_scale[h], the reference's float32 product); and
+// dense_attention_kernel (kernel.py:212), the same decode body over dense
+// per-slot caches [B, KVH, S, D]: the DENSE policy reads "block 0 of slot
+// b" as slot b's own S-position row (no table), keys past lens[b] or S
+// masked and read as zero (the reference's ragged trailing block, V rows
+// zeroed).
 //
 // What bounds it on an H100: decode reads every live K/V position of every
 // slot once per step (2 * kv_len * KVH * hd * itemsize bytes: 1 byte an
@@ -64,12 +69,12 @@ __device__ __forceinline__ void load_vec(const T* __restrict__ src, float (&dst)
   for (int i = 0; i < VEC; ++i) dst[i] = to_f(e[i]);
 }
 
-template <typename TQ, typename TKV, int D, int RT, int KC>
+template <typename TQ, typename TKV, int D, int RT, int KC, bool DENSE>
 __global__ void __launch_bounds__(THREADS)
 paged_attention_kernel(const TQ* __restrict__ q,          // [B, KVH, R, D]
                        const TKV* __restrict__ k_pool,    // [NB, KVH, BS, D]
                        const TKV* __restrict__ v_pool,    // [NB, KVH, BS, D]
-                       const int32_t* __restrict__ table,  // [B, W]
+                       const int32_t* __restrict__ table,  // [B, W] (unused if DENSE)
                        const int32_t* __restrict__ lens,   // [B]
                        const float* __restrict__ k_scale,  // [KVH] (int8 pools)
                        const float* __restrict__ v_scale,  // [KVH] (int8 pools)
@@ -122,7 +127,8 @@ paged_attention_kernel(const TQ* __restrict__ q,          // [B, KVH, R, D]
   for (int base = 0; base < n_keys; base += KC) {
     if (tid < KC) {
       const int kp = base + tid;
-      pg[tid] = kp < n_keys ? table[(size_t)b * W + kp / BS] : 0;
+      // DENSE: slot b's cache is one "block" of BS = S positions, block b
+      pg[tid] = kp < n_keys ? (DENSE ? b : table[(size_t)b * W + kp / BS]) : 0;
     }
     __syncthreads();
     for (int c = tid; c < KC * (D / VEC); c += THREADS) {
@@ -216,24 +222,25 @@ struct Args {
   float scale, softcap;
 };
 
-template <typename TQ, typename TKV, int D, int RT, int KC>
+template <typename TQ, typename TKV, int D, int RT, int KC, bool DENSE>
 void launch(const Args& a, cudaStream_t s) {
   dim3 grid((a.R + RT - 1) / RT, a.KVH, a.B);
-  paged_attention_kernel<TQ, TKV, D, RT, KC><<<grid, THREADS, 0, s>>>(
+  paged_attention_kernel<TQ, TKV, D, RT, KC, DENSE><<<grid, THREADS, 0, s>>>(
       static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.kp),
       static_cast<const TKV*>(a.vp), a.table, a.lens, a.k_scale, a.v_scale, a.out, a.KVH,
       a.R, a.BS, a.W, a.q_len, a.causal, a.scale, a.softcap);
 }
 
-// Row tiles: 1 (decode, G = 1), 8 (decode with GQA) or 32 rows (prefill).
-template <typename TQ, typename TKV, int D>
+// Row tiles: 1 (decode, G = 1), 8 (decode with GQA) or 32 rows (prefill);
+// DENSE reads slot b's own cache (dense decode) instead of a block table.
+template <typename TQ, typename TKV, int D, bool DENSE = false>
 void launch_rows(const Args& a, cudaStream_t s) {
   if (a.R == 1)
-    launch<TQ, TKV, D, 1, 64>(a, s);
+    launch<TQ, TKV, D, 1, 64, DENSE>(a, s);
   else if (a.R <= 8)
-    launch<TQ, TKV, D, 8, 64>(a, s);
+    launch<TQ, TKV, D, 8, 64, DENSE>(a, s);
   else
-    launch<TQ, TKV, D, 32, 32>(a, s);
+    launch<TQ, TKV, D, 32, 32, DENSE>(a, s);
 }
 
 // dtype code: 0 float32 pool and queries, 1 bf16 pool and queries,
@@ -282,5 +289,28 @@ extern "C" int paged_attention_launch(const void* q, const void* kp, const void*
   else
     bad = 1;
   if (bad) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Dense decode: q [B,KVH,G,D] and caches k/v [B,KVH,S,D] of one dtype (0
+// float32, 1 bf16), lens [B] int32 = kv_len; out [B,KVH,G,D] float32,
+// already divided by the softmax denominator.
+extern "C" int dense_attention_launch(const void* q, const void* k, const void* v,
+                                      const void* lens, void* out, int B, int KVH, int G,
+                                      int D, int S, float scale, float softcap, int dtype,
+                                      void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Args a{q, k, v, nullptr, static_cast<const int32_t*>(lens), nullptr, nullptr,
+               static_cast<float*>(out), B, KVH, G, S, 1, 1, 0, scale, softcap};
+  if (D == 64 && dtype == 0)
+    launch_rows<float, float, 64, true>(a, s);
+  else if (D == 64 && dtype == 1)
+    launch_rows<__nv_bfloat16, __nv_bfloat16, 64, true>(a, s);
+  else if (D == 16 && dtype == 0)
+    launch_rows<float, float, 16, true>(a, s);
+  else if (D == 16 && dtype == 1)
+    launch_rows<__nv_bfloat16, __nv_bfloat16, 16, true>(a, s);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,9 @@
 """Public paged-attention wrappers: GQA grouping, dtypes, launch counters.
 
-Port of ``repro.kernels.paged_attention.ops`` (decode and causal suffix
-prefill; the dense-cache variant comes with the dense layout).  Queries
+Port of ``repro.kernels.paged_attention.ops``: decode and causal suffix
+prefill through the block table, and decode over dense per-slot caches
+(:func:`dense_attention_decode`, the kernel's contiguous-index branch).
+Queries
 arrive in the model's ``[B, H, ...]`` head layout and are folded into
 per-KV-head row groups (row ``g * q_len + i``), cast to the pool dtype —
 or to float32 for an int8 pool, whose blocks the kernel dequantizes with
@@ -11,8 +13,8 @@ and the wrapper returns it in the query dtype.
 
 On a CPU tensor each wrapper runs the plain version (``ref.py``); on a
 CUDA tensor it launches ``csrc/paged_attention.cu`` or raises.  Each
-wrapper's ``launches`` counts every launch; ``int8_launches`` counts the
-launches on int8 pools among them.
+wrapper's ``launches`` counts every launch; the paged wrappers'
+``int8_launches`` count the launches on int8 pools among them.
 """
 from __future__ import annotations
 
@@ -21,7 +23,9 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.paged_attention.ref import paged_decode_ref, paged_prefill_ref
+from repro_torch.kernels.paged_attention.ref import (
+    dense_decode_ref, paged_decode_ref, paged_prefill_ref,
+)
 
 HEAD_DIMS = (16, 64)  # head dims the kernel is instantiated for
 # pool dtype -> the kernel's dtype code (q is float32 for int8 pools)
@@ -32,6 +36,15 @@ def _lib():
     fn = _build.load("paged_attention").paged_attention_launch
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+                       + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _dense_lib():
+    fn = _build.load("paged_attention").dense_attention_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                        + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -74,10 +87,7 @@ def _launch(qg, k_pool, v_pool, table, lens, k_scale, v_scale, *, causal: bool,
     if k_pool.shape[1] != kvh or k_pool.shape[3] != hd or v_pool.shape != k_pool.shape:
         raise ValueError(f"paged attention: pool {tuple(k_pool.shape)} does not fit "
                          f"queries {tuple(qg.shape)}")
-    # the kernel reads 16-byte vectors: contiguous, 16-byte aligned starts
-    qg, k_pool, v_pool = (t.contiguous() if t.data_ptr() % 16 == 0 and t.is_contiguous()
-                          else t.clone(memory_format=torch.contiguous_format)
-                          for t in (qg, k_pool, v_pool))
+    qg, k_pool, v_pool = _build.aligned(qg), _build.aligned(k_pool), _build.aligned(v_pool)
     table = table.to(torch.int32).contiguous()
     lens = lens.to(torch.int32).contiguous()
     out = torch.empty((b, kvh, r, hd), dtype=torch.float32, device=dev)
@@ -142,5 +152,44 @@ def paged_attention_prefill(q, k_pool, v_pool, table, start, k_scale=None, v_sca
     return o.reshape(b, h, s, hd).to(q.dtype)
 
 
+def dense_attention_decode(q, k, v, kv_len, *, softcap: float = 0.0):
+    """q [B, H, hd] (one token per slot) against dense per-slot caches
+    ``k/v [B, KVH, S, hd]``: keys at positions >= ``kv_len[b]`` are
+    invisible and ``kv_len == 0`` gives zeros.  q is cast to the cache
+    dtype first, as the reference's wrapper casts it.  Returns [B, H, hd]
+    in ``q.dtype``."""
+    b, h, hd = q.shape
+    if k.dim() != 4 or v.shape != k.shape or k.shape[0] != b or k.shape[3] != hd:
+        raise ValueError(f"dense attention: caches {tuple(k.shape)}/{tuple(v.shape)} do "
+                         f"not fit queries {tuple(q.shape)}")
+    if k.dtype not in (torch.float32, torch.bfloat16) or v.dtype != k.dtype:
+        raise TypeError(f"dense attention takes float32/bfloat16 caches, got "
+                        f"{k.dtype}/{v.dtype}")
+    kvh, s = k.shape[1], k.shape[2]
+    qd = q.to(k.dtype)
+    if q.device.type == "cpu":
+        return dense_decode_ref(qd, k, v, kv_len, softcap=softcap).to(q.dtype)
+    if q.device.type != "cuda":
+        raise ValueError(f"dense_attention_decode: unsupported device {q.device}")
+    if hd not in HEAD_DIMS:
+        raise NotImplementedError(f"dense attention kernel built for head dims "
+                                  f"{HEAD_DIMS}, got {hd}")
+    for name, t in (("k", k), ("v", v), ("kv_len", kv_len)):
+        if t.device != q.device:
+            raise ValueError(f"dense attention: {name} on {t.device}, queries on {q.device}")
+    qd, k, v = _build.aligned(qd), _build.aligned(k), _build.aligned(v)
+    lens = kv_len.to(torch.int32).contiguous()
+    out = torch.empty((b, kvh, h // kvh, hd), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out.reshape(b, h, hd).to(q.dtype)
+    rc = _dense_lib()(qd.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
+                      out.data_ptr(), b, kvh, h // kvh, hd, s, hd ** -0.5, float(softcap),
+                      POOL_DTYPES[k.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, "dense_attention")
+    dense_attention_decode.launches += 1
+    return out.reshape(b, h, hd).to(q.dtype)
+
+
 paged_attention_decode.launches = paged_attention_decode.int8_launches = 0
 paged_attention_prefill.launches = paged_attention_prefill.int8_launches = 0
+dense_attention_decode.launches = 0

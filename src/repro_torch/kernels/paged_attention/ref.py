@@ -4,6 +4,8 @@ Port of ``repro.kernels.paged_attention.ref``: deliberately gather-then-
 mask (``pool[table]`` -> dense logical view -> masked softmax in float32),
 the memory-hungry formulation the kernel streams away.  An int8 pool is
 dequantized right after the gather (``k.float() * k_scale`` per KV head).
+``dense_decode_ref`` is the same masked softmax over dense per-slot
+caches, with no table.
 """
 from __future__ import annotations
 
@@ -64,3 +66,15 @@ def paged_prefill_ref(q, k_pool, v_pool, table, start, *, softcap=0.0,
     mask = q_pos[:, :, None] >= torch.arange(k.shape[2], device=q.device)[None, None]
     qg = q.reshape(b, kvh, h // kvh, s, hd)
     return _masked_attn(qg, k, v, mask, hd ** -0.5, softcap).reshape(b, h, s, hd)
+
+
+def dense_decode_ref(q, k, v, kv_len, *, softcap=0.0):
+    """q [B, H, hd], k/v [B, KVH, S, hd] -> [B, H, hd] float32: keys at
+    positions >= kv_len[b] are invisible; kv_len == 0 yields zeros."""
+    b, h, hd = q.shape
+    kvh = k.shape[1]
+    kv_len = kv_len.to(q.device)
+    mask = torch.arange(k.shape[2], device=q.device)[None, None] < kv_len[:, None, None]
+    qg = q.reshape(b, kvh, h // kvh, 1, hd)
+    o = _masked_attn(qg, k, v, mask, hd ** -0.5, softcap).reshape(b, h, hd)
+    return torch.where(kv_len[:, None, None] > 0, o, torch.zeros_like(o))

@@ -1,12 +1,15 @@
-"""Serving CLI over the port's engine.
+"""Serving CLI over the port's engine, and ``generate``, the simple entry point.
 
 Admits a batch of requests (uniform or mixed prompt lengths, random
-tokens from ``--seed``) into ``ServeEngine`` on the paged KV pool and
-reports measured decode tok/s, mean TTFT, the pool and prefix-cache
-counters, and how many times each hand-written kernel launched.  Weights
-are random (``init_params`` from ``--seed``).  Runs on the card unless
-``--device cpu``; ``--attn-impl flash`` (the default) routes attention
-through the paged-attention kernel.  ``--calibrate`` bakes static
+tokens from ``--seed``) into ``ServeEngine`` on the paged KV pool
+(``--kv-block-size`` > 0, 16 by default) or on dense per-slot caches
+(``--kv-block-size 0``) and reports measured tok/s, mean TTFT, the pool
+and prefix-cache counters, and how many times each hand-written kernel
+launched.  Weights are random (``init_params`` from ``--seed``).  Runs on
+the card unless ``--device cpu``; ``--attn-impl flash`` (the default)
+routes attention through the kernels (paged attention, or flash
+attention and the dense decode kernel on the dense layout).
+``--calibrate`` bakes static
 activation and KV scales into the plan from one exact pass over the run's
 packed prompts (which turns prefix reuse back on under ``int8``/``mixed``);
 ``--kv-quant int8`` then stores the pool as int8 blocks.
@@ -16,6 +19,7 @@ packed prompts (which turns prefix reuse back on under ``int8``/``mixed``);
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \
       --mode sc --batch 4 --prompt-mix 64,160 --gen 16 --max-slots 8
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu --gen 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu --kv-block-size 0
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu --plan mixed
   PYTHONPATH=src python -m repro_torch.launch.serve --mode int8 --calibrate --kv-quant int8
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu --mode int8 \
@@ -35,8 +39,44 @@ from repro_torch.core.astra_layer import MODES
 from repro_torch.kernels import _build, launch_counts, reset_launches
 from repro_torch.models.model import Model
 from repro_torch.models.transformer import ModelOptions
-from repro_torch.serve import SamplerConfig, ServeConfig, ServeEngine, kv_quant_reject_reason
+from repro_torch.serve import (
+    GREEDY, SamplerConfig, ServeConfig, ServeEngine, kv_quant_reject_reason,
+    make_fused_decode, prefill_full_seq, sample_next_token,
+)
 from repro_torch.serve.prefill import pack_prompts
+
+
+def generate(model: Model, params, prompts, gen_len: int, max_len: int,
+             sampler: SamplerConfig = GREEDY, gen=None):
+    """Uniform-length batch decode on dense per-slot caches: one packed
+    prefill, then one fused decode of ``gen_len - 1`` steps.  ``prompts``
+    ``[B, S0]``; ``gen`` an optional ``torch.Generator`` for sampling.
+    Returns (prompt + generated tokens ``[B, S0 + gen_len]``, decode tok/s
+    of the fused decode on the host's clock, ended by a device sync)."""
+    dev = model.device
+    prompts = torch.as_tensor(np.asarray(prompts, np.int32), device=dev)
+    b, s0 = prompts.shape
+    if gen_len == 0:
+        return prompts, 0.0
+    params = model.prepare(params)
+    lengths = torch.full((b,), s0, dtype=torch.int32, device=dev)
+    last_logits, states = prefill_full_seq(model, params, prompts, lengths, max_len)
+    state = {"layers": states}
+    first = sample_next_token(last_logits, sampler, gen, model.cfg)
+    pieces, tps = [prompts, first], 0.0
+    if gen_len > 1:
+        pos0 = torch.full((b,), s0, dtype=torch.int64, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        toks, _, _ = make_fused_decode(model)(params, first, state, pos0, gen,
+                                               steps=gen_len - 1, sampler=sampler)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        # only the steps inside the timed window: the first token came from prefill
+        tps = b * (gen_len - 1) / max(time.perf_counter() - t0, 1e-9)
+        pieces.append(toks)
+    return torch.cat(pieces, dim=-1), tps
 
 
 def prompt_lengths(args) -> list:
@@ -71,12 +111,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--chunk-steps", type=int, default=8)
     ap.add_argument("--max-slots", type=int, default=0, help="0 = one per request")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--kv-block-size", type=int, default=16)
+    ap.add_argument("--kv-block-size", type=int, default=16,
+                    help="positions per paged pool block; 0 = dense per-slot caches")
     ap.add_argument("--kv-pool-blocks", type=int, default=0)
     ap.add_argument("--no-prefix-cache", action="store_true")
     ap.add_argument("--attn-impl", default="flash", choices=list(ModelOptions.ATTN_IMPLS),
-                    help="flash = the paged-attention kernel; naive = plain attention "
-                         "over the gathered view")
+                    help="flash = the attention kernels; naive = plain attention")
     ap.add_argument("--calibrate", action="store_true",
                     help="PTQ pass over the packed prompts: static per-site activation "
                          "scales and per-KV-head storage scales")
@@ -131,12 +171,17 @@ def main(argv=None):
           f"{sorted(set(lengths))}), {args.gen} new tokens each on {model.device}: "
           f"{n_tok / dt:.1f} tok/s, mean TTFT {ttft * 1e3:.1f} ms")
     kv = engine.kv_stats
-    line = (f"  kv pool: {kv['pool_blocks']} blocks x {kv['block_size']} tok, "
-            f"{kv['kv_quant']} storage ({kv['bytes_per_block']} B/block, "
-            f"{kv['pool_bytes'] / 1e6:.2f} MB)")
-    if not kv["prefix_cache"]:
-        line += f"; prefix cache off: {kv['prefix_cache_off_reason']}"
-    print(line)
+    if not kv:
+        shape = (serve_cfg.max_slots, cfg.n_kv_heads, serve_cfg.max_len, cfg.head_dim)
+        print(f"  kv cache: dense per-slot layout, {cfg.n_layers} layers x K and V "
+              f"{shape} {cfg.dtype}")
+    else:
+        line = (f"  kv pool: {kv['pool_blocks']} blocks x {kv['block_size']} tok, "
+                f"{kv['kv_quant']} storage ({kv['bytes_per_block']} B/block, "
+                f"{kv['pool_bytes'] / 1e6:.2f} MB)")
+        if not kv["prefix_cache"]:
+            line += f"; prefix cache off: {kv['prefix_cache_off_reason']}"
+        print(line)
     ps = engine.prefix_stats
     if ps:
         print(f"  prefix cache: {ps['hits']} hits / {ps['misses']} misses, "

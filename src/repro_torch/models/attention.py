@@ -1,12 +1,20 @@
-"""Global causal GQA attention over the paged KV pool (``attn`` kind).
+"""Global causal GQA attention over dense or paged KV (``attn`` kind).
 
 Port of ``repro.models.attention`` for this slice:
 
-* ``attn_seq``           — full-sequence pass (``_sdpa``), optionally
-  emitting a dense per-slot cache;
-* ``attn_decode``        — one token per slot against the paged pool;
+* ``attn_seq``           — full-sequence pass (``_sdpa``, or the flash
+  kernel when qk/pv are exact), optionally emitting a dense per-slot
+  cache padded to the serving length;
+* ``attn_decode``        — one token per slot against dense per-slot
+  caches (``KVCache``) or the paged pool;
 * ``attn_prefill_paged`` — packed multi-token suffixes against the pool,
   starts anywhere inside a block (the prefix-cache admission path).
+
+A dense cache is ``KVCache(k, v)`` with ``[B, n_kv, S_cache, hd]``
+tensors, one row of ``S_cache`` positions per slot; decode writes the new
+token **in place** at each row's ``pos`` (which must be < ``S_cache``:
+the reference's ``dynamic_update_slice`` would clamp an out-of-range
+start, indexing does not, so ``transformer.decode_step`` asserts it).
 
 The paged pool is ``PagedKVCache(k, v)`` with ``[n_blocks, n_kv, bs, hd]``
 tensors shared by every slot through per-slot block tables, or
@@ -21,9 +29,13 @@ writes the value of the last such row, which is what the reference's
 scatter keeps, so even scratch contents match it.
 
 ``use_kernel`` routes decode and suffix prefill through
-``kernels.paged_attention`` (the hand-written CUDA kernel on the card, its
-plain version on the CPU); otherwise the gathered ``_paged_view`` plus
-``_sdpa`` runs, which also serves as the in-port oracle.
+``kernels.paged_attention`` (the hand-written CUDA kernels on the card —
+paged, or dense for ``KVCache`` — their plain versions on the CPU), and
+``use_flash`` the full-sequence pass through ``kernels.flash_attention``;
+otherwise ``_sdpa`` runs (over the gathered ``_paged_view`` for a pool),
+which also serves as the in-port oracle.  Both kernels take exact qk/pv
+only: a quantized qk or pv site, or a calibration pass (which observes
+them), takes ``_sdpa``, as in the reference.
 """
 from __future__ import annotations
 
@@ -172,18 +184,14 @@ def attn_seq(p, x: torch.Tensor, cfg: ArchConfig, *, kind: str = "attn",
              sites: Union[ComputeConfig, SiteBinding] = EXACT, use_flash: bool = False,
              positions: Optional[torch.Tensor] = None, return_cache: bool = False,
              max_len: Optional[int] = None) -> Tuple[torch.Tensor, Optional[KVCache]]:
-    """Full-sequence causal attention through ``_sdpa``.  A calibration
-    pass (observing qk/pv) never takes the flash kernel, as in the
-    reference."""
+    """Full-sequence causal attention: the flash kernel when ``use_flash``
+    and qk/pv are exact, else ``_sdpa``.  ``return_cache`` gives the dense
+    per-slot ``KVCache`` padded to ``max(max_len, S + 1)`` positions."""
     if kind != "attn":
         raise NotImplementedError(f"{kind!r} blocks are not ported yet "
                                   "(ROADMAP queue 1: other block kinds)")
     b, s, _ = x.shape
     sites = as_binding(sites)
-    if (use_flash and x.device.type == "cuda" and _dyn_exact(sites("qk"))
-            and _dyn_exact(sites("pv"))):
-        raise NotImplementedError("the flash_attention kernel is not ported yet "
-                                  "(ROADMAP queue 1: dense layout)")
     if positions is None:
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
     q = _split_heads(dense(p["wq"], x, sites("q_proj")), cfg.n_heads, cfg.head_dim)
@@ -192,15 +200,34 @@ def attn_seq(p, x: torch.Tensor, cfg: ArchConfig, *, kind: str = "attn",
     q = apply_rope(q, positions, cfg.rope_pct, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_pct, cfg.rope_theta)
     observe_kv(sites, k, v)  # calibration tap: what the pool would store
-    o = _sdpa(q, k, v, causal=True, window=0, softcap=cfg.logit_softcap,
-              qk=sites("qk"), pv=sites("pv"))
+    qk_b, pv_b = sites("qk"), sites("pv")
+    if use_flash and _dyn_exact(qk_b) and _dyn_exact(pv_b):
+        from repro_torch.kernels.flash_attention import flash_attention
+
+        o = flash_attention(q, k, v, causal=True, window=0, softcap=cfg.logit_softcap)
+    else:
+        o = _sdpa(q, k, v, causal=True, window=0, softcap=cfg.logit_softcap,
+                  qk=qk_b, pv=pv_b)
     out = dense(p["wo"], _merge_heads(o), sites("o_proj"))
-    cache = None
-    if return_cache:
-        pad = max(max_len or 0, s + 1) - s
-        cache = KVCache(torch.nn.functional.pad(k, (0, 0, 0, pad)),
-                        torch.nn.functional.pad(v, (0, 0, 0, pad)))
-    return out, cache
+    return out, (_make_cache(k, v, s, max_len) if return_cache else None)
+
+
+def _make_cache(k: torch.Tensor, v: torch.Tensor, s: int, max_len: Optional[int]) -> KVCache:
+    """The serving cache of a global layer: K/V of the ``s`` positions,
+    zero-padded to ``max(max_len, s + 1)`` (decode writes at ``pos``)."""
+    pad = max(max_len or 0, s + 1) - s
+    return KVCache(torch.nn.functional.pad(k, (0, 0, 0, pad)),
+                   torch.nn.functional.pad(v, (0, 0, 0, pad)))
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None) -> KVCache:
+    """Zeroed dense decode cache, ``[batch, n_kv, max_len, hd]`` in the
+    model dtype (what a full-sequence prefill emits, so the two agree bit
+    for bit)."""
+    shape = (batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+    dt = torch_dtype(cfg.dtype)
+    return KVCache(torch.zeros(shape, dtype=dt, device=device),
+                   torch.zeros(shape, dtype=dt, device=device))
 
 
 def init_paged_cache(cfg: ArchConfig, n_blocks: int, block_size: int,
@@ -292,14 +319,13 @@ def attn_decode(p, x: torch.Tensor, cache, pos: torch.Tensor, cfg: ArchConfig, *
                 kind: str = "attn", sites: Union[ComputeConfig, SiteBinding] = EXACT,
                 tables: Optional[BlockTables] = None, use_kernel: bool = False):
     """One token per slot (``x [B, 1, D]``, ``pos [B]`` absolute positions)
-    against the paged pool.  Returns (out [B, 1, D], cache)."""
+    against dense per-slot caches (``KVCache``; ``pos < S_cache``) or the
+    paged pool (``tables`` required).  Returns (out [B, 1, D], cache)."""
     if kind != "attn":
         raise NotImplementedError(f"{kind!r} blocks are not ported yet "
                                   "(ROADMAP queue 1: other block kinds)")
-    if not isinstance(cache, (PagedKVCache, QuantPagedKVCache)):
-        raise NotImplementedError("decode over dense per-slot caches arrives with the "
-                                  "dense layout (ROADMAP queue 1)")
-    assert tables is not None, "paged decode needs a BlockTables"
+    dense_cache = isinstance(cache, KVCache)
+    assert dense_cache or tables is not None, "paged decode needs a BlockTables"
     b = x.shape[0]
     sites = as_binding(sites)
     pos = torch.as_tensor(pos, device=x.device).to(torch.int64)
@@ -313,16 +339,30 @@ def attn_decode(p, x: torch.Tensor, cache, pos: torch.Tensor, cfg: ArchConfig, *
     k_new = apply_rope(k_new, posb, cfg.rope_pct, cfg.rope_theta)
     qk_b, pv_b = sites("qk"), sites("pv")
     kv_len = pos + 1
-    cache = _paged_write_token(cache, tables.table, pos, k_new, v_new)
-    if use_kernel and _dyn_exact(qk_b) and _dyn_exact(pv_b):
-        from repro_torch.kernels.paged_attention import paged_attention_decode
+    kernel = use_kernel and _dyn_exact(qk_b) and _dyn_exact(pv_b)
+    if dense_cache:
+        rows = torch.arange(b, device=x.device)
+        cache.k[rows, :, pos] = k_new[:, :, 0].to(cache.k.dtype)  # in place
+        cache.v[rows, :, pos] = v_new[:, :, 0].to(cache.v.dtype)
+        if kernel:
+            from repro_torch.kernels.paged_attention import dense_attention_decode
 
-        o = paged_attention_decode(q[:, :, 0], cache.k, cache.v, tables.table, kv_len,
-                                   *_scales(cache), softcap=cfg.logit_softcap)[:, :, None]
+            o = dense_attention_decode(q[:, :, 0], cache.k, cache.v, kv_len,
+                                       softcap=cfg.logit_softcap)[:, :, None]
+        else:
+            o = _sdpa(q, cache.k, cache.v, causal=False, window=0, kv_len=kv_len,
+                      softcap=cfg.logit_softcap, qk=qk_b, pv=pv_b)
     else:
-        k_log, v_log = _paged_view(cache, tables.table)
-        o = _sdpa(q, k_log, v_log, causal=False, window=0, kv_len=kv_len,
-                  softcap=cfg.logit_softcap, qk=qk_b, pv=pv_b)
+        cache = _paged_write_token(cache, tables.table, pos, k_new, v_new)
+        if kernel:
+            from repro_torch.kernels.paged_attention import paged_attention_decode
+
+            o = paged_attention_decode(q[:, :, 0], cache.k, cache.v, tables.table, kv_len,
+                                       *_scales(cache), softcap=cfg.logit_softcap)[:, :, None]
+        else:
+            k_log, v_log = _paged_view(cache, tables.table)
+            o = _sdpa(q, k_log, v_log, causal=False, window=0, kv_len=kv_len,
+                      softcap=cfg.logit_softcap, qk=qk_b, pv=pv_b)
     return dense(p["wo"], _merge_heads(o), sites("o_proj")), cache
 
 

@@ -65,7 +65,9 @@ class Model:
                               ctx_blocks)
 
     def init_decode_state(self, batch: int, max_len: int, paged=None):
-        """``paged=(n_blocks, block_size)`` pools; with ``opts.kv_quant="int8"``
-        they are int8 with the plan's calibrated per-KV-head scales."""
+        """Dense per-slot caches ``[batch, n_kv, max_len, hd]``, or with
+        ``paged=(n_blocks, block_size)`` block pools; with
+        ``opts.kv_quant="int8"`` the pools are int8 with the plan's
+        calibrated per-KV-head scales (dense caches refuse it)."""
         return init_decode_state(self.cfg, batch, max_len, paged, device=self.device,
                                  kv_quant=self.opts.kv_quant, plan=self.plan)

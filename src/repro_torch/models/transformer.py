@@ -10,8 +10,9 @@ thing in both packages.
 Parameters: ``{"embedding": {"table"}, "head": {"w"} | {}, "final_norm",
 "layers": [{"pre_norm", "core": {"wq","wk","wv","wo"}, "post_norm",
 "mlp": {"up","gate","down"}}, ...]}``, float32 masters.  Serving state:
-``{"layers": [PagedKVCache | QuantPagedKVCache, ...]}`` — one block pool
-per layer, int8 under ``kv_quant="int8"``.
+``{"layers": [KVCache, ...]}`` — one dense per-slot cache per layer, in
+the model dtype — or ``{"layers": [PagedKVCache | QuantPagedKVCache,
+...]}`` — one block pool per layer, int8 under ``kv_quant="int8"``.
 """
 from __future__ import annotations
 
@@ -36,10 +37,11 @@ from repro_torch.models.layers import (
 class ModelOptions:
     """Execution options.  ``plan`` is an :class:`ExecutionPlan` or any
     ``from_spec`` form (preset name, mode string, JSON rules, dict).
-    ``attn_impl``: ``naive`` = plain attention over the gathered view;
-    ``flash`` = the paged-attention kernel on decode and suffix prefill.
-    ``kv_quant``: ``int8`` stores the paged pools as int8 against the
-    plan's calibrated per-KV-head scales."""
+    ``attn_impl``: ``naive`` = plain attention (over the gathered view
+    on the paged layout); ``flash`` = the kernels: flash attention on the
+    full-sequence pass, the paged or dense decode kernel on decode, the
+    paged kernel on suffix prefill.  ``kv_quant``: ``int8`` stores the
+    paged pools as int8 against the plan's calibrated per-KV-head scales."""
 
     plan: Optional[Union[ExecutionPlan, str, dict, ComputeConfig]] = None
     attn_impl: str = "naive"
@@ -205,7 +207,15 @@ def forward(params, tokens: torch.Tensor, cfg: ArchConfig, opts: ModelOptions,
 def decode_step(params, token: torch.Tensor, states, pos: torch.Tensor, cfg: ArchConfig,
                 opts: ModelOptions, block_tables: Optional[attn.BlockTables] = None):
     """One serving step: token [B, 1] at per-slot positions ``pos [B]``
-    against the paged pools.  Returns (logits [B, 1, V], states)."""
+    against the dense caches or, with ``block_tables``, the paged pools.
+    Returns (logits [B, 1, V], states)."""
+    first = states["layers"][0]
+    if isinstance(first, attn.KVCache):
+        # indexing does not clamp as dynamic_update_slice does: check the
+        # write positions once for every layer, on the device (no sync)
+        torch._assert_async(torch.as_tensor(pos, device=first.k.device).max()
+                            < first.k.shape[2],
+                            "decode position past the dense cache (pos >= S_cache)")
     x = embed_tokens(params["embedding"], token, cfg)
     use_kernel = opts.attn_impl == "flash"
     new_layers = []
@@ -241,19 +251,27 @@ def suffix_forward(params, tokens: torch.Tensor, cfg: ArchConfig, opts: ModelOpt
     return _head(params, x, cfg, opts), {**states, "layers": new_layers}
 
 
+DENSE_KV_QUANT_REASON = ("kv_quant='int8' requires the paged KV layout (kv_block_size > 0): "
+                         "dense per-slot caches stay in the model dtype")
+
+
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
                       paged: Optional[Tuple[int, int]] = None, device=None,
                       kv_quant: str = "none", plan: Optional[ExecutionPlan] = None):
-    """Zeroed serving state: ``paged = (n_blocks, block_size)`` gives one
-    block pool per layer (no batch axis: block tables carry slot
-    identity).  ``kv_quant="int8"`` makes each pool int8 with the per-head
-    scales ``plan.kv_group_scale`` gives over the layer's group (the
-    reference's one pool per scanned group).  The dense per-slot layout
-    arrives with its own slice."""
+    """Zeroed serving state.  Without ``paged``: one dense ``[batch, n_kv,
+    max_len, hd]`` cache per layer in the model dtype.  ``paged =
+    (n_blocks, block_size)`` gives one block pool per layer instead (no
+    batch axis: block tables carry slot identity); ``kv_quant="int8"``
+    makes each pool int8 with the per-head scales ``plan.kv_group_scale``
+    gives over the layer's group (the reference's one pool per scanned
+    group).  Dense caches stay in the model dtype: with ``kv_quant="int8"``
+    they are refused, with the serving engine's reason."""
     _check_supported(cfg)
     if paged is None:
-        raise NotImplementedError("the dense per-slot KV layout is not ported yet "
-                                  "(ROADMAP queue 1: dense layout); pass paged=")
+        if kv_quant != "none":
+            raise ValueError(DENSE_KV_QUANT_REASON)
+        return {"layers": [attn.init_cache(cfg, batch, max_len, device)
+                           for _ in cfg.layer_kinds]}
     n_blocks, block_size = paged
     if kv_quant == "none":
         return {"layers": [attn.init_paged_cache(cfg, n_blocks, block_size, device)

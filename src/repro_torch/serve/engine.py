@@ -1,24 +1,30 @@
-"""Continuous-batching serve engine over the paged KV pool.
+"""Continuous-batching serve engine over dense or paged KV.
 
-Port of ``repro.serve.engine`` for this slice: blocking admission on the
-paged layout with radix-tree prefix reuse, chunked decode, retirement and
-the exactly-once outbox.  The engine owns ``max_slots`` decode slots and
-one block pool per layer; requests flow
+Port of ``repro.serve.engine`` for this slice: blocking admission,
+chunked decode, retirement and the exactly-once outbox, on two KV
+layouts.  ``kv_block_size=0`` (the default, as in the reference) keeps
+one dense ``[max_slots, n_kv, max_len, hd]`` cache per layer: admission
+runs one packed full-sequence prefill of the admitted prompts and
+scatters each one's cache rows into its slot.  ``kv_block_size > 0``
+stores KV in one block pool per layer with radix-tree prefix reuse.
+Requests flow
 
-  queue -> [admit: claim a free slot, reserve blocks (reusing interned
-            prefix blocks)] -> [suffix prefill of the unmatched prompt]
+  queue -> [admit: claim a free slot; paged: reserve blocks (reusing
+            interned prefix blocks)] -> [prefill: dense full-sequence
+            pass + scatter, or paged suffix prefill of the unmatched prompt]
         -> [decode chunks of ``min(chunk_steps, min(remaining))`` steps]
         -> [retire: release blocks, timing, outbox]
 
 Every decode step runs all ``max_slots`` rows, free ones included (at
-position 0 with a stale token, their writes landing in scratch block 0),
-exactly as the reference does: under a plan with dynamic int8 scales the
-activation absmax spans every row, so the port must carry the same rows
-to give the same tokens.  ``ServeConfig.kv_quant="int8"`` stores the
-pool as int8 against the plan's calibrated per-KV-head scales; the engine
-refuses it unless the KV is a pure function of the token path
-(:func:`kv_quant_reject_reason`).  The dense layout, chunked prefill,
-fault containment and the chip-model accounting come with later slices
+position 0 with a stale token, their writes landing in their own dense
+row or in scratch block 0), exactly as the reference does: under a plan
+with dynamic int8 scales the activation absmax spans every row, so the
+port must carry the same rows to give the same tokens.
+``ServeConfig.kv_quant="int8"`` stores the pool as int8 against the
+plan's calibrated per-KV-head scales; the engine refuses it unless the KV
+is a pure function of the token path on the paged layout
+(:func:`kv_quant_reject_reason`).  Chunked prefill, fault
+containment and the chip-model accounting come with later slices
 (ROADMAP.md).
 """
 from __future__ import annotations
@@ -34,15 +40,16 @@ from repro_torch.core.plan import kv_sites, model_sites
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.attention import BlockTables
 from repro_torch.models.model import Model
+from repro_torch.models.transformer import DENSE_KV_QUANT_REASON
 from repro_torch.serve.accounting import RequestTiming, request_timing
 from repro_torch.serve.clock import resolve_clock
 from repro_torch.serve.decode_loop import make_fused_decode
 from repro_torch.serve.kv_pool import KVBlockPool
-from repro_torch.serve.prefill import pack_prompts, prefill_paged_suffix
+from repro_torch.serve.prefill import pack_prompts, prefill_full_seq, prefill_paged_suffix
 from repro_torch.serve.prefix_tree import RadixPrefixTree
 from repro_torch.serve.sampling import GREEDY, SamplerConfig, sample_next_token
 from repro_torch.serve.scheduler import pow2_bucket
-from repro_torch.serve.slots import SlotState
+from repro_torch.serve.slots import SlotState, scatter_states
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,9 +59,9 @@ class ServeConfig:
     chunk_steps: int = 8  # decode steps per engine round
     sampler: SamplerConfig = GREEDY
     seed: int = 0
-    kv_block_size: int = 16  # positions per pool block; must be > 0 in this slice
+    kv_block_size: int = 0  # 0 = dense per-slot caches; > 0 = positions per pool block
     kv_pool_blocks: int = 0  # physical blocks incl. scratch; 0 = slot floor + 2 slots
-    prefix_cache: bool = True  # radix-tree prefix reuse
+    prefix_cache: bool = True  # radix-tree prefix reuse (paged layout only)
     attn_impl: Optional[str] = None  # None inherits the model's; "naive" | "flash"
     kv_quant: Optional[str] = None  # None inherits the model's; "none" | "int8"
 
@@ -118,8 +125,7 @@ def kv_quant_reject_reason(model: Model, kv_block_size: int) -> Optional[str]:
     scales on every quantized GEMM site, and a calibrated scale for every
     KV storage site."""
     if kv_block_size <= 0:
-        return ("kv_quant='int8' requires the paged KV layout (kv_block_size > 0): "
-                "dense per-slot caches stay in the model dtype")
+        return DENSE_KV_QUANT_REASON
     if not _kv_deterministic(model):
         return ("kv_quant='int8' requires deterministic KV: every quantized GEMM site "
                 "must carry a static calibrated act_scale — dynamic per-tensor scales "
@@ -150,11 +156,6 @@ class ServeEngine:
             # the engine owns the KV storage dtype, as it owns attn_impl
             model = dataclasses.replace(
                 model, opts=dataclasses.replace(model.opts, kv_quant=config.kv_quant))
-        if config.kv_block_size <= 0:
-            raise ValueError(
-                f"kv_block_size={config.kv_block_size}: the dense per-slot KV layout "
-                "is not ported yet (ROADMAP queue 1: dense layout); use a paged "
-                "block size > 0")
         if model.opts.kv_quant != "none":
             reason = kv_quant_reject_reason(model, config.kv_block_size)
             if reason is not None:
@@ -174,7 +175,23 @@ class ServeEngine:
         self._next_id = 0
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(config.seed)
-        # ----------------------------------------------------- KV layout
+        self._cur_tok = torch.zeros((config.max_slots, 1), dtype=torch.int32,
+                                    device=self.device)
+        # host-clock seconds and tokens of admission prefills and decode
+        # chunks; each phase ends with its tokens on the host, so the
+        # device work is inside the interval
+        self.phase_stats = {"prefill_s": 0.0, "prefill_tokens": 0,
+                            "decode_s": 0.0, "decode_tokens": 0}
+        self._paged = config.kv_block_size > 0
+        self._prefix: Optional[RadixPrefixTree] = None
+        if self._paged:
+            self._init_pool(model, config)
+        else:
+            self._states = model.init_decode_state(config.max_slots, config.max_len)
+
+    def _init_pool(self, model: Model, config: ServeConfig) -> None:
+        """The paged layout: one block pool per layer, block tables, the
+        allocator and (where KV is deterministic) the prefix tree."""
         bs = config.kv_block_size
         w = -(-config.max_len // bs)
         floor = 1 + config.max_slots * w
@@ -190,7 +207,6 @@ class ServeEngine:
         self._tables_np = np.zeros((config.max_slots, w), np.int32)
         self._tables_dev = torch.as_tensor(self._tables_np, device=self.device)
         self._tables_dirty = False
-        self._prefix: Optional[RadixPrefixTree] = None
         self._prefix_off_reason: Optional[str] = None
         if not config.prefix_cache:
             self._prefix_off_reason = "disabled by config (prefix_cache=False)"
@@ -207,13 +223,6 @@ class ServeEngine:
         self._pool.bytes_per_block = sum(
             t[0].numel() * t.element_size() for st in self._states["layers"]
             for t in (st.k, st.v))
-        self._cur_tok = torch.zeros((config.max_slots, 1), dtype=torch.int32,
-                                    device=self.device)
-        # host-clock seconds and tokens of admission prefills and decode
-        # chunks; each phase ends with its tokens on the host, so the
-        # device work is inside the interval
-        self.phase_stats = {"prefill_s": 0.0, "prefill_tokens": 0,
-                            "decode_s": 0.0, "decode_tokens": 0}
 
     # ------------------------------------------------------------- intake
     def check_request(self, prompt, max_new_tokens: int) -> np.ndarray:
@@ -273,9 +282,13 @@ class ServeEngine:
         slot_ids = free[:n]
         reqs = [self._queue.popleft() for _ in range(n)]
         t_admit = self.clock()
-        slot_ids, reqs, last_logits, cached = self._prefill_paged(slot_ids, reqs)
-        if not reqs:
-            return
+        if self._paged:
+            slot_ids, reqs, last_logits, cached = self._prefill_paged(slot_ids, reqs)
+            if not reqs:
+                return
+        else:
+            last_logits = self._prefill_dense(slot_ids, reqs)
+            cached = [0] * len(reqs)
         first = sample_next_token(last_logits, self.config.sampler, self._gen, self.model.cfg)
         self._cur_tok[torch.as_tensor(slot_ids, device=self.device)] = first
         first_np = first.cpu().numpy()
@@ -316,6 +329,16 @@ class ServeEngine:
                 self._pool.decref(blk)
             raise
         return matched + fresh, len(matched)
+
+    def _prefill_dense(self, slot_ids: List[int], reqs: List[Request]) -> torch.Tensor:
+        """One packed full-sequence prefill of the admitted prompts; each
+        request's caches (padded to ``max_len``) replace its slot's rows."""
+        tokens, lengths = pack_prompts([r.prompt for r in reqs], self.model.cfg,
+                                       device=self.device)
+        last_logits, small = prefill_full_seq(self.model, self.params, tokens, lengths,
+                                              self.config.max_len)
+        scatter_states(self._states, small, torch.as_tensor(slot_ids, device=self.device))
+        return last_logits
 
     def _prefill_paged(self, slot_ids: List[int], reqs: List[Request]):
         """Reserve blocks (reusing interned prefix blocks), prefill the
@@ -368,7 +391,7 @@ class ServeEngine:
         return max(pow2_bucket(need, self._table_width), 1)
 
     def _release_blocks(self, slot_i: int):
-        if not self._slot_blocks[slot_i]:
+        if not self._paged or not self._slot_blocks[slot_i]:
             return
         for blk in self._slot_blocks[slot_i]:
             self._pool.decref(blk)
@@ -398,7 +421,7 @@ class ServeEngine:
         toks, finite, (next_tok, states, _, _) = self._fused(
             self.params, self._cur_tok, self._states, torch.as_tensor(pos, device=self.device),
             self._gen, steps=steps, sampler=self.config.sampler,
-            tables=self._block_tables())
+            tables=self._block_tables() if self._paged else None)
         self._states = states
         self._cur_tok = next_tok
         toks_np = toks.cpu().numpy()  # [B, steps]
@@ -461,6 +484,9 @@ class ServeEngine:
 
     @property
     def kv_stats(self) -> Dict[str, object]:
+        """Pool counters of the paged layout; ``{}`` on the dense layout."""
+        if not self._paged:
+            return {}
         out: Dict[str, object] = {
             "kv_quant": self.model.opts.kv_quant,
             "block_size": self._block_size,

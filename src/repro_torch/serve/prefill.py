@@ -1,11 +1,18 @@
-"""Prefill packing and the paged suffix prefill (port of ``repro.serve.prefill``).
+"""Prefill packing, the dense full-sequence prefill and the paged suffix
+prefill (port of ``repro.serve.prefill``).
 
 Prompts are right-padded to the longest one in the admitted group (pad id
 0) and run in one pass; per-request true lengths pick each row's last
 logits.  Padded positions write garbage KV into the writer's own future
-positions or the scratch block, never where a mask exposes it.  Under a
-plan with dynamic activation scales the padded rows count toward the
-scale exactly as in the reference, so the packed grid is kept as is.
+positions or the scratch block, never where a mask exposes it: decode
+overwrites position ``pos`` before its ``kv_len = pos + 1`` mask reaches
+it.  Under a plan with dynamic activation scales the padded rows count
+toward the scale exactly as in the reference, so the packed grid is kept
+as is.  The padded full-sequence pass is exact for the pure
+global-attention stacks the port serves, at any length mix; the
+reference's choice between it and its masked-scan prefill
+(``packed_prefill``, for recurrent and windowed stacks) comes with those
+block kinds.
 """
 from __future__ import annotations
 
@@ -38,6 +45,14 @@ def _last_logits(logits: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """logits [B, S, V] -> each row's logits at ``lengths - 1``: [B, 1, V]."""
     idx = (lengths.to(logits.device).long() - 1)[:, None, None]
     return torch.gather(logits, 1, idx.expand(-1, 1, logits.shape[-1]))
+
+
+def prefill_full_seq(model, params, tokens: torch.Tensor, lengths: torch.Tensor,
+                     max_len: int):
+    """One parallel prefill over the packed grid.  Returns (last_logits
+    [B, 1, V], per-layer dense caches padded to ``max_len``)."""
+    logits, states = model.prefill(params, {"tokens": tokens}, max_len=max_len)
+    return _last_logits(logits, lengths), states
 
 
 def prefill_paged_suffix(model, params, tokens: torch.Tensor, lengths: torch.Tensor,

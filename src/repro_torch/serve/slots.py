@@ -1,9 +1,11 @@
 """Slot lifecycle and per-slot tensor helpers (port of ``repro.serve.slots``).
 
-Paged pools have no batch axis (block tables carry slot identity), so the
-reference's paged/dense scatters have no counterpart in this slice; what
-remains is the slot state enum, the per-slot select used by gated decode,
-and the finiteness check the decode loop reduces over a chunk.
+The slot state enum, the dense-layout scatter of a prefill's caches into
+the engine's slots, the per-slot select used by gated decode, and the
+finiteness check the decode loop reduces over a chunk.  Paged pools have
+no batch axis (block tables carry slot identity), so the suffix prefill
+writes them directly and the reference's paged scatter has no
+counterpart.
 """
 from __future__ import annotations
 
@@ -17,6 +19,22 @@ class SlotState(enum.Enum):
 
     PREFILLING = "prefilling"  # prompt chunks still being fed (chunked prefill)
     DECODING = "decoding"      # in the decode loop, generating tokens
+
+
+def scatter_states(big, small, slot_ids: torch.Tensor):
+    """Install a prefill's per-layer dense caches ``small`` (a list of
+    ``KVCache`` of batch k, from ``forward``) into the engine's state
+    ``big = {"layers": [KVCache of batch B, ...]}`` at ``slot_ids [k]``, in
+    place: each slot's whole row is overwritten, cast to the engine's
+    cache dtype (the cast the decode path applies on every write).
+    Returns ``big``."""
+    for dst, src in zip(big["layers"], small, strict=True):
+        for d, s in ((dst.k, src.k), (dst.v, src.v)):
+            if s.shape[1:] != d.shape[1:]:
+                raise ValueError(f"prefill cache {tuple(s.shape)} does not fit the "
+                                 f"engine's {tuple(d.shape)}")
+            d[slot_ids] = s.to(d.dtype)
+    return big
 
 
 def select_states(new, old, active: torch.Tensor):

@@ -13,7 +13,11 @@ signs and stochastic accumulators bit-exact; paged attention float32
 kernel rounds p to bf16 before the PV product, like the reference
 kernel; the plain version keeps p in float32); on int8 pools float32
 1e-5 (both sides dequantize to the same float32 K/V and compute in
-float32).
+float32); dense decode as paged decode; flash attention float32 1e-5,
+bf16 4e-3 + 2^-7 |want| per element (its plain version rounds p to bf16
+too, but against each row's final max where the kernel uses its running
+max, and both round the output to bf16: one output ulp, 2^-7 of |want| at
+most, on top of a small drift).
 """
 import numpy as np
 import pytest
@@ -23,11 +27,13 @@ torch = pytest.importorskip("torch")
 from repro_torch.core.bitstream import GENERATORS  # noqa: E402
 from repro_torch.kernels.bts_encode import bts_encode  # noqa: E402
 from repro_torch.kernels.bts_encode.ref import bts_encode_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
 from repro_torch.kernels.int8_matmul import ops as int8_ops  # noqa: E402
 from repro_torch.kernels.int8_matmul.ref import int8_matmul_acc_ref  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pa_ops  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
-    paged_decode_ref, paged_prefill_ref,
+    dense_decode_ref, paged_decode_ref, paged_prefill_ref,
 )
 from repro_torch.kernels.stoch_matmul import ops as sm_ops  # noqa: E402
 from repro_torch.kernels.stoch_matmul.ref import stoch_matmul_packed_ref  # noqa: E402
@@ -114,6 +120,49 @@ def test_int8_pool_kernels_match_plain_on_card(cuda, hd, g):
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
     assert (pa_ops.paged_attention_decode.int8_launches,
             pa_ops.paged_attention_prefill.int8_launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 64])
+@pytest.mark.parametrize("g,s,window,softcap", [(1, 100, 0, 0.0), (2, 70, 24, 0.0),
+                                                (4, 37, 0, 30.0), (3, 130, 16, 5.0)])
+def test_flash_kernel_matches_plain_on_card(cuda, dtype, hd, g, s, window, softcap):
+    """Causal flash attention: GQA folds that straddle the 64-row tile,
+    windows, softcap, S not a multiple of the tiles; one launch counted."""
+    rng = np.random.default_rng(2)
+    kvh = 2
+    q = rng.standard_normal((2, kvh * g, s, hd)).astype(np.float32)
+    k, v = (rng.standard_normal((2, kvh, s, hd)).astype(np.float32) for _ in range(2))
+    tq, tk, tv = (x.to(cuda, dtype) for x in _t(q, k, v))
+    before = fa_ops.flash_attention.launches
+    got = fa_ops.flash_attention(tq, tk, tv, causal=True, window=window, softcap=softcap)
+    assert fa_ops.flash_attention.launches == before + 1 and got.dtype == dtype
+    want = flash_attention_ref(tq, tk, tv, causal=True, window=window, softcap=softcap)
+    atol, rtol = (1e-5, 0.0) if dtype == torch.float32 else (4e-3, 2.0 ** -7)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,g", [(16, 1), (16, 4), (64, 1), (64, 2)])
+def test_dense_decode_kernel_matches_plain_on_card(cuda, dtype, hd, g):
+    """Dense decode over S = 100 positions: kv_len 0 (zeros), 1, ragged,
+    a full 64-key chunk, S; q cast to the cache dtype; one launch."""
+    rng = np.random.default_rng(3)
+    kvh, s = 2, 100
+    kv_len = np.asarray([0, 1, 37, 64, 65, s], np.int32)
+    q = rng.standard_normal((6, kvh * g, hd)).astype(np.float32)
+    k, v = (rng.standard_normal((6, kvh, s, hd)).astype(np.float32) for _ in range(2))
+    tk, tv = (x.to(cuda, dtype) for x in _t(k, v))
+    tq, tl = (x.to(cuda) for x in _t(q, kv_len))
+    before = pa_ops.dense_attention_decode.launches
+    got = pa_ops.dense_attention_decode(tq, tk, tv, tl, softcap=5.0)
+    assert pa_ops.dense_attention_decode.launches == before + 1
+    assert got.dtype == torch.float32 and not got[0].any()
+    want = dense_decode_ref(tq.to(dtype), tk, tv, tl, softcap=5.0)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got, want, atol=tol, rtol=0)
 
 
 @pytest.mark.gpu

@@ -4,6 +4,8 @@
   anything of the reference package ``repro`` (only tests import both);
 * entry points default to the card: without ``device=`` they raise when
   no GPU is visible instead of running on the CPU;
+* the engine serves the dense per-slot layout by default and refuses it
+  only with an int8 KV store;
 * every kernel wrapper has a plain version beside it and a launch
   counter, every CUDA source says which TPU kernel it replaces, and no
   module builds anything at import time.
@@ -13,6 +15,7 @@ import importlib
 import os
 import pkgutil
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -85,14 +88,24 @@ def test_entry_points_default_to_the_card(monkeypatch):
     ServeEngine(cpu_model, params, device="cpu")  # asked for the CPU: fine
 
 
-def test_engine_refuses_the_dense_layout():
+def test_engine_serves_the_dense_layout_by_default():
+    """The dense per-slot layout is the default and serves (dense caches,
+    no pool statistics); it is refused only with an int8 KV store, whose
+    pooled blocks need the paged layout."""
     from repro_torch.configs import get_arch
+    from repro_torch.models.attention import KVCache
     from repro_torch.models.model import Model
+    from repro_torch.models.transformer import ModelOptions
     from repro_torch.serve import ServeConfig, ServeEngine
 
+    assert ServeConfig().kv_block_size == 0
     model = Model(get_arch("stablelm-1.6b").reduced(), device="cpu")
-    with pytest.raises(ValueError, match="dense"):
-        ServeEngine(model, model.init(0), ServeConfig(kv_block_size=0), device="cpu")
+    eng = ServeEngine(model, model.init(0), ServeConfig(kv_block_size=0), device="cpu")
+    assert isinstance(eng._states["layers"][0], KVCache) and eng.kv_stats == {}
+    assert eng.generate_batch([np.arange(5, dtype=np.int32)], 3)[0].gen_len == 3
+    quant = Model(model.cfg, ModelOptions(kv_quant="int8"), device="cpu")
+    with pytest.raises(ValueError, match="dense per-slot caches"):
+        ServeEngine(quant, model.init(0), ServeConfig(kv_block_size=0), device="cpu")
 
 
 def _kernel_packages():
@@ -104,7 +117,8 @@ def test_every_kernel_has_plain_version_counter_and_note():
     from repro_torch.kernels import _build
 
     pkgs = _kernel_packages()
-    assert pkgs == ["bts_encode", "int8_matmul", "paged_attention", "stoch_matmul"]
+    assert pkgs == ["bts_encode", "flash_attention", "int8_matmul", "paged_attention",
+                    "stoch_matmul"]
     for pkg in pkgs:
         ops = importlib.import_module(f"repro_torch.kernels.{pkg}.ops")
         importlib.import_module(f"repro_torch.kernels.{pkg}.ref")
@@ -132,6 +146,7 @@ def test_launch_registry_covers_every_counted_wrapper():
                if callable(f) and isinstance(getattr(f, "launches", None), int)}
     wrappers = kernel_wrappers()
     assert set(wrappers) == counted
+    assert {"flash_attention", "dense_attention_decode"} <= counted
     wrappers["int8_gemm"].launches = 3
     assert launch_counts()["int8_gemm"] == 3
     reset_launches()
@@ -141,7 +156,10 @@ def test_launch_registry_covers_every_counted_wrapper():
 def test_wrappers_run_plain_on_cpu_and_refuse_other_devices():
     from repro_torch.core.quant import QTensor
     from repro_torch.kernels.int8_matmul.ops import int8_gemm, int8_matmul_t
-    from repro_torch.kernels.paged_attention.ops import paged_attention_decode
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.paged_attention.ops import (
+        dense_attention_decode, paged_attention_decode,
+    )
 
     x = torch.ones(3, 8, dtype=torch.int8)
     w_t = torch.ones(5, 8, dtype=torch.int8)
@@ -155,3 +173,11 @@ def test_wrappers_run_plain_on_cpu_and_refuse_other_devices():
     with pytest.raises(ValueError, match="device"):
         paged_attention_decode(q, pool, pool, torch.zeros(1, 2, dtype=torch.int32),
                                torch.ones(1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="device"):
+        dense_attention_decode(q, pool[:1], pool[:1], torch.ones(1, dtype=torch.int32))
+    qs = torch.zeros(1, 2, 4, 16, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        flash_attention(qs, qs, qs)
+    before = flash_attention.launches
+    out = flash_attention(*(torch.ones(1, 2, 4, 16) for _ in range(3)))
+    assert torch.allclose(out, torch.ones(1, 2, 4, 16)) and flash_attention.launches == before
