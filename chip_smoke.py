@@ -14,11 +14,17 @@ under ``exact`` and ``int8`` (``exact-dense``, ``int8-dense``: the flash
 and dense-decode kernels), calibrates static scales with
 ``Model.calibrate`` and serves the calibrated ``int8`` plan and the
 ``exact`` plan on an int8 KV pool (``int8-kvq``, ``exact-kvq``: the
-paged kernel's dequantizing branch), checking that every request gets
-its tokens, the logits are finite, the prefix cache hits where it may,
-and that each serving run itself launched every kernel of its plan's
-path and no kernel of the other layout.  Any failure raises and exits
-non-zero.  The line before the last is a JSON object with one entry per
+paged kernel's dequantizing branch), then serves full-width
+recurrentgemma-2b (RG-LRU + sliding-window local attention, head dim
+256) on dense per-slot caches under ``exact`` and ``int8`` (``rg-exact``,
+``rg-int8``: the ``rglru_scan`` kernel in every recurrent layer's
+prefill, flash attention with window 2048 and dense decode on the
+rings), checking that every request gets its tokens, the logits are
+finite, the prefix cache hits where it may, and that each serving run
+itself launched every kernel of its plan's path and no kernel of the
+other layout.  Reduced float32 models of both families are served on the
+card and on the CPU, and their greedy tokens compared.  Any failure
+raises and exits non-zero.  The line before the last is a JSON object with one entry per
 kernel; the last line is the device record.  Needs one CUDA device and
 the sources of this checkout; imports neither JAX nor the JAX package.
 """
@@ -75,6 +81,7 @@ INT8_POOL_TOL = F32_TOL
 # BF16_TOL): its output stays float32, and only its p is rounded to bf16.
 FLASH_BF16 = (4e-3, 2.0 ** -7)
 DENSE_S = 512  # dense cache positions per slot: the serving runs' max_len
+WIDE_HDS = (128, 256)  # the head dims beyond stablelm's, checked on every attention kernel
 SERVING_DRAWS = 4  # input draws each new kernel is held on at the serving shapes
 
 
@@ -162,35 +169,38 @@ def check_kernels(dev, g) -> None:
 
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
         name = str(dtype).split(".")[-1]
-        for grp in (1, 4):
-            for softcap in (0.0, 30.0):
-                kvh, w, nb = 8, 5, 48
-                kv_len = torch.tensor([0, 1, BS, BS + 1, w * BS], dtype=torch.int32, device=dev)
+        for hd in (HD,) + WIDE_HDS:
+            for grp in (1, 4, 10):  # 10: the 16-row tile
+                for softcap in (0.0, 30.0):
+                    kvh, w, nb = 8, 5, 48
+                    kv_len = torch.tensor([0, 1, BS, BS + 1, w * BS], dtype=torch.int32,
+                                          device=dev)
+                    table = torch.randint(1, nb, (5, w), generator=g, device=dev,
+                                          dtype=torch.int32)
+                    table[1, 0] = 0  # entries at scratch block 0
+                    table[4, 3] = 0
+                    q = randn(5, kvh * grp, hd, dtype=dtype)
+                    kp, vp = randn(nb, kvh, BS, hd, dtype=dtype), randn(nb, kvh, BS, hd, dtype=dtype)
+                    got = pa.paged_attention_decode(q, kp, vp, table, kv_len, softcap=softcap)
+                    want = paged_decode_ref(q, kp, vp, table, kv_len, softcap=softcap)
+                    err = (got.float() - want).abs().max().item()
+                    assert err <= tol, (name, hd, grp, softcap, err)
+                    assert not got[0].any(), "kv_len 0 must give zeros"
+                    log(f"[paged decode] {name} hd={hd} G={grp} softcap={softcap} kv_len "
+                        f"{kv_len.tolist()}: max|kernel-plain| {err:.2e} <= {tol}")
+            for grp in (1, 4):
+                kvh, w, nb, s = 4, 8, 64, 37
+                start = torch.tensor([0, 7, BS, BS + 9, 3 * BS], dtype=torch.int32, device=dev)
                 table = torch.randint(1, nb, (5, w), generator=g, device=dev, dtype=torch.int32)
-                table[1, 0] = 0  # entries at scratch block 0
-                table[4, 3] = 0
-                q = randn(5, kvh * grp, HD, dtype=dtype)
-                kp, vp = randn(nb, kvh, BS, HD, dtype=dtype), randn(nb, kvh, BS, HD, dtype=dtype)
-                got = pa.paged_attention_decode(q, kp, vp, table, kv_len, softcap=softcap)
-                want = paged_decode_ref(q, kp, vp, table, kv_len, softcap=softcap)
+                q = randn(5, kvh * grp, s, hd, dtype=dtype)
+                kp, vp = randn(nb, kvh, BS, hd, dtype=dtype), randn(nb, kvh, BS, hd, dtype=dtype)
+                got = pa.paged_attention_prefill(q, kp, vp, table, start, softcap=0.0)
+                want = paged_prefill_ref(q, kp, vp, table, start, softcap=0.0)
                 err = (got.float() - want).abs().max().item()
-                assert err <= tol, (name, grp, softcap, err)
-                assert not got[0].any(), "kv_len 0 must give zeros"
-                log(f"[paged decode] {name} G={grp} softcap={softcap} kv_len "
-                    f"{kv_len.tolist()}: max|kernel-plain| {err:.2e} <= {tol}")
-        for grp in (1, 4):
-            kvh, w, nb, s = 4, 8, 64, 37
-            start = torch.tensor([0, 7, BS, BS + 9, 3 * BS], dtype=torch.int32, device=dev)
-            table = torch.randint(1, nb, (5, w), generator=g, device=dev, dtype=torch.int32)
-            q = randn(5, kvh * grp, s, HD, dtype=dtype)
-            kp, vp = randn(nb, kvh, BS, HD, dtype=dtype), randn(nb, kvh, BS, HD, dtype=dtype)
-            got = pa.paged_attention_prefill(q, kp, vp, table, start, softcap=0.0)
-            want = paged_prefill_ref(q, kp, vp, table, start, softcap=0.0)
-            err = (got.float() - want).abs().max().item()
-            assert err <= tol, (name, grp, err)
-            log(f"[paged prefill] {name} G={grp} S={s} starts {start.tolist()}: "
-                f"max|kernel-plain| {err:.2e} <= {tol}")
-    for m, k, n in list(DECODE_GEMMS) + PREFILL_GEMMS:
+                assert err <= tol, (name, hd, grp, err)
+                log(f"[paged prefill] {name} hd={hd} G={grp} S={s} starts {start.tolist()}: "
+                    f"max|kernel-plain| {err:.2e} <= {tol}")
+    for m, k, n in list(DECODE_GEMMS) + PREFILL_GEMMS + list(RG_DECODE_GEMMS) + RG_PREFILL_GEMMS:
         x = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
         w_t = torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
         assert torch.equal(i8.int8_gemm(x, w_t), int8_matmul_acc_ref(x, w_t)), (m, k, n)
@@ -202,8 +212,6 @@ def time_kernels(dev, g, timer=time_ms) -> dict:
     """Phase 5: each kernel at the serving path's shapes beside its bound,
     and held there against its plain version (bf16 attention within
     ``BF16_TOL``, the int8 GEMM bit for bit)."""
-    from repro_torch.kernels.int8_matmul import ops as i8
-    from repro_torch.kernels.int8_matmul.ref import int8_matmul_acc_ref
     from repro_torch.kernels.paged_attention import ops as pa
     from repro_torch.kernels.paged_attention.ref import paged_decode_ref, paged_prefill_ref
 
@@ -253,9 +261,22 @@ def time_kernels(dev, g, timer=time_ms) -> dict:
         f"{err:.2e} <= {BF16_TOL}; kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) library_ms none (no single "
         "PyTorch call attends through a block table)")
 
+    out["int8_gemm"] = time_int8_gemms(dev, g, "int8_gemm", DECODE_GEMMS, PREFILL_GEMMS, timer)
+    return out
+
+
+def time_int8_gemms(dev, g, name: str, decode: dict, prefill: list, timer=time_ms) -> dict:
+    """The int8 GEMM at one model's shapes: every weight GEMM of one decode
+    step (``decode``: (M, K, N) -> count per step) summed into the
+    kernel-table row ``name``, held bit for bit against the plain version,
+    and each admission shape of ``prefill`` timed beside ``torch._int_mm``
+    for the log."""
+    from repro_torch.kernels.int8_matmul import ops as i8
+    from repro_torch.kernels.int8_matmul.ref import int8_matmul_acc_ref
+
     k_ms = p_ms = 0.0
     n_bytes = ops = err = 0
-    for (m, k, n), count in DECODE_GEMMS.items():
+    for (m, k, n), count in decode.items():
         x = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
         w_t = torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
         diff = i8.int8_gemm(x, w_t).long() - int8_matmul_acc_ref(x, w_t).long()
@@ -267,28 +288,26 @@ def time_kernels(dev, g, timer=time_ms) -> dict:
         n_bytes += count * (m * k + n * k + 4 * m * n)
         ops += count * 2 * m * n * k
         bb, _ = bound_ms(m * k + n * k + 4 * m * n, 2 * m * n * k, "int8")
-        log(f"[time int8 gemm] M={m} K={k} N={n} x{count} per step: kernel_ms {t_k:.4f} "
+        log(f"[time {name}] M={m} K={k} N={n} x{count} per step: kernel_ms {t_k:.4f} "
             f"plain_ms {t_p:.4f} bound_ms {bb:.4f} library_ms none (torch._int_mm "
             "takes M > 16 only)")
-    assert err == 0, ("int8 gemm at decode shapes", err)
+    assert err == 0, (name, "at decode shapes", err)
     b_ms, b_by = bound_ms(n_bytes, ops, "int8")
-    out["int8_gemm"] = dict(
-        name="int8_gemm", route="cuda",
-        source="src/repro_torch/kernels/int8_matmul/csrc/int8_matmul.cu",
-        replaces="src/repro/kernels/int8_matmul/kernel.py:38", max_abs_err=float(err),
-        ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    log(f"[time int8 gemm] all weight GEMMs of one decode step (M=8): kernel_ms {k_ms:.4f} "
+    log(f"[time {name}] all weight GEMMs of one decode step (M=8): kernel_ms {k_ms:.4f} "
         f"plain_ms {p_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) library_ms none")
-    for m, k, n in PREFILL_GEMMS:
+    for m, k, n in prefill:
         x = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
         w_t = torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
         t_k = timer(lambda: i8.int8_gemm(x, w_t), reps=5)
         t_l = timer(lambda: torch._int_mm(x, w_t.t()), reps=5)
         bb, by = bound_ms(m * k + n * k + 4 * m * n, 2 * m * n * k, "int8")
-        log(f"[time int8 gemm] prefill M={m} K={k} N={n}: kernel_ms {t_k:.4f} bound_ms "
+        log(f"[time {name}] prefill M={m} K={k} N={n}: kernel_ms {t_k:.4f} bound_ms "
             f"{bb:.4f} ({by}) library_ms {t_l:.4f} (torch._int_mm); kernel "
             f"{2 * m * n * k / max(t_k, 1e-9) / 1e9:.1f} TOPS")
-    return out
+    return dict(name=name, route="cuda", wrapper="int8_gemm",
+                source="src/repro_torch/kernels/int8_matmul/csrc/int8_matmul.cu",
+                replaces="src/repro/kernels/int8_matmul/kernel.py:38", max_abs_err=float(err),
+                ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
 def _codes(g, dev, *shape) -> torch.Tensor:
@@ -477,7 +496,7 @@ def check_int8_pool(dev, g) -> None:
     from repro_torch.kernels.paged_attention.ref import paged_decode_ref, paged_prefill_ref
 
     for hd in (16, 64):
-        for grp in (1, 4):
+        for grp in (1, 4, 10):
             for softcap in (0.0, 30.0):
                 kvh, w, nb = 8, 5, 48
                 kv_len = torch.tensor([0, 1, BS, BS + 1, w * BS], dtype=torch.int32, device=dev)
@@ -598,7 +617,7 @@ def check_dense(dev, g) -> None:
                                   (torch.bfloat16, FLASH_BF16, BF16_TOL)):
         name = str(dtype).split(".")[-1]
         worst, share, n = 0.0, 0.0, 0
-        for hd in (16, 64):
+        for hd in (16, 64) + WIDE_HDS:
             for grp in (1, 2, 4):
                 for window in (0, 24):
                     for softcap in (0.0, 30.0):
@@ -621,12 +640,12 @@ def check_dense(dev, g) -> None:
                            flash_attention_ref(q, k, v, causal=False), *fa_tol)
             assert sh <= 1, ("flash non-causal", name, hd, err, sh)
             worst, share, n = max(worst, err), max(share, sh), n + 1
-        log(f"[flash] {name} {n} cases (hd 16/64, G 1/2/4, causal window 0/24, softcap "
+        log(f"[flash] {name} {n} cases (hd 16/64/128/256, G 1/2/4, causal window 0/24, softcap "
             f"0/30, S 37/100; non-causal Sk 128): max|kernel-plain| {worst:.2e}, "
             f"{share:.3f} of the allowance")
         worst, share = 0.0, 0.0
-        for hd in (16, 64):
-            for grp in (1, 4):
+        for hd in (16, 64) + WIDE_HDS:
+            for grp in (1, 4, 10):
                 for softcap in (0.0, 30.0):
                     kvh, s = 4, 100
                     kv_len = torch.tensor([0, 1, 37, 64, 65, s], dtype=torch.int32, device=dev)
@@ -640,7 +659,7 @@ def check_dense(dev, g) -> None:
                     assert sh <= 1, ("dense decode", name, hd, grp, softcap, err, sh)
                     assert not got[0].any(), "kv_len 0 must give zeros"
                     worst, share = max(worst, err), max(share, sh)
-        log(f"[dense decode] {name} hd 16/64, G 1/4, softcap 0/30, S=100, kv_len "
+        log(f"[dense decode] {name} hd 16/64/128/256, G 1/4/10, softcap 0/30, S=100, kv_len "
             f"[0, 1, 37, 64, 65, 100]: max|kernel-plain| {worst:.2e}, {share:.3f} of the "
             "allowance")
 
@@ -734,6 +753,172 @@ def time_dense(dev, g, timer=time_ms) -> dict:
     return out
 
 
+# recurrentgemma-2b: rglru_scan at d_rnn 2560 over one 8-prompt admission
+# of 256 tokens and over a full 2048-position window, and a reduced ragged
+# shape; float32 within RG_TOL = rtol = atol (the reference kernel test's:
+# the kernel's FMA rounds a * h + b once where the loop rounds twice)
+RG_D, RG_HD, RG_H, RG_WINDOW, RG_F, RG_V = 2560, 256, 10, 2048, 7680, 256000
+# (M, K, N) of its int8 GEMMs: one decode step at 8 slots (18 rglru layers
+# x in_proj d -> 2 d_rnn, gates a and x and out_proj at d x d; 8 local
+# layers x q and o at d x d, k and v at d -> hd; 26 layers x up, gate and
+# down; the tied head) and the 8 x 256-token admission, whose full-sequence
+# prefill takes every position through each of them, the head included
+RG_DECODE_GEMMS = {(8, RG_D, 2 * RG_D): 18, (8, RG_D, RG_D): 18 * 3 + 8 * 2,
+                   (8, RG_D, RG_HD): 8 * 2, (8, RG_D, RG_F): 26 * 2, (8, RG_F, RG_D): 26,
+                   (8, RG_D, RG_V): 1}
+RG_PREFILL_GEMMS = [(8 * 256, k, n) for _, k, n in RG_DECODE_GEMMS]
+RG_SHAPES = [(3, 37, 130), (8, 256, RG_D), (8, 2048, RG_D)]
+RG_TOL = 2e-5
+RG_DECODE_FILLS = [260, 264, 268, 272, 276, 280, 284, 288]  # kv_len of 8 slots mid-run
+# kernel rows timed at recurrentgemma's shapes: their launches are the rg runs'
+RG_ROWS = ("rglru_scan", "flash_attention_hd256", "dense_attention_decode_hd256",
+           "int8_gemm_rg")
+
+
+def check_rglru(dev, g) -> None:
+    """The linear-recurrence kernel against its plain loop at ``RG_SHAPES``
+    (decays uniform in [0.2, 0.999], as the reference kernel test draws
+    them), one launch counted per call."""
+    from repro_torch.kernels.rglru_scan import ops as rg
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+
+    for b, s, d in RG_SHAPES:
+        a = torch.rand(b, s, d, generator=g, device=dev) * 0.799 + 0.2
+        x = torch.randn(b, s, d, generator=g, device=dev)
+        before = rg.rglru_scan.launches
+        got = rg.rglru_scan(a, x)
+        assert rg.rglru_scan.launches == before + 1 and got.dtype == torch.float32
+        err, sh = held(got, rglru_scan_ref(a, x), RG_TOL, RG_TOL)
+        assert sh <= 1, ("rglru_scan", b, s, d, err, sh)
+        log(f"[rglru_scan] B={b} S={s} D={d} float32: max|kernel-plain| {err:.2e}, {sh:.3f} "
+            f"of the allowance {RG_TOL} + {RG_TOL} |want|")
+
+
+def time_rglru(dev, g, timer=time_ms, plain_timer=wall_ms) -> dict:
+    """The scan at one admission's shape ``[8, 256, 2560]`` beside its
+    bound (3 x 4 bytes per element over the HBM rate) and the plain loop
+    (on the host's clock: one small launch per step); the full-window shape
+    is timed too, for the log."""
+    from repro_torch.kernels.rglru_scan import ops as rg
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+
+    out = {}
+    for b, s, d in RG_SHAPES[1:]:
+        a = torch.rand(b, s, d, generator=g, device=dev) * 0.799 + 0.2
+        x = torch.randn(b, s, d, generator=g, device=dev)
+        err, sh = held(rg.rglru_scan(a, x), rglru_scan_ref(a, x), RG_TOL, RG_TOL)
+        assert sh <= 1, ("rglru_scan at serving shapes", err, sh)
+        k_ms = timer(lambda: rg.rglru_scan(a, x))
+        p_ms = plain_timer(lambda: rglru_scan_ref(a, x))
+        b_ms, b_by = bound_ms(3 * a.numel() * 4, 2 * a.numel(), "fp32")
+        log(f"[time rglru_scan] B={b} S={s} D={d} float32: max|kernel-plain| {err:.2e}; "
+            f"kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} (host clock) bound_ms {b_ms:.4f} "
+            f"({b_by}) library_ms none (no single PyTorch call computes a linear "
+            f"recurrence); kernel {3 * a.numel() * 4 / max(k_ms, 1e-9) / 1e9:.2f} TB/s")
+        if (b, s, d) == RG_SHAPES[1]:  # one admission: the row of the kernel table
+            out["rglru_scan"] = dict(
+                name="rglru_scan", route="cuda",
+                source="src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
+                replaces="src/repro/kernels/rglru_scan/kernel.py:46", max_abs_err=err,
+                ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    return out
+
+
+def check_wide_attention(dev, g) -> None:
+    """Flash attention at recurrentgemma's shape where its window binds:
+    ``[2, 10, 2560, 256]`` queries over one KV head, causal, window 2048,
+    in float32 (``F32_TOL``) and bf16 (``FLASH_BF16``)."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    s = 2560
+    for dtype, tol in ((torch.float32, (F32_TOL,)), (torch.bfloat16, FLASH_BF16)):
+        q = torch.randn(2, RG_H, s, RG_HD, generator=g, device=dev).to(dtype)
+        k, v = (torch.randn(2, 1, s, RG_HD, generator=g, device=dev).to(dtype) for _ in range(2))
+        err, sh = held(fa.flash_attention(q, k, v, causal=True, window=RG_WINDOW),
+                       flash_attention_ref(q, k, v, causal=True, window=RG_WINDOW), *tol)
+        assert sh <= 1, ("flash window 2048", dtype, err, sh)
+        log(f"[flash] {str(dtype).split('.')[-1]} B=2 H={RG_H} KV=1 S={s} hd={RG_HD} causal window "
+            f"{RG_WINDOW}: max|kernel-plain| {err:.2e}, {sh:.3f} of the allowance")
+
+
+def time_wide_attention(dev, g, timer=time_ms) -> dict:
+    """Flash attention and dense decode at recurrentgemma-2b's serving
+    shapes (10 query heads over 1 KV head of 256), bf16, held against
+    their plain versions and timed beside their bounds and
+    ``scaled_dot_product_attention`` (a yardstick only): flash = one
+    admission of 8 prompts of 256 tokens (window 2048 does not bind), and
+    the window-binding ``S = 2560`` for the log; dense decode = 8 slots
+    over 2048-position rings at ``RG_DECODE_FILLS``."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.paged_attention import ops as pa
+    from repro_torch.kernels.paged_attention.ref import dense_decode_ref
+
+    out = {}
+    for b, s in ((8, 256), (2, 2560)):
+        q = torch.randn(b, RG_H, s, RG_HD, generator=g, device=dev).bfloat16()
+        k, v = (torch.randn(b, 1, s, RG_HD, generator=g, device=dev).bfloat16()
+                for _ in range(2))
+        err, sh = held(fa.flash_attention(q, k, v, causal=True, window=RG_WINDOW),
+                       flash_attention_ref(q, k, v, causal=True, window=RG_WINDOW), *FLASH_BF16)
+        assert sh <= 1, ("flash hd 256 at serving shapes", b, s, err, sh)
+        i = torch.arange(s, device=dev)
+        mask = (i[:, None] >= i[None]) & (i[:, None] - i[None] < RG_WINDOW)
+        ke, ve = k.expand(b, RG_H, s, RG_HD), v.expand(b, RG_H, s, RG_HD)
+        k_ms = timer(lambda: fa.flash_attention(q, k, v, causal=True, window=RG_WINDOW), reps=5)
+        p_ms = timer(lambda: flash_attention_ref(q, k, v, causal=True, window=RG_WINDOW),
+                     reps=3)
+        l_ms = timer(lambda: sdpa(q, ke, ve, attn_mask=mask), reps=5)
+        pairs = int(mask.sum().item()) * b  # visible (row, key) pairs per head
+        n_bytes = (2 * q.numel() + 2 * k.numel()) * 2  # q, k, v read and o written once
+        b_ms, b_by = bound_ms(n_bytes, 4 * pairs * RG_H * RG_HD, "bf16")
+        log(f"[time flash] B={b} S={s} H={RG_H} KV=1 hd={RG_HD} bf16 causal window {RG_WINDOW}: "
+            f"max|kernel-plain| {err:.2e} ({sh:.3f}); kernel_ms {k_ms:.4f} plain_ms "
+            f"{p_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) library_ms {l_ms:.4f} "
+            "(scaled_dot_product_attention, windowed causal mask, K/V expanded); kernel "
+            f"{4 * pairs * RG_H * RG_HD / max(k_ms, 1e-9) / 1e9:.2f} TFLOP/s")
+        if s == 256:
+            out["flash_attention_hd256"] = dict(
+                name="flash_attention_hd256", route="cuda", wrapper="flash_attention",
+                source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention/kernel.py:85", max_abs_err=err,
+                ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=l_ms)
+        del q, k, v, ke, ve, mask
+
+    kv_len = torch.tensor(RG_DECODE_FILLS, dtype=torch.int32, device=dev)
+    mask = (torch.arange(RG_WINDOW, device=dev)[None] < kv_len[:, None])[:, None, None]
+    errs = []
+    for _ in range(SERVING_DRAWS):
+        qd = torch.randn(8, RG_H, RG_HD, generator=g, device=dev).bfloat16()
+        kc, vc = (torch.randn(8, 1, RG_WINDOW, RG_HD, generator=g, device=dev).bfloat16()
+                  for _ in range(2))
+        err, sh = held(pa.dense_attention_decode(qd, kc, vc, kv_len),
+                       dense_decode_ref(qd, kc, vc, kv_len), BF16_TOL)
+        assert sh <= 1, ("dense decode hd 256 at serving shapes", err, sh)
+        errs.append(err)
+    err = max(errs)
+    ke, ve = kc.expand(8, RG_H, RG_WINDOW, RG_HD), vc.expand(8, RG_H, RG_WINDOW, RG_HD)
+    k_ms = timer(lambda: pa.dense_attention_decode(qd, kc, vc, kv_len))
+    p_ms = timer(lambda: dense_decode_ref(qd, kc, vc, kv_len))
+    l_ms = timer(lambda: sdpa(qd[:, :, None], ke, ve, attn_mask=mask))
+    fill = sum(RG_DECODE_FILLS)
+    n_bytes = 2 * qd.numel() * 2 + 2 * fill * RG_HD * 2 + kv_len.numel() * 4
+    b_ms, b_by = bound_ms(n_bytes, 4 * fill * RG_H * RG_HD, "bf16")
+    out["dense_attention_decode_hd256"] = dict(
+        name="dense_attention_decode_hd256", route="cuda", wrapper="dense_attention_decode",
+        source="src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
+        replaces="src/repro/kernels/paged_attention/kernel.py:212", max_abs_err=err,
+        ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=l_ms)
+    log(f"[time dense decode] B=8 H={RG_H} KV=1 hd={RG_HD} bf16 S={RG_WINDOW} kv_len "
+        f"{RG_DECODE_FILLS}: max|kernel-plain| per draw {', '.join(f'{e:.2e}' for e in errs)}; "
+        f"kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) library_ms "
+        f"{l_ms:.4f} (scaled_dot_product_attention over the whole ring with a length mask)")
+    return out
+
+
 def make_prompts(vocab: int, rng) -> list:
     """12 prompts of 96-384 tokens; six share a 256-token prefix, and three
     of those (8-10) are admitted only after the first retirements, so
@@ -744,6 +929,13 @@ def make_prompts(vocab: int, rng) -> list:
     return [np.concatenate([prefix, rng.integers(0, vocab, n - 256, dtype=np.int32)])
             if i in shared else rng.integers(0, vocab, n, dtype=np.int32)
             for i, n in enumerate(lens)]
+
+
+def make_rg_prompts(vocab: int, rng) -> list:
+    """8 prompts of 256 tokens (one equal-length admission: the full-sequence
+    prefill, rglru_scan in every recurrent layer), then 4 of 64-160 tokens
+    (admitted when the first 8 retire: the masked token-by-token scan)."""
+    return [rng.integers(0, vocab, n, dtype=np.int32) for n in [256] * 8 + [160, 64, 128, 96]]
 
 
 def make_sc_prompts(vocab: int, rng) -> list:
@@ -768,6 +960,8 @@ PLAN_KERNELS = {
                  "paged_attention_decode_int8", "paged_attention_prefill_int8", "int8_gemm"),
     "exact-dense": ("flash_attention", "dense_attention_decode"),
     "int8-dense": ("flash_attention", "dense_attention_decode", "int8_gemm"),
+    "rg-exact": ("flash_attention", "dense_attention_decode", "rglru_scan"),
+    "rg-int8": ("flash_attention", "dense_attention_decode", "rglru_scan", "int8_gemm"),
 }
 # kernels of one KV layout, which a serving run on the other must not launch
 LAYOUT_KERNELS = {
@@ -802,7 +996,9 @@ def serve(cfg, params, prompts, dev, runs, gen: int, max_len: int = 512,
     One run's prepared weight caches (int8 codes, streams) are freed
     before the next run's are made."""
     from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch.serve import dense_state_summary
     from repro_torch.models.attention import KVCache
+    from repro_torch.models.rglru import RGLRUState
     from repro_torch.serve import ServeConfig, ServeEngine
 
     dense = kv_block_size == 0
@@ -835,10 +1031,15 @@ def serve(cfg, params, prompts, dev, runs, gen: int, max_len: int = 512,
             assert not stray, (label, "kernels of the other KV layout launched", stray, counts)
         if dense:
             assert kv == {} and ps == {}, (label, kv, ps)
-            shape = (8, cfg.n_kv_heads, max_len, cfg.head_dim)
-            assert all(isinstance(c, KVCache) and tuple(c.k.shape) == shape
-                       for c in engine._states["layers"]), label
-            kv_line = f"dense KV {cfg.n_layers} x K and V {shape} {cfg.dtype}"
+            for state, kind in zip(engine._states["layers"], cfg.layer_kinds):
+                if kind == "rglru":
+                    assert isinstance(state, RGLRUState), label
+                    assert state.h.shape == (8, cfg.d_rnn), label
+                else:
+                    ring = min(max_len, cfg.window) if kind == "local" else max_len
+                    shape = (8, cfg.n_kv_heads, ring, cfg.head_dim)
+                    assert isinstance(state, KVCache) and tuple(state.k.shape) == shape, label
+            kv_line = "dense " + dense_state_summary(engine._states, cfg)
         else:
             if plan == "exact" or kv_quant != "none":  # exact or static calibrated scales
                 assert kv["prefix_cache"] and ps["hits"] > 0, (label, ps)
@@ -894,7 +1095,8 @@ def calibrate(cfg, params, prompts, dev):
     return plan
 
 
-def profile_decode_chunk(cfg, params, prompts, dev, runs, kv_block_size: int = BS) -> None:
+def profile_decode_chunk(cfg, params, prompts, dev, runs, kv_block_size: int = BS,
+                         max_len: int = 512) -> None:
     """Where a decode chunk's time goes: one engine round of 8 decode steps
     (8 slots, up to 8 of them busy) under ``torch.profiler`` — host time of
     the round against the device time of the kernels it ran (their sum over
@@ -903,7 +1105,7 @@ def profile_decode_chunk(cfg, params, prompts, dev, runs, kv_block_size: int = B
 
     from repro_torch.serve import ServeConfig, ServeEngine
 
-    serve_cfg = ServeConfig(max_slots=8, max_len=512, chunk_steps=8,
+    serve_cfg = ServeConfig(max_slots=8, max_len=max_len, chunk_steps=8,
                             kv_block_size=kv_block_size, attn_impl="flash")
     busy = min(8, len(prompts))
     for label, plan, kv_quant in runs:
@@ -1009,6 +1211,93 @@ def small_card_vs_cpu(dev) -> None:
         assert agree == 1.0 if plan == "exact" or bs == 0 else agree >= 0.9, (label, agree)
 
 
+def serve_rg(cfg, dev) -> dict:
+    """Full-width recurrentgemma-2b (bf16, random weights from seed 0) on
+    dense per-slot caches under ``exact`` and ``int8`` (``rg-exact``,
+    ``rg-int8``): 8 prompts of 256 tokens (one full-sequence admission,
+    whose 18 rglru layers each launch ``rglru_scan`` once), then 4 of
+    64-160 tokens (the masked scan: no scan launch), 32 new tokens each,
+    max_len 2048 (the window: rings of 2048 positions).  Asserts every
+    request's tokens, finite logits of a prefill and of every decode step
+    (the engine raises on a non-finite one), each plan's kernels launched
+    and no paged kernel.  Returns each run's launches."""
+    from repro_torch.models.model import Model
+
+    n_rglru = cfg.layer_kinds.count("rglru")
+    params = Model(cfg, device=dev).init(seed=0)
+    prompts = make_rg_prompts(cfg.vocab, np.random.default_rng(2))
+    model = _serving_model(cfg, dev, "exact")
+    probe = torch.as_tensor(prompts[8][None, :64], device=dev)
+    logits, _ = model.prefill(model.prepare(params), {"tokens": probe}, max_len=cfg.window)
+    assert logits.shape == (*probe.shape, cfg.vocab) and torch.isfinite(logits).all()
+    del model, logits
+    # the int8 path at full width: the same prefill through the GEMM kernel
+    # and through its plain version in its place, logits equal bit for bit
+    from repro_torch.kernels.int8_matmul import ops as i8
+    from repro_torch.kernels.int8_matmul.ref import int8_matmul_acc_ref
+
+    model = _serving_model(cfg, dev, "int8")
+    prepared = model.prepare(params)
+    got, _ = model.prefill(prepared, {"tokens": probe}, max_len=cfg.window)
+    kernel, i8.int8_gemm = i8.int8_gemm, int8_matmul_acc_ref
+    try:
+        want, _ = model.prefill(prepared, {"tokens": probe}, max_len=cfg.window)
+    finally:
+        i8.int8_gemm = kernel
+    assert torch.isfinite(got).all() and torch.equal(got, want), \
+        (got.float() - want.float()).abs().max().item()
+    log(f"[rg-int8 prefill] recurrentgemma-2b {probe.shape[-1]} tokens under int8: logits "
+        "through the int8 GEMM kernel equal those through its plain version bit for bit")
+    del model, prepared, got, want
+    _free(dev)
+    runs = [("rg-exact", "exact", "none"), ("rg-int8", "int8", "none")]
+    launches, tokens = serve(cfg, params, prompts, dev, runs, gen=32, max_len=cfg.window,
+                             kv_block_size=0)
+    for label, counts in launches.items():
+        # one full-sequence admission (the 8 equal prompts); the scan takes none
+        assert counts["rglru_scan"] == n_rglru, (label, counts["rglru_scan"])
+    agree = (tokens["rg-int8"] == tokens["rg-exact"]).mean()
+    log(f"[agreement rg-int8] greedy tokens equal to rg-exact: {agree:.1%} (reported, not "
+        "gated: random weights at bf16)")
+    profile_decode_chunk(cfg, params, prompts, dev, runs[:1], kv_block_size=0,
+                         max_len=cfg.window)
+    del params
+    _free(dev)
+    return launches
+
+
+def small_rg_card_vs_cpu(dev) -> None:
+    """A reduced float32 recurrentgemma (window 8, prompts up to 33 tokens,
+    so rings wrap and the masked scan runs past the window) served with
+    the kernels on ``dev`` and their plain versions on the CPU, on dense
+    caches under all four plans: every greedy token equal."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import Model
+    from repro_torch.models.transformer import ModelOptions
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    small = get_arch("recurrentgemma-2b").reduced(dtype="float32", window=8)
+    rng = np.random.default_rng(8)
+    lens = [(5, 19, 12, 33, 8), (16, 16)]  # mixed (masked scan), equal (full sequence)
+    params = Model(small, device="cpu").init(seed=4)
+    for label in ("exact", "int8", "sc", "mixed"):
+        scfg = ServeConfig(max_slots=3, max_len=48, chunk_steps=4, kv_block_size=0)
+        agree = []
+        for group in lens:
+            prompts = [rng.integers(0, small.vocab, n, dtype=np.int32) for n in group]
+            toks = {}
+            for where in ("cpu", dev):
+                m = Model(small, ModelOptions(plan=label, attn_impl="flash"), device=where)
+                outs = ServeEngine(m, _to(params, m.device), scfg,
+                                   device=where).generate_batch(prompts, 10)
+                toks[str(where)] = np.concatenate([o.tokens for o in outs])
+            agree.append((toks["cpu"] == toks[str(dev)]).mean())
+        log(f"[small rg-{label}] reduced recurrentgemma float32 window 8 on {dev} (kernels) "
+            f"vs cpu (plain versions), mixed / equal prompt lengths: "
+            f"{' / '.join(f'{a:.0%}' for a in agree)} of greedy tokens equal")
+        assert min(agree) == 1.0, (label, agree)
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
@@ -1054,18 +1343,28 @@ def main() -> None:
     log(f"[build] nvcc for {len(_build.build_seconds)} libraries in parallel: "
         f"{time.perf_counter() - t0:.1f} s ("
         + ", ".join(f"{k} {v:.1f} s" for k, v in _build.build_seconds.items()) + ")")
-    for name, text in _build.build_logs.items():
+    for name, text in _build.build_logs.items():  # one line per kernel: registers, spills
+        entry = spill = ""
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[ptxas {name}] {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line.strip()
+            elif "spill stores" in line:
+                spill = line.strip()
+            elif "registers" in line:
+                log(f"[ptxas {name}] {entry}: {line.split(':', 1)[-1].strip()}; {spill}")
 
     g = torch.Generator(device=dev).manual_seed(1234)
     check_kernels(dev, g)
     check_int8_pool(dev, g)
     check_dense(dev, g)
+    check_wide_attention(dev, g)
+    check_rglru(dev, g)
     check_stochastic(dev, g)
     kernels = {**time_kernels(dev, g), **time_int8_pool(dev, g), **time_dense(dev, g),
-               **time_stochastic(dev, g)}
+               **time_stochastic(dev, g), **time_rglru(dev, g),
+               **time_wide_attention(dev, g),
+               "int8_gemm_rg": time_int8_gemms(dev, g, "int8_gemm_rg", RG_DECODE_GEMMS,
+                                               RG_PREFILL_GEMMS)}
 
     cfg = get_arch("stablelm-1.6b")
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff, cfg.vocab,
@@ -1101,14 +1400,25 @@ def main() -> None:
     launches.update(serve(cfg, params, sc_prompts, dev, plain_runs("sc", "mixed"), gen=16)[0])
     profile_decode_chunk(cfg, params, sc_prompts, dev, plain_runs("sc", "mixed"))
     del params
-    torch.cuda.empty_cache()
+    _free(dev)  # the sc weight streams go before recurrentgemma's weights come
+    rg = get_arch("recurrentgemma-2b")
+    assert (rg.n_layers, rg.d_model, rg.n_heads, rg.n_kv_heads, rg.head_dim, rg.d_rnn,
+            rg.window, rg.vocab, rg.dtype) == (26, RG_D, RG_H, 1, RG_HD, RG_D, RG_WINDOW,
+                                               256000, "bfloat16")
+    assert rg.layer_kinds.count("rglru") == 18 and rg.layer_kinds.count("local") == 8
+    rg_launches = serve_rg(rg, dev)
     small_card_vs_cpu(dev)
+    small_rg_card_vs_cpu(dev)
 
-    # launches: summed over the eight serving runs; launches_by_plan: each run's own
+    # launches: summed over the serving runs of the row's model (the rows
+    # at recurrentgemma's shapes over rg-exact and rg-int8, the others over
+    # the eight stablelm runs); launches_by_plan: each run's own
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_plan",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for name, rec in kernels.items():
-        rec["launches_by_plan"] = {label: c[name] for label, c in launches.items()}
+        wrapper = rec.get("wrapper", name)
+        runs = rg_launches if name in RG_ROWS else launches
+        rec["launches_by_plan"] = {label: c[wrapper] for label, c in runs.items()}
         rec["launches"] = sum(rec["launches_by_plan"].values())
     print(json.dumps({"kernels": [{k: rec[k] for k in keys} for rec in kernels.values()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -23,6 +23,9 @@ launches the kernel or raises.
   stochastic streams and signs (replaces ``repro.kernels.bts_encode``)
 * ``stoch_matmul``    — the OSSM array: AND, popcount and signed sum of
   packed streams (replaces ``repro.kernels.stoch_matmul``)
+* ``rglru_scan``      — the linear recurrence ``h_t = a_t h_{t-1} + b_t``
+  of the RG-LRU prefill, one thread per channel walking the sequence
+  (replaces ``repro.kernels.rglru_scan``)
 
 ``kernel_wrappers``, ``reset_launches`` and ``launch_counts`` read and
 clear every wrapper's launch counter, so a harness can count what one
@@ -44,6 +47,7 @@ def kernel_wrappers() -> dict:
     from repro_torch.kernels.paged_attention.ops import (
         dense_attention_decode, paged_attention_decode, paged_attention_prefill,
     )
+    from repro_torch.kernels.rglru_scan.ops import rglru_scan
     from repro_torch.kernels.stoch_matmul.ops import stoch_matmul_packed
     return {
         "paged_attention_decode": paged_attention_decode,
@@ -54,6 +58,7 @@ def kernel_wrappers() -> dict:
         "int8_gemm_batched": int8_gemm_batched,
         "bts_encode": bts_encode,
         "stoch_matmul_packed": stoch_matmul_packed,
+        "rglru_scan": rglru_scan,
     }
 
 

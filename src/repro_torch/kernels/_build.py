@@ -27,8 +27,13 @@ from typing import Dict, List, Sequence, Tuple
 
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG.parents[2] / "build" / "torch_kernels"
+# --split-compile=0: the device-code optimizer of one source runs on every
+# core, not one (the attention sources instantiate dozens of kernels)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--split-compile=0")
+# head dims the attention kernels (flash, paged and dense decode, paged
+# prefill) are instantiated for: the switch in each attention source
+HEAD_DIMS = (16, 64, 128, 256)
 
 # library name -> sources (relative to this package)
 LIBRARIES: Dict[str, Tuple[str, ...]] = {
@@ -37,6 +42,7 @@ LIBRARIES: Dict[str, Tuple[str, ...]] = {
     "flash_attention": ("flash_attention/csrc/flash_attention.cu",),
     "bts_encode": ("bts_encode/csrc/bts_encode.cu",),
     "stoch_matmul": ("stoch_matmul/csrc/stoch_matmul.cu",),
+    "rglru_scan": ("rglru_scan/csrc/rglru_scan.cu",),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

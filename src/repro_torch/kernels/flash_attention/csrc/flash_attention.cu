@@ -33,7 +33,14 @@
 // float32 products on the CUDA cores (the tensor cores' float32 modes
 // round to TF32): Q staged transposed in shared memory, 32-key tiles,
 // 4 x 4 register tiles of FMA dot products, p through shared memory.
-// No cp.async/TMA pipeline and no wgmma yet: later work.
+// Instantiated for head dims 16, 64, 128 and 256.  The tiles live in
+// dynamic shared memory (F32Smem, Bf16Smem): past head dim 64 they outgrow
+// the 48 KB of a static allocation (float32 at 256: 140 KB; bf16 at 256:
+// 104 KB), so the launch raises the kernel's limit first.  At head dim 256
+// the bf16 path's O accumulator alone is 128 floats a thread, so Q's
+// fragments are read from shared memory at each k-step instead of being
+// held in registers.  No cp.async/TMA pipeline and no wgmma yet: later
+// work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -76,6 +83,14 @@ constexpr int TX = KC / 4;  // threads across a tile's keys (4 keys each)
 constexpr int TY = RT / 4;  // threads down the rows (4 rows each)
 static_assert(TX * TY == THREADS, "4 x 4 score tiles cover the block");
 
+// Dynamic shared memory of the float32 kernel, in floats: Q transposed, K
+// transposed, V, p (+1 column: the PV loop reads 4 rows at one key).
+template <int D>
+struct F32Smem {
+  static constexpr int QT = 0, KT = QT + D * RT, VS = KT + D * KC, PS = VS + KC * D;
+  static constexpr size_t bytes = (PS + RT * (KC + 1)) * sizeof(float);
+};
+
 template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_f32_kernel(const float* __restrict__ q,  // [BH, R, D]
@@ -87,10 +102,13 @@ flash_attention_f32_kernel(const float* __restrict__ q,  // [BH, R, D]
   constexpr int VEC = 4;      // floats per 16-byte load
   constexpr int DC = D / TX;  // output columns per thread
   static_assert(D % VEC == 0 && D % TX == 0, "head dim must split into vectors and lanes");
-  __shared__ __align__(16) float qT[D][RT];
-  __shared__ __align__(16) float kT[D][KC];
-  __shared__ __align__(16) float vs[KC][D];
-  __shared__ float ps[RT][KC + 1];  // +1: the PV loop reads 4 rows at one key
+  using L = F32Smem<D>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* const sm = reinterpret_cast<float*>(smem_raw);
+  float(*const qT)[RT] = reinterpret_cast<float(*)[RT]>(sm + L::QT);
+  float(*const kT)[KC] = reinterpret_cast<float(*)[KC]>(sm + L::KT);
+  float(*const vs)[D] = reinterpret_cast<float(*)[D]>(sm + L::VS);
+  float(*const ps)[KC + 1] = reinterpret_cast<float(*)[KC + 1]>(sm + L::PS);
 
   const int tid = threadIdx.x;
   const int tx = tid % TX, ty = tid / TX;
@@ -242,6 +260,17 @@ __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+// Dynamic shared memory of the bf16 kernel, in bytes: K as is (B fragments
+// of QK^T), V transposed (B fragments of PV), and past head dim 128 the
+// tile's Q rows (A fragments of QK^T).
+template <int D>
+struct Bf16Smem {
+  static constexpr bool QSMEM = D > 128;
+  static constexpr size_t KS = 0, VT = KS + MMA_KC * (D + PAD) * sizeof(bf16),
+                          QS = VT + D * (MMA_KC + PAD) * sizeof(bf16),
+                          bytes = QS + (QSMEM ? RT * (D + PAD) * sizeof(bf16) : 0);
+};
+
 template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_bf16_kernel(const bf16* __restrict__ q,  // [BH, R, D]
@@ -255,8 +284,12 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,  // [BH, R, D]
   constexpr int ND = D / 8;         // n-tiles of O over the head dim
   constexpr int NK = MMA_KC / 8;    // n-tiles of S over a tile's keys
   static_assert(D % 16 == 0, "head dim must be whole mma k-steps");
-  __shared__ __align__(16) bf16 ks[MMA_KC][D + PAD];  // K as is: B fragments of QK^T
-  __shared__ __align__(16) bf16 vt[D][MMA_KC + PAD];  // V transposed: B fragments of PV
+  using L = Bf16Smem<D>;
+  constexpr bool QSMEM = L::QSMEM;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16(*const ks)[D + PAD] = reinterpret_cast<bf16(*)[D + PAD]>(smem_raw + L::KS);
+  bf16(*const vt)[MMA_KC + PAD] = reinterpret_cast<bf16(*)[MMA_KC + PAD]>(smem_raw + L::VT);
+  bf16(*const qs)[D + PAD] = reinterpret_cast<bf16(*)[D + PAD]>(smem_raw + L::QS);
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int gid = lane / 4, tig = lane % 4;  // mma fragment row group, thread in group
@@ -277,15 +310,26 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,  // [BH, R, D]
     row_ok[h] = row[h] < R;
     pos[h] = row_ok[h] ? row[h] % q_len : 0;
   }
-  uint32_t qf[KD][4];  // A fragments of Q, rows past R zero
+  uint32_t qf[QSMEM ? 1 : KD][4];  // A fragments of Q, rows past R zero
+  if constexpr (QSMEM) {
+    // the tile's Q rows, rows past R zero; the first tile's barrier
+    // publishes them
+    for (int c = tid; c < RT * (D / VEC); c += THREADS) {
+      const int r = c / (D / VEC), dv = (c % (D / VEC)) * VEC;
+      uint4 w = make_uint4(0u, 0u, 0u, 0u);
+      if (r0 + r < R) w = *reinterpret_cast<const uint4*>(qb + (size_t)(r0 + r) * D + dv);
+      *reinterpret_cast<uint4*>(&qs[r][dv]) = w;
+    }
+  } else {
 #pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
-    const int c = kk * 16 + tig * 2;
+    for (int kk = 0; kk < KD; ++kk) {
+      const int c = kk * 16 + tig * 2;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const bf16* qr = qb + (size_t)row[h] * D + c;
-      qf[kk][h] = row_ok[h] ? ld32(qr) : 0u;
-      qf[kk][h + 2] = row_ok[h] ? ld32(qr + 8) : 0u;
+      for (int h = 0; h < 2; ++h) {
+        const bf16* qr = qb + (size_t)row[h] * D + c;
+        qf[kk][h] = row_ok[h] ? ld32(qr) : 0u;
+        qf[kk][h + 2] = row_ok[h] ? ld32(qr + 8) : 0u;
+      }
     }
   }
   float o[ND][4], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
@@ -313,13 +357,26 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,  // [BH, R, D]
 
     float s[NK][4];  // scores: [n-tile][c0 c1 (row gid) c2 c3 (row gid + 8)]
 #pragma unroll
-    for (int j = 0; j < NK; ++j) {
+    for (int j = 0; j < NK; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t a[4];
+      if constexpr (QSMEM) {
+        const bf16* qr = &qs[warp * 16 + gid][kk * 16 + tig * 2];
+        a[0] = ld32(qr);
+        a[1] = ld32(qr + 8 * (D + PAD));
+        a[2] = ld32(qr + 8);
+        a[3] = ld32(qr + 8 * (D + PAD) + 8);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = qf[kk][e];
+      }
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {  // each s[j] still sums its k-steps in order
         const bf16* kr = &ks[j * 8 + gid][kk * 16 + tig * 2];
-        mma_bf16(s[j], qf[kk], ld32(kr), ld32(kr + 8));
+        mma_bf16(s[j], a, ld32(kr), ld32(kr + 8));
       }
     }
 
@@ -397,18 +454,48 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,  // [BH, R, D]
 }
 
 template <typename T, int D>
-void launch(const void* q, const void* k, const void* v, void* out, int BH, int R, int Sk,
-            int q_len, int causal, int window, float scale, float softcap, cudaStream_t s) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, int BH, int R,
+                   int Sk, int q_len, int causal, int window, float scale, float softcap,
+                   cudaStream_t s) {
   dim3 grid((R + RT - 1) / RT, BH);
-  if constexpr (std::is_same<T, float>::value)
-    flash_attention_f32_kernel<D><<<grid, THREADS, 0, s>>>(
+  if constexpr (std::is_same<T, float>::value) {
+    constexpr size_t smem = F32Smem<D>::bytes;
+    static_assert(smem <= 232448, "tiles exceed the 227 KB a block may use");
+    auto* kern = flash_attention_f32_kernel<D>;
+    if (smem > 48 * 1024) {  // past the default limit: ask for it (per device, cheap)
+      const cudaError_t e = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      if (e != cudaSuccess) return e;
+    }
+    kern<<<grid, THREADS, smem, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(out), R, Sk, q_len, causal, window,
         scale, softcap);
-  else
-    flash_attention_bf16_kernel<D><<<grid, THREADS, 0, s>>>(
+  } else {
+    constexpr size_t smem = Bf16Smem<D>::bytes;
+    static_assert(smem <= 232448, "tiles exceed the 227 KB a block may use");
+    auto* kern = flash_attention_bf16_kernel<D>;
+    if (smem > 48 * 1024) {  // past the default limit: ask for it (per device, cheap)
+      const cudaError_t e = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      if (e != cudaSuccess) return e;
+    }
+    kern<<<grid, THREADS, smem, s>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         static_cast<bf16*>(out), R, Sk, q_len, causal, window, scale, softcap);
+  }
+  return cudaSuccess;
+}
+
+template <int D>
+cudaError_t launch_dtype(const void* q, const void* k, const void* v, void* out, int BH,
+                         int R, int Sk, int q_len, int causal, int window, float scale,
+                         float softcap, int dtype, cudaStream_t s) {
+  if (dtype == 0)
+    return launch<float, D>(q, k, v, out, BH, R, Sk, q_len, causal, window, scale, softcap, s);
+  if (dtype == 1)
+    return launch<bf16, D>(q, k, v, out, BH, R, Sk, q_len, causal, window, scale, softcap, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -423,15 +510,27 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (BH <= 0 || BH > 65535 || R <= 0 || Sk <= 0 || q_len <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (D == 64 && dtype == 0)
-    launch<float, 64>(q, k, v, out, BH, R, Sk, q_len, causal, window, scale, softcap, s);
-  else if (D == 64 && dtype == 1)
-    launch<bf16, 64>(q, k, v, out, BH, R, Sk, q_len, causal, window, scale, softcap, s);
-  else if (D == 16 && dtype == 0)
-    launch<float, 16>(q, k, v, out, BH, R, Sk, q_len, causal, window, scale, softcap, s);
-  else if (D == 16 && dtype == 1)
-    launch<bf16, 16>(q, k, v, out, BH, R, Sk, q_len, causal, window, scale, softcap, s);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e;
+  switch (D) {  // the head dims the kernel is instantiated for (_build.py HEAD_DIMS)
+    case 16:
+      e = launch_dtype<16>(q, k, v, out, BH, R, Sk, q_len, causal, window, scale, softcap,
+                           dtype, s);
+      break;
+    case 64:
+      e = launch_dtype<64>(q, k, v, out, BH, R, Sk, q_len, causal, window, scale, softcap,
+                           dtype, s);
+      break;
+    case 128:
+      e = launch_dtype<128>(q, k, v, out, BH, R, Sk, q_len, causal, window, scale, softcap,
+                            dtype, s);
+      break;
+    case 256:
+      e = launch_dtype<256>(q, k, v, out, BH, R, Sk, q_len, causal, window, scale, softcap,
+                            dtype, s);
+      break;
+    default:
+      e = cudaErrorInvalidValue;
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

@@ -23,9 +23,9 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import HEAD_DIMS
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-HEAD_DIMS = (16, 64)  # head dims the kernel is instantiated for
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the kernel's dtype code
 REF_BK = 128  # the reference's default key tile, whose padding it refuses non-causally
 

@@ -35,9 +35,12 @@
 // loads 16 codes per 16-byte vector and scales them by the KV head's
 // float32 scale on the way into shared memory.  GQA is
 // native: the G query heads of a KV head are rows of the same tile, so K/V
-// is read once per KV head.  The plain FMA loops do not use the tensor
-// cores and a decode block covers one slot's whole fill; split-K
-// (flash-decoding) and wgmma tiles are later work.
+// is read once per KV head.  The tiles live in dynamic shared memory
+// (Smem below): at head dim 256 they take 103-152 KB, past the 48 KB a
+// static allocation may hold, so the launch raises the kernel's limit
+// first.  Instantiated for head dims 16, 64, 128 and 256.  The plain FMA
+// loops do not use the tensor cores and a decode block covers one slot's
+// whole fill; split-K (flash-decoding) and wgmma tiles are later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -69,6 +72,16 @@ __device__ __forceinline__ void load_vec(const T* __restrict__ src, float (&dst)
   for (int i = 0; i < VEC; ++i) dst[i] = to_f(e[i]);
 }
 
+// Dynamic shared memory of one block, in floats: q rows, K (+1 column: the
+// score loop reads down columns), V, scores, then the running max,
+// denominator and rescale of each row, then the KC page ids (ints).
+template <int D, int RT, int KC>
+struct Smem {
+  static constexpr int QS = 0, KS = QS + RT * D, VS = KS + KC * (D + 1), PS = VS + KC * D,
+                       MS = PS + RT * (KC + 1), LS = MS + RT, AS = LS + RT, PG = AS + RT;
+  static constexpr size_t bytes = PG * sizeof(float) + KC * sizeof(int);
+};
+
 template <typename TQ, typename TKV, int D, int RT, int KC, bool DENSE>
 __global__ void __launch_bounds__(THREADS)
 paged_attention_kernel(const TQ* __restrict__ q,          // [B, KVH, R, D]
@@ -85,12 +98,17 @@ paged_attention_kernel(const TQ* __restrict__ q,          // [B, KVH, R, D]
   constexpr int VEC = 16 / sizeof(TKV);
   constexpr int NACC = (RT * D + THREADS - 1) / THREADS;
   static_assert(D % VEC == 0, "head dim must be whole 16-byte vectors");
-  __shared__ float qs[RT][D];
-  __shared__ float ks[KC][D + 1];  // +1: the score loop reads down columns
-  __shared__ float vs[KC][D];
-  __shared__ float ps[RT][KC + 1];
-  __shared__ float m_s[RT], l_s[RT], a_s[RT];
-  __shared__ int pg[KC];
+  using L = Smem<D, RT, KC>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* const sm = reinterpret_cast<float*>(smem_raw);
+  float(*const qs)[D] = reinterpret_cast<float(*)[D]>(sm + L::QS);
+  float(*const ks)[D + 1] = reinterpret_cast<float(*)[D + 1]>(sm + L::KS);
+  float(*const vs)[D] = reinterpret_cast<float(*)[D]>(sm + L::VS);
+  float(*const ps)[KC + 1] = reinterpret_cast<float(*)[KC + 1]>(sm + L::PS);
+  float* const m_s = sm + L::MS;
+  float* const l_s = sm + L::LS;
+  float* const a_s = sm + L::AS;
+  int* const pg = reinterpret_cast<int*>(sm + L::PG);
 
   const int tid = threadIdx.x;
   const int r0 = blockIdx.x * RT, h = blockIdx.y, b = blockIdx.z;
@@ -223,43 +241,70 @@ struct Args {
 };
 
 template <typename TQ, typename TKV, int D, int RT, int KC, bool DENSE>
-void launch(const Args& a, cudaStream_t s) {
+cudaError_t launch(const Args& a, cudaStream_t s) {
+  constexpr size_t smem = Smem<D, RT, KC>::bytes;
+  static_assert(smem <= 232448, "tiles exceed the 227 KB a block may use");
+  auto* kern = paged_attention_kernel<TQ, TKV, D, RT, KC, DENSE>;
+  if (smem > 48 * 1024) {  // past the default limit: ask for it (per device, cheap)
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
   dim3 grid((a.R + RT - 1) / RT, a.KVH, a.B);
-  paged_attention_kernel<TQ, TKV, D, RT, KC, DENSE><<<grid, THREADS, 0, s>>>(
+  kern<<<grid, THREADS, smem, s>>>(
       static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.kp),
       static_cast<const TKV*>(a.vp), a.table, a.lens, a.k_scale, a.v_scale, a.out, a.KVH,
       a.R, a.BS, a.W, a.q_len, a.causal, a.scale, a.softcap);
+  return cudaSuccess;
 }
 
-// Row tiles: 1 (decode, G = 1), 8 (decode with GQA) or 32 rows (prefill);
-// DENSE reads slot b's own cache (dense decode) instead of a block table.
+// Row tiles: 1 (decode, G = 1), 8 or 16 (decode with GQA: 16 holds the 10
+// query heads of a recurrentgemma KV head with 6 rows idle, not 22) or 32
+// rows (prefill); DENSE reads slot b's own cache (dense decode) instead of
+// a block table.
 template <typename TQ, typename TKV, int D, bool DENSE = false>
-void launch_rows(const Args& a, cudaStream_t s) {
-  if (a.R == 1)
-    launch<TQ, TKV, D, 1, 64, DENSE>(a, s);
-  else if (a.R <= 8)
-    launch<TQ, TKV, D, 8, 64, DENSE>(a, s);
-  else
-    launch<TQ, TKV, D, 32, 32, DENSE>(a, s);
+cudaError_t launch_rows(const Args& a, cudaStream_t s) {
+  if (a.R == 1) return launch<TQ, TKV, D, 1, 64, DENSE>(a, s);
+  if (a.R <= 8) return launch<TQ, TKV, D, 8, 64, DENSE>(a, s);
+  if (a.R <= 16) return launch<TQ, TKV, D, 16, 64, DENSE>(a, s);
+  return launch<TQ, TKV, D, 32, 32, DENSE>(a, s);
 }
 
 // dtype code: 0 float32 pool and queries, 1 bf16 pool and queries,
-// 2 int8 pool with float32 queries and per-KV-head scales
-template <int D>
-int launch_dtype(const Args& a, int dtype, cudaStream_t s) {
+// 2 int8 pool with float32 queries and per-KV-head scales (DENSE: 0 and 1)
+template <int D, bool DENSE>
+cudaError_t launch_dtype(const Args& a, int dtype, cudaStream_t s) {
   switch (dtype) {
     case 0:
-      launch_rows<float, float, D>(a, s);
-      return 0;
+      return launch_rows<float, float, D, DENSE>(a, s);
     case 1:
-      launch_rows<__nv_bfloat16, __nv_bfloat16, D>(a, s);
-      return 0;
+      return launch_rows<__nv_bfloat16, __nv_bfloat16, D, DENSE>(a, s);
     case 2:
-      if (a.k_scale == nullptr || a.v_scale == nullptr) return 1;
-      launch_rows<float, int8_t, D>(a, s);
-      return 0;
+      if constexpr (DENSE) {
+        return cudaErrorInvalidValue;  // dense caches stay in the model dtype
+      } else {
+        if (a.k_scale == nullptr || a.v_scale == nullptr) return cudaErrorInvalidValue;
+        return launch_rows<float, int8_t, D, DENSE>(a, s);
+      }
     default:
-      return 1;
+      return cudaErrorInvalidValue;
+  }
+}
+
+// the head dims the kernel is instantiated for (_build.py HEAD_DIMS)
+template <bool DENSE>
+cudaError_t launch_head_dim(const Args& a, int D, int dtype, cudaStream_t s) {
+  switch (D) {
+    case 16:
+      return launch_dtype<16, DENSE>(a, dtype, s);
+    case 64:
+      return launch_dtype<64, DENSE>(a, dtype, s);
+    case 128:
+      return launch_dtype<128, DENSE>(a, dtype, s);
+    case 256:
+      return launch_dtype<256, DENSE>(a, dtype, s);
+    default:
+      return cudaErrorInvalidValue;
   }
 }
 
@@ -281,14 +326,8 @@ extern "C" int paged_attention_launch(const void* q, const void* kp, const void*
                static_cast<const int32_t*>(lens), static_cast<const float*>(k_scale),
                static_cast<const float*>(v_scale), static_cast<float*>(out),
                B, KVH, R, BS, W, q_len, causal, scale, softcap};
-  int bad;
-  if (D == 64)
-    bad = launch_dtype<64>(a, dtype, s);
-  else if (D == 16)
-    bad = launch_dtype<16>(a, dtype, s);
-  else
-    bad = 1;
-  if (bad) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e = launch_head_dim<false>(a, D, dtype, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -302,15 +341,7 @@ extern "C" int dense_attention_launch(const void* q, const void* k, const void* 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Args a{q, k, v, nullptr, static_cast<const int32_t*>(lens), nullptr, nullptr,
                static_cast<float*>(out), B, KVH, G, S, 1, 1, 0, scale, softcap};
-  if (D == 64 && dtype == 0)
-    launch_rows<float, float, 64, true>(a, s);
-  else if (D == 64 && dtype == 1)
-    launch_rows<__nv_bfloat16, __nv_bfloat16, 64, true>(a, s);
-  else if (D == 16 && dtype == 0)
-    launch_rows<float, float, 16, true>(a, s);
-  else if (D == 16 && dtype == 1)
-    launch_rows<__nv_bfloat16, __nv_bfloat16, 16, true>(a, s);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e = launch_head_dim<true>(a, D, dtype, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

@@ -23,11 +23,11 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import HEAD_DIMS
 from repro_torch.kernels.paged_attention.ref import (
     dense_decode_ref, paged_decode_ref, paged_prefill_ref,
 )
 
-HEAD_DIMS = (16, 64)  # head dims the kernel is instantiated for
 # pool dtype -> the kernel's dtype code (q is float32 for int8 pools)
 POOL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 

@@ -21,6 +21,8 @@ packed prompts (which turns prefix reuse back on under ``int8``/``mixed``);
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu --gen 8
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu --kv-block-size 0
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu --plan mixed
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b --reduced \
+      --device cpu --kv-block-size 0
   PYTHONPATH=src python -m repro_torch.launch.serve --mode int8 --calibrate --kv-quant int8
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu --mode int8 \
       --calibrate --kv-quant int8
@@ -60,8 +62,7 @@ def generate(model: Model, params, prompts, gen_len: int, max_len: int,
         return prompts, 0.0
     params = model.prepare(params)
     lengths = torch.full((b,), s0, dtype=torch.int32, device=dev)
-    last_logits, states = prefill_full_seq(model, params, prompts, lengths, max_len)
-    state = {"layers": states}
+    last_logits, state = prefill_full_seq(model, params, prompts, lengths, max_len)
     first = sample_next_token(last_logits, sampler, gen, model.cfg)
     pieces, tps = [prompts, first], 0.0
     if gen_len > 1:
@@ -77,6 +78,19 @@ def generate(model: Model, params, prompts, gen_len: int, max_len: int,
         tps = b * (gen_len - 1) / max(time.perf_counter() - t0, 1e-9)
         pieces.append(toks)
     return torch.cat(pieces, dim=-1), tps
+
+
+def dense_state_summary(states, cfg) -> str:
+    """One line on the engine's dense per-slot states: each distinct
+    cache shape with its layer count, and the recurrent states."""
+    counts: dict = {}
+    for st, kind in zip(states["layers"], cfg.layer_kinds):
+        if kind == "rglru":
+            key = f"RG-LRU states h {tuple(st.h.shape)} + conv {tuple(st.conv.shape)} float32"
+        else:
+            key = f"K and V {tuple(st.k.shape)} {cfg.dtype}" + (" (ring)" if kind == "local" else "")
+        counts[key] = counts.get(key, 0) + 1
+    return "; ".join(f"{n} layers x {k}" for k, n in counts.items())
 
 
 def prompt_lengths(args) -> list:
@@ -157,7 +171,10 @@ def main(argv=None):
         seed=args.seed, kv_block_size=args.kv_block_size,
         kv_pool_blocks=args.kv_pool_blocks, prefix_cache=not args.no_prefix_cache,
         kv_quant=args.kv_quant)
-    engine = ServeEngine(model, params, serve_cfg, device=model.device)
+    try:
+        engine = ServeEngine(model, params, serve_cfg, device=model.device)
+    except (NotImplementedError, ValueError) as e:  # a refused configuration
+        ap.error(str(e))
     engine.generate_batch(prompts[:1], min(args.gen, 2))  # warm-up, not timed
     reset_launches()
     t0 = time.perf_counter()
@@ -172,9 +189,7 @@ def main(argv=None):
           f"{n_tok / dt:.1f} tok/s, mean TTFT {ttft * 1e3:.1f} ms")
     kv = engine.kv_stats
     if not kv:
-        shape = (serve_cfg.max_slots, cfg.n_kv_heads, serve_cfg.max_len, cfg.head_dim)
-        print(f"  kv cache: dense per-slot layout, {cfg.n_layers} layers x K and V "
-              f"{shape} {cfg.dtype}")
+        print(f"  kv cache: dense per-slot layout, {dense_state_summary(engine._states, cfg)}")
     else:
         line = (f"  kv pool: {kv['pool_blocks']} blocks x {kv['block_size']} tok, "
                 f"{kv['kv_quant']} storage ({kv['bytes_per_block']} B/block, "

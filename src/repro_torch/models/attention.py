@@ -1,12 +1,14 @@
-"""Global causal GQA attention over dense or paged KV (``attn`` kind).
+"""Causal GQA attention over dense or paged KV: global (``attn``) and
+sliding-window (``local``) kinds.
 
 Port of ``repro.models.attention`` for this slice:
 
 * ``attn_seq``           — full-sequence pass (``_sdpa``, or the flash
   kernel when qk/pv are exact), optionally emitting a dense per-slot
-  cache padded to the serving length;
+  cache: padded to the serving length (global) or the ``window``-sized
+  ring (local);
 * ``attn_decode``        — one token per slot against dense per-slot
-  caches (``KVCache``) or the paged pool;
+  caches (``KVCache``) or the paged pool (global layers only);
 * ``attn_prefill_paged`` — packed multi-token suffixes against the pool,
   starts anywhere inside a block (the prefix-cache admission path).
 
@@ -14,7 +16,13 @@ A dense cache is ``KVCache(k, v)`` with ``[B, n_kv, S_cache, hd]``
 tensors, one row of ``S_cache`` positions per slot; decode writes the new
 token **in place** at each row's ``pos`` (which must be < ``S_cache``:
 the reference's ``dynamic_update_slice`` would clamp an out-of-range
-start, indexing does not, so ``transformer.decode_step`` asserts it).
+start, indexing does not, so ``transformer.decode_step`` asserts it).  A
+local layer's cache is a ring of ``S_cache = min(max_len, window)``
+positions: absolute position ``t`` lives at ``t % S_cache`` and every
+resident entry is inside the window, so decode attends to the first
+``min(pos + 1, S_cache)`` entries.  ``write`` (a per-slot mask) keeps
+the in-place write only for its rows: the masked-scan prefill's padded
+steps must leave a ring as it was.
 
 The paged pool is ``PagedKVCache(k, v)`` with ``[n_blocks, n_kv, bs, hd]``
 tensors shared by every slot through per-slot block tables, or
@@ -184,12 +192,12 @@ def attn_seq(p, x: torch.Tensor, cfg: ArchConfig, *, kind: str = "attn",
              sites: Union[ComputeConfig, SiteBinding] = EXACT, use_flash: bool = False,
              positions: Optional[torch.Tensor] = None, return_cache: bool = False,
              max_len: Optional[int] = None) -> Tuple[torch.Tensor, Optional[KVCache]]:
-    """Full-sequence causal attention: the flash kernel when ``use_flash``
-    and qk/pv are exact, else ``_sdpa``.  ``return_cache`` gives the dense
-    per-slot ``KVCache`` padded to ``max(max_len, S + 1)`` positions."""
-    if kind != "attn":
-        raise NotImplementedError(f"{kind!r} blocks are not ported yet "
-                                  "(ROADMAP queue 1: other block kinds)")
+    """Full-sequence causal attention (within ``cfg.window`` for a
+    ``local`` layer): the flash kernel when ``use_flash`` and qk/pv are
+    exact, else ``_sdpa``.  ``return_cache`` gives the dense per-slot
+    ``KVCache`` (see :func:`_make_cache`)."""
+    _check_kind(kind)
+    window = cfg.window if kind == "local" else 0
     b, s, _ = x.shape
     sites = as_binding(sites)
     if positions is None:
@@ -204,26 +212,47 @@ def attn_seq(p, x: torch.Tensor, cfg: ArchConfig, *, kind: str = "attn",
     if use_flash and _dyn_exact(qk_b) and _dyn_exact(pv_b):
         from repro_torch.kernels.flash_attention import flash_attention
 
-        o = flash_attention(q, k, v, causal=True, window=0, softcap=cfg.logit_softcap)
+        o = flash_attention(q, k, v, causal=True, window=window, softcap=cfg.logit_softcap)
     else:
-        o = _sdpa(q, k, v, causal=True, window=0, softcap=cfg.logit_softcap,
+        o = _sdpa(q, k, v, causal=True, window=window, softcap=cfg.logit_softcap,
                   qk=qk_b, pv=pv_b)
     out = dense(p["wo"], _merge_heads(o), sites("o_proj"))
-    return out, (_make_cache(k, v, s, max_len) if return_cache else None)
+    return out, (_make_cache(k, v, s, max_len, window) if return_cache else None)
 
 
-def _make_cache(k: torch.Tensor, v: torch.Tensor, s: int, max_len: Optional[int]) -> KVCache:
-    """The serving cache of a global layer: K/V of the ``s`` positions,
-    zero-padded to ``max(max_len, s + 1)`` (decode writes at ``pos``)."""
-    pad = max(max_len or 0, s + 1) - s
+def _check_kind(kind: str) -> None:
+    if kind not in ("attn", "local"):
+        raise NotImplementedError(f"{kind!r} blocks are not ported yet "
+                                  "(ROADMAP queue 1: other block kinds)")
+
+
+def _make_cache(k: torch.Tensor, v: torch.Tensor, s: int, max_len: Optional[int],
+                window: int = 0) -> KVCache:
+    """The serving cache of the ``s`` positions' K/V.  Global (``window
+    == 0``): zero-padded to ``max(max_len, s + 1)`` (decode writes at
+    ``pos``).  Local: the ring of ``window`` positions where absolute
+    position ``t`` lives at ``t % window`` — the last ``window`` positions
+    rolled by ``s % window`` when ``s >= window``, else zero-padded."""
+    if window:
+        if s >= window:
+            shift = s % window
+            return KVCache(torch.roll(k[:, :, -window:], shift, dims=2),
+                           torch.roll(v[:, :, -window:], shift, dims=2))
+        pad = window - s
+    else:
+        pad = max(max_len or 0, s + 1) - s
     return KVCache(torch.nn.functional.pad(k, (0, 0, 0, pad)),
                    torch.nn.functional.pad(v, (0, 0, 0, pad)))
 
 
-def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None) -> KVCache:
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None,
+               kind: str = "attn") -> KVCache:
     """Zeroed dense decode cache, ``[batch, n_kv, max_len, hd]`` in the
     model dtype (what a full-sequence prefill emits, so the two agree bit
-    for bit)."""
+    for bit); a ``local`` layer's ring holds ``min(max_len, window)``
+    positions."""
+    if kind == "local" and cfg.window:
+        max_len = min(max_len, cfg.window)
     shape = (batch, cfg.n_kv_heads, max_len, cfg.head_dim)
     dt = torch_dtype(cfg.dtype)
     return KVCache(torch.zeros(shape, dtype=dt, device=device),
@@ -317,15 +346,21 @@ def _paged_write_span(pool: torch.Tensor, table: torch.Tensor, start: torch.Tens
 
 def attn_decode(p, x: torch.Tensor, cache, pos: torch.Tensor, cfg: ArchConfig, *,
                 kind: str = "attn", sites: Union[ComputeConfig, SiteBinding] = EXACT,
-                tables: Optional[BlockTables] = None, use_kernel: bool = False):
+                tables: Optional[BlockTables] = None, use_kernel: bool = False,
+                write: Optional[torch.Tensor] = None):
     """One token per slot (``x [B, 1, D]``, ``pos [B]`` absolute positions)
-    against dense per-slot caches (``KVCache``; ``pos < S_cache``) or the
-    paged pool (``tables`` required).  Returns (out [B, 1, D], cache)."""
-    if kind != "attn":
-        raise NotImplementedError(f"{kind!r} blocks are not ported yet "
-                                  "(ROADMAP queue 1: other block kinds)")
+    against dense per-slot caches (``KVCache``; global: ``pos < S_cache``,
+    local: the ring at ``pos % S_cache``) or the paged pool (``tables``
+    required; global layers only).  ``write [B]`` bool, on dense caches:
+    only those rows keep their token's entry; the others attend with it
+    and then get their old entry back (None = all keep it).  Returns
+    (out [B, 1, D], cache)."""
+    _check_kind(kind)
     dense_cache = isinstance(cache, KVCache)
     assert dense_cache or tables is not None, "paged decode needs a BlockTables"
+    if kind == "local" and not dense_cache:
+        raise NotImplementedError("local layers on the paged pool are not ported yet "
+                                  "(ROADMAP queue 1: paged stateful stacks)")
     b = x.shape[0]
     sites = as_binding(sites)
     pos = torch.as_tensor(pos, device=x.device).to(torch.int64)
@@ -341,9 +376,19 @@ def attn_decode(p, x: torch.Tensor, cache, pos: torch.Tensor, cfg: ArchConfig, *
     kv_len = pos + 1
     kernel = use_kernel and _dyn_exact(qk_b) and _dyn_exact(pv_b)
     if dense_cache:
+        s_cache = cache.k.shape[2]
+        if kind == "local":  # the ring wraps; every resident entry is in the window
+            slot, kv_len = pos % s_cache, torch.clamp(kv_len, max=s_cache)
+        else:
+            slot = pos
         rows = torch.arange(b, device=x.device)
-        cache.k[rows, :, pos] = k_new[:, :, 0].to(cache.k.dtype)  # in place
-        cache.v[rows, :, pos] = v_new[:, :, 0].to(cache.v.dtype)
+        # rows that must not keep their write still attend with it, as in
+        # the reference (whose caller selects the old state afterwards):
+        # under dynamic activation scales their outputs feed every row's
+        # scale.  Their old entries are restored after the attention.
+        old = None if write is None else [c[rows, :, slot] for c in cache]  # copies
+        cache.k[rows, :, slot] = k_new[:, :, 0].to(cache.k.dtype)  # in place
+        cache.v[rows, :, slot] = v_new[:, :, 0].to(cache.v.dtype)
         if kernel:
             from repro_torch.kernels.paged_attention import dense_attention_decode
 
@@ -352,6 +397,10 @@ def attn_decode(p, x: torch.Tensor, cache, pos: torch.Tensor, cfg: ArchConfig, *
         else:
             o = _sdpa(q, cache.k, cache.v, causal=False, window=0, kv_len=kv_len,
                       softcap=cfg.logit_softcap, qk=qk_b, pv=pv_b)
+        if old is not None:
+            keep = write.to(x.device)[:, None, None]
+            for c, o_c in zip(cache, old):
+                c[rows, :, slot] = torch.where(keep, c[rows, :, slot], o_c)
     else:
         cache = _paged_write_token(cache, tables.table, pos, k_new, v_new)
         if kernel:

@@ -50,22 +50,25 @@ class Model:
 
     # ------------------------------------------------------------- serve
     def prefill(self, params, batch, max_len: Optional[int] = None):
-        """Full-sequence pass; returns (logits, dense per-layer KV caches
-        padded to ``max_len``)."""
+        """Full-sequence pass; returns (logits, per-layer serving states:
+        dense KV caches padded to ``max_len``, local rings, recurrent
+        states)."""
         tokens = batch["tokens"] if isinstance(batch, dict) else batch
         return forward(params, tokens, self.cfg, self.opts, return_states=True,
                        max_len=max_len)
 
-    def decode(self, params, token, states, pos, block_tables=None):
+    def decode(self, params, token, states, pos, block_tables=None, write=None):
+        """One step; ``write [B]`` gates each slot's dense cache write."""
         return decode_step(params, token, states, pos, self.cfg, self.opts,
-                           block_tables=block_tables)
+                           block_tables=block_tables, write=write)
 
     def prefill_suffix(self, params, tokens, states, table, start, ctx_blocks: int):
         return suffix_forward(params, tokens, self.cfg, self.opts, states, table, start,
                               ctx_blocks)
 
     def init_decode_state(self, batch: int, max_len: int, paged=None):
-        """Dense per-slot caches ``[batch, n_kv, max_len, hd]``, or with
+        """Dense per-slot states (caches ``[batch, n_kv, max_len, hd]``,
+        local rings, recurrent states), or with
         ``paged=(n_blocks, block_size)`` block pools; with
         ``opts.kv_quant="int8"`` the pools are int8 with the plan's
         calibrated per-KV-head scales (dense caches refuse it)."""

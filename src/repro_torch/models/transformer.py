@@ -1,4 +1,5 @@
-"""The decoder stack for pure global-attention configs, unrolled.
+"""The decoder stack, unrolled: global (``attn``) and sliding-window
+(``local``) attention blocks and RG-LRU (``rglru``) recurrent blocks.
 
 Port of ``repro.models.transformer``.  The reference stacks each pattern
 slot's parameters under a unit axis and runs ``lax.scan`` over units; the
@@ -8,11 +9,14 @@ GEMM sites resolve together across its units — so a plan means the same
 thing in both packages.
 
 Parameters: ``{"embedding": {"table"}, "head": {"w"} | {}, "final_norm",
-"layers": [{"pre_norm", "core": {"wq","wk","wv","wo"}, "post_norm",
-"mlp": {"up","gate","down"}}, ...]}``, float32 masters.  Serving state:
-``{"layers": [KVCache, ...]}`` — one dense per-slot cache per layer, in
-the model dtype — or ``{"layers": [PagedKVCache | QuantPagedKVCache,
-...]}`` — one block pool per layer, int8 under ``kv_quant="int8"``.
+"layers": [{"pre_norm", "core", "post_norm", "mlp": {"up","gate","down"}},
+...]}``, float32 masters; an attention core is ``{"wq","wk","wv","wo"}``,
+an RG-LRU core ``{"w_in","conv_w","conv_b","w_a","w_x","lam","w_out"}``.
+Serving state: ``{"layers": [...]}`` with one entry per layer — a dense
+per-slot ``KVCache`` in the model dtype (a ``window``-sized ring for a
+local layer) or an ``RGLRUState`` — or, for pure global-attention stacks
+only, one ``PagedKVCache | QuantPagedKVCache`` block pool per layer, int8
+under ``kv_quant="int8"``.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ from repro_torch.core.astra_layer import ComputeConfig, encode_weight_t, quantiz
 from repro_torch.core.plan import ExecutionPlan, SiteBinding
 from repro_torch.device import torch_dtype
 from repro_torch.models import attention as attn
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models.layers import (
     embed_tokens, embedding_init, head_apply, head_init, mlp_apply, mlp_init,
     norm_apply, norm_init,
@@ -69,11 +74,15 @@ def _has_mlp(cfg: ArchConfig, kind: str) -> bool:
     return kind in ("attn", "local", "xattn", "rglru") and (cfg.d_ff > 0 or cfg.moe is not None)
 
 
+PORTED_KINDS = ("attn", "local", "rglru")
+
+
 def _check_supported(cfg: ArchConfig) -> None:
-    if any(k != "attn" for k in cfg.layer_kinds) or cfg.moe is not None or cfg.n_codebooks:
+    if (any(k not in PORTED_KINDS for k in cfg.layer_kinds) or cfg.moe is not None
+            or cfg.n_codebooks):
         raise NotImplementedError(
-            f"{cfg.name}: only dense global-attention stacks are ported yet "
-            "(ROADMAP queue 1: other block kinds)")
+            f"{cfg.name}: only dense stacks of {'/'.join(PORTED_KINDS)} blocks are ported "
+            "yet (ROADMAP queue 1: other block kinds)")
 
 
 def layer_group(cfg: ArchConfig, li: int) -> Tuple[int, ...]:
@@ -104,8 +113,9 @@ _layer_sites_cached = functools.lru_cache(maxsize=64)(_layer_sites_uncached)
 
 # ------------------------------------------------------------------ params
 def block_init(gen: torch.Generator, cfg: ArchConfig, kind: str, device=None):
-    p: Dict[str, Any] = {"pre_norm": norm_init(cfg.d_model, cfg.norm, device),
-                         "core": attn.attn_init(gen, cfg, device)}
+    core = (rglru_mod.rglru_init(gen, cfg, device) if kind == "rglru"
+            else attn.attn_init(gen, cfg, device))
+    p: Dict[str, Any] = {"pre_norm": norm_init(cfg.d_model, cfg.norm, device), "core": core}
     if _has_mlp(cfg, kind):
         p["post_norm"] = norm_init(cfg.d_model, cfg.norm, device)
         p["mlp"] = mlp_init(gen, cfg, device)
@@ -150,15 +160,15 @@ def prepare_params(params: Dict[str, Any], cfg: ArchConfig,
         return extra
 
     layers = []
-    for li, blk in enumerate(params["layers"]):
+    for li, (blk, kind) in enumerate(zip(params["layers"], cfg.layer_kinds)):
         grp = layer_group(cfg, li)
 
         def sites(op):
-            return tuple(f"L{l}.attn.{op}" for l in grp)
+            return tuple(f"L{l}.{kind}.{op}" for l in grp)
 
-        core = {name: {**blk["core"][name], **cached(blk["core"][name], sites(op))}
-                for name, op in (("wq", "q_proj"), ("wk", "kv_proj"), ("wv", "kv_proj"),
-                                 ("wo", "o_proj"))}
+        core = dict(blk["core"])  # conv_w, conv_b, lam pass through
+        core.update({name: {**blk["core"][name], **cached(blk["core"][name], sites(op))}
+                     for name, op in _CORE_GEMMS[kind]})
         new = {**blk, "core": core}
         if "mlp" in blk:
             new["mlp"] = {name: {**d, **cached(d, sites("down" if name == "down" else "up"))}
@@ -172,6 +182,13 @@ def prepare_params(params: Dict[str, Any], cfg: ArchConfig,
     else:
         out["head"] = {**params["head"], **cached(params["head"], ("lm_head",))}
     return out
+
+
+# the GEMM weights of a block's core, with the site each resolves under
+_ATTN_GEMMS = (("wq", "q_proj"), ("wk", "kv_proj"), ("wv", "kv_proj"), ("wo", "o_proj"))
+_CORE_GEMMS = {"attn": _ATTN_GEMMS, "local": _ATTN_GEMMS,
+               "rglru": (("w_in", "in_proj"), ("w_a", "gates"), ("w_x", "gates"),
+                         ("w_out", "out_proj"))}
 
 
 # ------------------------------------------------------------------ blocks
@@ -189,40 +206,55 @@ def _head(params, x, cfg, opts):
 
 def forward(params, tokens: torch.Tensor, cfg: ArchConfig, opts: ModelOptions,
             return_states: bool = False, max_len: Optional[int] = None):
-    """Full-sequence pass.  Returns (logits [B, S, V], dense per-layer
-    KVCache list | None)."""
+    """Full-sequence pass.  Returns (logits [B, S, V], per-layer serving
+    states | None: dense ``KVCache``s and ``RGLRUState``s)."""
     _check_supported(cfg)
     x = embed_tokens(params["embedding"], tokens, cfg)
-    states: List[attn.KVCache] = []
-    for p, sites in zip(params["layers"], _layer_sites(opts.plan, cfg)):
+    states: List[Any] = []
+    for p, kind, sites in zip(params["layers"], cfg.layer_kinds, _layer_sites(opts.plan, cfg)):
         h = norm_apply(p["pre_norm"], x, cfg.norm, cfg.norm_eps)
-        out, cache = attn.attn_seq(p["core"], h, cfg, sites=sites,
-                                   use_flash=(opts.attn_impl == "flash"),
-                                   return_cache=return_states, max_len=max_len)
+        if kind == "rglru":
+            out, st = rglru_mod.rglru_seq(p["core"], h, cfg, sites, return_state=return_states)
+        else:
+            out, st = attn.attn_seq(p["core"], h, cfg, kind=kind, sites=sites,
+                                    use_flash=(opts.attn_impl == "flash"),
+                                    return_cache=return_states, max_len=max_len)
         x = _mlp(p, x + out, cfg, sites)
-        states.append(cache)
+        states.append(st)
     return _head(params, x, cfg, opts), (states if return_states else None)
 
 
 def decode_step(params, token: torch.Tensor, states, pos: torch.Tensor, cfg: ArchConfig,
-                opts: ModelOptions, block_tables: Optional[attn.BlockTables] = None):
-    """One serving step: token [B, 1] at per-slot positions ``pos [B]``
-    against the dense caches or, with ``block_tables``, the paged pools.
+                opts: ModelOptions, block_tables: Optional[attn.BlockTables] = None,
+                write: Optional[torch.Tensor] = None):
+    """One serving step: token [B, 1] at per-slot positions ``pos [B]`` (or
+    one position for all) against the dense states or, with
+    ``block_tables``, the paged pools.  ``write [B]`` bool: the slots
+    whose in-place dense cache writes are kept (None = all); the others
+    attend with their new entry, which is then put back as it was.
+    Recurrent states are returned new, never written in place.
     Returns (logits [B, 1, V], states)."""
-    first = states["layers"][0]
-    if isinstance(first, attn.KVCache):
+    glob = next((st for st, kind in zip(states["layers"], cfg.layer_kinds)
+                 if kind == "attn" and isinstance(st, attn.KVCache)), None)
+    if glob is not None:
         # indexing does not clamp as dynamic_update_slice does: check the
-        # write positions once for every layer, on the device (no sync)
-        torch._assert_async(torch.as_tensor(pos, device=first.k.device).max()
-                            < first.k.shape[2],
+        # write positions once for every global layer, on the device (no
+        # sync); local rings wrap and recurrent states have no positions
+        torch._assert_async(torch.as_tensor(pos, device=glob.k.device).max()
+                            < glob.k.shape[2],
                             "decode position past the dense cache (pos >= S_cache)")
     x = embed_tokens(params["embedding"], token, cfg)
     use_kernel = opts.attn_impl == "flash"
     new_layers = []
-    for p, st, sites in zip(params["layers"], states["layers"], _layer_sites(opts.plan, cfg)):
+    for p, st, kind, sites in zip(params["layers"], states["layers"], cfg.layer_kinds,
+                                  _layer_sites(opts.plan, cfg)):
         h = norm_apply(p["pre_norm"], x, cfg.norm, cfg.norm_eps)
-        out, st = attn.attn_decode(p["core"], h, st, pos, cfg, sites=sites,
-                                   tables=block_tables, use_kernel=use_kernel)
+        if kind == "rglru":
+            out, st = rglru_mod.rglru_decode(p["core"], h, st, cfg, sites)
+        else:
+            out, st = attn.attn_decode(p["core"], h, st, pos, cfg, kind=kind, sites=sites,
+                                       tables=block_tables, use_kernel=use_kernel,
+                                       write=write)
         x = _mlp(p, x + out, cfg, sites)
         new_layers.append(st)
     return _head(params, x, cfg, opts), {**states, "layers": new_layers}
@@ -251,6 +283,21 @@ def suffix_forward(params, tokens: torch.Tensor, cfg: ArchConfig, opts: ModelOpt
     return _head(params, x, cfg, opts), {**states, "layers": new_layers}
 
 
+PAGED_STATEFUL_REASON = (
+    "the paged KV layout (kv_block_size > 0) serves pure global-attention stacks only: "
+    "local rings and recurrent states in the pool are not ported yet (ROADMAP queue 1: "
+    "paged stateful stacks); serve this stack with kv_block_size=0")
+
+
+def _dense_state(cfg: ArchConfig, kind: str, batch: int, max_len: int, device):
+    if kind == "rglru":
+        return rglru_mod.RGLRUState(
+            torch.zeros((batch, cfg.d_rnn), dtype=torch.float32, device=device),
+            torch.zeros((batch, cfg.conv_width - 1, cfg.d_rnn), dtype=torch.float32,
+                        device=device))
+    return attn.init_cache(cfg, batch, max_len, device, kind=kind)
+
+
 DENSE_KV_QUANT_REASON = ("kv_quant='int8' requires the paged KV layout (kv_block_size > 0): "
                          "dense per-slot caches stay in the model dtype")
 
@@ -258,20 +305,25 @@ DENSE_KV_QUANT_REASON = ("kv_quant='int8' requires the paged KV layout (kv_block
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
                       paged: Optional[Tuple[int, int]] = None, device=None,
                       kv_quant: str = "none", plan: Optional[ExecutionPlan] = None):
-    """Zeroed serving state.  Without ``paged``: one dense ``[batch, n_kv,
-    max_len, hd]`` cache per layer in the model dtype.  ``paged =
-    (n_blocks, block_size)`` gives one block pool per layer instead (no
-    batch axis: block tables carry slot identity); ``kv_quant="int8"``
-    makes each pool int8 with the per-head scales ``plan.kv_group_scale``
-    gives over the layer's group (the reference's one pool per scanned
-    group).  Dense caches stay in the model dtype: with ``kv_quant="int8"``
-    they are refused, with the serving engine's reason."""
+    """Zeroed serving state.  Without ``paged``: per layer, one dense
+    ``[batch, n_kv, max_len, hd]`` cache in the model dtype (a local
+    layer's ring clamped to ``min(max_len, window)``) or an ``RGLRUState``
+    (``h [batch, d_rnn]``, ``conv [batch, conv_width - 1, d_rnn]``, both
+    float32).  ``paged = (n_blocks, block_size)`` gives one block pool per
+    layer of a pure global-attention stack instead (no batch axis: block
+    tables carry slot identity); ``kv_quant="int8"`` makes each pool int8
+    with the per-head scales ``plan.kv_group_scale`` gives over the
+    layer's group (the reference's one pool per scanned group).  Dense
+    caches stay in the model dtype: with ``kv_quant="int8"`` they are
+    refused, with the serving engine's reason."""
     _check_supported(cfg)
     if paged is None:
         if kv_quant != "none":
             raise ValueError(DENSE_KV_QUANT_REASON)
-        return {"layers": [attn.init_cache(cfg, batch, max_len, device)
-                           for _ in cfg.layer_kinds]}
+        return {"layers": [_dense_state(cfg, kind, batch, max_len, device)
+                           for kind in cfg.layer_kinds]}
+    if any(k != "attn" for k in cfg.layer_kinds):
+        raise NotImplementedError(PAGED_STATEFUL_REASON)
     n_blocks, block_size = paged
     if kv_quant == "none":
         return {"layers": [attn.init_paged_cache(cfg, n_blocks, block_size, device)

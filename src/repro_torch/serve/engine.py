@@ -3,15 +3,19 @@
 Port of ``repro.serve.engine`` for this slice: blocking admission,
 chunked decode, retirement and the exactly-once outbox, on two KV
 layouts.  ``kv_block_size=0`` (the default, as in the reference) keeps
-one dense ``[max_slots, n_kv, max_len, hd]`` cache per layer: admission
-runs one packed full-sequence prefill of the admitted prompts and
-scatters each one's cache rows into its slot.  ``kv_block_size > 0``
-stores KV in one block pool per layer with radix-tree prefix reuse.
+one dense per-slot state per layer — a ``[max_slots, n_kv, max_len, hd]``
+cache (global attention), a ``window``-sized ring (local attention) or
+an RG-LRU state — so it serves every ported block kind: admission runs
+one packed prefill of the admitted prompts (the full-sequence pass where
+it is exact, else the masked token-by-token scan; ``packed_prefill``)
+and scatters each one's states into its slot.  ``kv_block_size > 0``
+stores KV in one block pool per layer with radix-tree prefix reuse, for
+pure global-attention stacks only (refused at construction otherwise).
 Requests flow
 
   queue -> [admit: claim a free slot; paged: reserve blocks (reusing
-            interned prefix blocks)] -> [prefill: dense full-sequence
-            pass + scatter, or paged suffix prefill of the unmatched prompt]
+            interned prefix blocks)] -> [prefill: dense packed prefill +
+            scatter, or paged suffix prefill of the unmatched prompt]
         -> [decode chunks of ``min(chunk_steps, min(remaining))`` steps]
         -> [retire: release blocks, timing, outbox]
 
@@ -23,9 +27,15 @@ port must carry the same rows to give the same tokens.
 ``ServeConfig.kv_quant="int8"`` stores the pool as int8 against the
 plan's calibrated per-KV-head scales; the engine refuses it unless the KV
 is a pure function of the token path on the paged layout
-(:func:`kv_quant_reject_reason`).  Chunked prefill, fault
-containment and the chip-model accounting come with later slices
-(ROADMAP.md).
+(:func:`kv_quant_reject_reason`).  A decode chunk whose logits go
+non-finite on some slots commits every healthy slot first and then raises
+``NonFiniteLogitsError`` naming exactly the bad ones: their tokens of that
+chunk are dropped and their requests end at the pre-fault stream
+(``RequestOutput.fault_reason``).  On the card the attention kernels exist for the head
+dims ``HEAD_DIMS``; a model of another head dim is refused when the
+engine is built (:func:`attn_kernel_reject_reason`).  Chunked prefill,
+retries, and the chip-model accounting come with later
+slices (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -38,14 +48,18 @@ import torch
 
 from repro_torch.core.plan import kv_sites, model_sites
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels._build import HEAD_DIMS
 from repro_torch.models.attention import BlockTables
 from repro_torch.models.model import Model
-from repro_torch.models.transformer import DENSE_KV_QUANT_REASON
+from repro_torch.models.transformer import (
+    DENSE_KV_QUANT_REASON, PAGED_STATEFUL_REASON, PORTED_KINDS,
+)
 from repro_torch.serve.accounting import RequestTiming, request_timing
 from repro_torch.serve.clock import resolve_clock
 from repro_torch.serve.decode_loop import make_fused_decode
 from repro_torch.serve.kv_pool import KVBlockPool
-from repro_torch.serve.prefill import pack_prompts, prefill_full_seq, prefill_paged_suffix
+from repro_torch.serve.faults import FAULT_NONFINITE, NonFiniteLogitsError
+from repro_torch.serve.prefill import pack_prompts, packed_prefill, prefill_paged_suffix
 from repro_torch.serve.prefix_tree import RadixPrefixTree
 from repro_torch.serve.sampling import GREEDY, SamplerConfig, sample_next_token
 from repro_torch.serve.scheduler import pow2_bucket
@@ -87,6 +101,9 @@ class RequestOutput:
     wall_time_s: float
     hardware: None = None  # modeled chip cost: arrives with the chip-model slice
     timing: Optional[RequestTiming] = None
+    # set when a fault ended the request instead of its budget or EOS
+    # ("nonfinite_logits"); ``tokens`` then holds its pre-fault stream
+    fault_reason: Optional[str] = None
 
     @property
     def gen_len(self) -> int:
@@ -139,6 +156,19 @@ def kv_quant_reject_reason(model: Model, kv_block_size: int) -> Optional[str]:
     return None
 
 
+def attn_kernel_reject_reason(head_dim: int, attn_impl: str,
+                              device_type: str) -> Optional[str]:
+    """Why the attention kernels cannot serve this model (None = they
+    can): on the card, ``attn_impl="flash"`` launches kernels built for
+    ``HEAD_DIMS`` only; the plain versions on the CPU and the
+    ``naive`` path take any head dim."""
+    if attn_impl == "flash" and device_type == "cuda" and head_dim not in HEAD_DIMS:
+        return (f"head_dim {head_dim}: the CUDA attention kernels are built for head dims "
+                f"{HEAD_DIMS}; serve with attn_impl='naive' or add the head dim to "
+                "the kernels")
+    return None
+
+
 class ServeEngine:
     def __init__(self, model: Model, params, config: Optional[ServeConfig] = None, *,
                  device: DeviceLike = None, clock: Optional[Callable[[], float]] = None):
@@ -161,9 +191,14 @@ class ServeEngine:
             if reason is not None:
                 raise ValueError(reason)
         cfg = model.cfg
-        if any(k != "attn" for k in cfg.layer_kinds):
-            raise NotImplementedError(f"{cfg.name}: serving ports pure global-attention "
+        if any(k not in PORTED_KINDS for k in cfg.layer_kinds):
+            raise NotImplementedError(f"{cfg.name}: serving ports {'/'.join(PORTED_KINDS)} "
                                       "stacks only (ROADMAP queue 1: other block kinds)")
+        if config.kv_block_size > 0 and any(k != "attn" for k in cfg.layer_kinds):
+            raise NotImplementedError(f"{cfg.name}: {PAGED_STATEFUL_REASON}")
+        reason = attn_kernel_reject_reason(cfg.head_dim, model.opts.attn_impl, self.device.type)
+        if reason is not None:
+            raise NotImplementedError(f"{cfg.name}: {reason}")
         self.model = model
         self.params = model.prepare(params)
         self.config = config
@@ -183,6 +218,11 @@ class ServeEngine:
         self.phase_stats = {"prefill_s": 0.0, "prefill_tokens": 0,
                             "decode_s": 0.0, "decode_tokens": 0}
         self._paged = config.kv_block_size > 0
+        # the full-sequence prefill emits window-sized rings; where the
+        # window exceeds max_len the slots' rings are smaller (init_cache
+        # clamps them), so admission takes the masked scan
+        self._force_scan = (any(k == "local" for k in cfg.layer_kinds)
+                            and config.max_len < cfg.window)
         self._prefix: Optional[RadixPrefixTree] = None
         if self._paged:
             self._init_pool(model, config)
@@ -331,12 +371,13 @@ class ServeEngine:
         return matched + fresh, len(matched)
 
     def _prefill_dense(self, slot_ids: List[int], reqs: List[Request]) -> torch.Tensor:
-        """One packed full-sequence prefill of the admitted prompts; each
-        request's caches (padded to ``max_len``) replace its slot's rows."""
+        """One packed prefill of the admitted prompts (full-sequence or
+        masked scan, ``packed_prefill``); each request's states replace its
+        slot's rows."""
         tokens, lengths = pack_prompts([r.prompt for r in reqs], self.model.cfg,
                                        device=self.device)
-        last_logits, small = prefill_full_seq(self.model, self.params, tokens, lengths,
-                                              self.config.max_len)
+        last_logits, small = packed_prefill(self.model, self.params, tokens, lengths,
+                                            self.config.max_len, force_scan=self._force_scan)
         scatter_states(self._states, small, torch.as_tensor(slot_ids, device=self.device))
         return last_logits
 
@@ -425,15 +466,17 @@ class ServeEngine:
         self._states = states
         self._cur_tok = next_tok
         toks_np = toks.cpu().numpy()  # [B, steps]
-        finite_np = finite.cpu().numpy()
+        finite_np = finite.cpu().numpy()  # [B], ANDed over the chunk
         bad = [i for i in active if not finite_np[i]]
-        if bad:
-            raise FloatingPointError(f"non-finite logits for slot(s) {bad}; fault "
-                                     "containment arrives with the faults slice")
         t_now = self.clock()
         self.phase_stats["decode_s"] += t_now - t0
-        self.phase_stats["decode_tokens"] += steps * len(active)
+        self.phase_stats["decode_tokens"] += steps * (len(active) - len(bad))
         for i in active:
+            if i in bad:
+                # sampled from non-finite logits: neither emitted nor
+                # counted; the request ends at its pre-fault stream
+                self._quarantine(i, FAULT_NONFINITE)
+                continue
             slot = self._slots[i]
             slot.generated.append(toks_np[i])
             slot.events.append((t_now, steps))
@@ -443,6 +486,33 @@ class ServeEngine:
                 self._retire(slot)
                 self._release_blocks(i)
                 self._slots[i] = None
+        if bad:
+            # every healthy slot is committed above; the fault names exactly
+            # the bad ones, already retired
+            raise NonFiniteLogitsError(f"non-finite logits for slot(s) {bad}",
+                                       slots=tuple(bad))
+
+    def _quarantine(self, slot_i: int, reason: str):
+        """End the request in ``slot_i`` at the tokens it had before the
+        fault (``fault_reason=reason``) and free the slot.  Its chunk
+        advanced the slot's recurrent state and cache past that stream, so
+        it cannot go on.  The blocks only it holds are zeroed first:
+        attention masks scores, not values, so a NaN left there would reach
+        their next owner.  A dense row needs no scrub: admission overwrites
+        it whole."""
+        slot = self._slots[slot_i]
+        gen = np.concatenate(slot.generated, axis=-1) if slot.generated else []
+        self._complete(slot.req, gen, slot.t_admit, slot.t_first, slot.events,
+                       fault_reason=reason)
+        if self._paged:
+            own = [b for b in self._slot_blocks[slot_i] if self._pool.ref(b) == 1]
+            if own:
+                idx = torch.as_tensor(own, device=self.device)
+                for st in self._states["layers"]:
+                    st.k[idx] = 0
+                    st.v[idx] = 0
+        self._release_blocks(slot_i)
+        self._slots[slot_i] = None
 
     # ------------------------------------------------------------ retire
     def _hit_eos(self, req: Request, toks: np.ndarray) -> bool:
@@ -465,11 +535,11 @@ class ServeEngine:
         self._complete(slot.req, gen, slot.t_admit, slot.t_first, slot.events)
 
     def _complete(self, req: Request, gen, t_admit: float, t_first: float,
-                  events: List[Tuple[float, int]]):
+                  events: List[Tuple[float, int]], fault_reason: Optional[str] = None):
         gen = np.asarray(gen, np.int32).reshape(-1)
         timing = request_timing(req.t_submit, t_admit, t_first, events, self.clock())
         self._outbox.append(RequestOutput(req.id, req.prompt, gen, timing.wall_time_s,
-                                          None, timing))
+                                          None, timing, fault_reason))
 
     # ------------------------------------------------------------- stats
     @property

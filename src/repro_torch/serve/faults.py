@@ -1,0 +1,23 @@
+"""Serving faults attributable to specific slots (port of
+``repro.serve.faults.NonFiniteLogitsError``).
+
+A fault names the engine slots it implicates (``slots``); every other slot
+committed its work before the fault was raised and stays identical to a
+fault-free run.  The named slots' requests are already ended, with their
+pre-fault tokens and ``fault_reason`` set to the fault class.  Without a
+supervisor (a later slice) the fault propagates to the caller, who may go
+on calling ``run()``.
+"""
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+FAULT_NONFINITE = "nonfinite_logits"
+
+
+class NonFiniteLogitsError(RuntimeError):
+    """Non-finite logits detected on the named slots."""
+
+    def __init__(self, message: str, slots: Sequence[int] = ()):
+        super().__init__(message)
+        self.slots: Tuple[int, ...] = tuple(slots)

@@ -1,8 +1,9 @@
 """Slot lifecycle and per-slot tensor helpers (port of ``repro.serve.slots``).
 
-The slot state enum, the dense-layout scatter of a prefill's caches into
-the engine's slots, the per-slot select used by gated decode, and the
-finiteness check the decode loop reduces over a chunk.  Paged pools have
+The slot state enum, the dense-layout scatter of a prefill's states
+(caches, rings, recurrent states) into the engine's slots, the per-slot
+select used by the masked-scan prefill, and the finiteness check the
+decode loop reduces over a chunk.  Paged pools have
 no batch axis (block tables carry slot identity), so the suffix prefill
 writes them directly and the reference's paged scatter has no
 counterpart.
@@ -22,16 +23,16 @@ class SlotState(enum.Enum):
 
 
 def scatter_states(big, small, slot_ids: torch.Tensor):
-    """Install a prefill's per-layer dense caches ``small`` (a list of
-    ``KVCache`` of batch k, from ``forward``) into the engine's state
-    ``big = {"layers": [KVCache of batch B, ...]}`` at ``slot_ids [k]``, in
-    place: each slot's whole row is overwritten, cast to the engine's
-    cache dtype (the cast the decode path applies on every write).
+    """Install a prefill's per-layer states ``small = {"layers": [...]}``
+    (batch k: ``KVCache``s, rings, ``RGLRUState``s) into the engine's
+    ``big`` (batch B, same structure) at ``slot_ids [k]``, in place: each
+    slot's whole row of every leaf is overwritten, cast to the engine's
+    dtype (the cast the decode path applies on every cache write).
     Returns ``big``."""
-    for dst, src in zip(big["layers"], small, strict=True):
-        for d, s in ((dst.k, src.k), (dst.v, src.v)):
+    for dst, src in zip(big["layers"], small["layers"], strict=True):
+        for d, s in zip(dst, src, strict=True):
             if s.shape[1:] != d.shape[1:]:
-                raise ValueError(f"prefill cache {tuple(s.shape)} does not fit the "
+                raise ValueError(f"prefill state {tuple(s.shape)} does not fit the "
                                  f"engine's {tuple(d.shape)}")
             d[slot_ids] = s.to(d.dtype)
     return big
@@ -39,12 +40,16 @@ def scatter_states(big, small, slot_ids: torch.Tensor):
 
 def select_states(new, old, active: torch.Tensor):
     """Per-slot select over per-slot leaves (batch axis 0): ``new`` where
-    ``active [B]`` else ``old``.  Dicts, lists and NamedTuples recurse."""
+    ``active [B]`` else ``old``.  Dicts, lists and NamedTuples recurse; a
+    leaf that decode updated in place (``new is old``, a dense cache whose
+    write the caller gated) is taken as it is."""
     if isinstance(new, dict):
         return {k: select_states(new[k], old[k], active) for k in new}
     if isinstance(new, (list, tuple)):
         vals = [select_states(n, o, active) for n, o in zip(new, old)]
         return type(new)(*vals) if hasattr(new, "_fields") else type(new)(vals)
+    if new is old:
+        return new
     shape = (-1,) + (1,) * (new.dim() - 1)
     return torch.where(active.reshape(shape), new, old)
 

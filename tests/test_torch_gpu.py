@@ -17,7 +17,10 @@ float32); dense decode as paged decode; flash attention float32 1e-5,
 bf16 4e-3 + 2^-7 |want| per element (its plain version rounds p to bf16
 too, but against each row's final max where the kernel uses its running
 max, and both round the output to bf16: one output ulp, 2^-7 of |want| at
-most, on top of a small drift).
+most, on top of a small drift); the linear-recurrence scan rtol = atol =
+2e-5, the reference kernel test's (nvcc contracts ``a * h + b`` into one
+FMA, the plain loop rounds twice).  The attention kernels are held at
+every head dim they are built for (16, 64, 128, 256).
 """
 import numpy as np
 import pytest
@@ -35,6 +38,8 @@ from repro_torch.kernels.paged_attention import ops as pa_ops  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
     dense_decode_ref, paged_decode_ref, paged_prefill_ref,
 )
+from repro_torch.kernels.rglru_scan import ops as rg_ops  # noqa: E402
+from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref  # noqa: E402
 from repro_torch.kernels.stoch_matmul import ops as sm_ops  # noqa: E402
 from repro_torch.kernels.stoch_matmul.ref import stoch_matmul_packed_ref  # noqa: E402
 
@@ -71,9 +76,10 @@ def test_int8_kernel_bit_exact_on_card(cuda, m, k, n):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("g", [1, 4])
-def test_paged_kernels_match_plain_on_card(cuda, dtype, g):
-    kvh, hd, bs, w, s = 4, 64, 16, 6, 5
+@pytest.mark.parametrize("g", [1, 4, 10])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_paged_kernels_match_plain_on_card(cuda, dtype, g, hd):
+    kvh, bs, w, s = 4, 16, 6, 5
     rng = np.random.default_rng(0)
     kv_len = np.asarray([0, 1, bs, bs + 1, w * bs], np.int32)
     q, kp, vp, table = _paged_inputs(rng, 5, kvh, g, hd, bs, w, 40)
@@ -91,8 +97,8 @@ def test_paged_kernels_match_plain_on_card(cuda, dtype, g):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("hd", [16, 64])
-@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("hd", [16, 64, 128, 256])
+@pytest.mark.parametrize("g", [1, 4, 10])
 def test_int8_pool_kernels_match_plain_on_card(cuda, hd, g):
     """The int8-pool branch, decode and causal: ragged fills, kv_len 0
     (zeros), starts at 0, mid-block and past a block edge; both counters
@@ -124,7 +130,7 @@ def test_int8_pool_kernels_match_plain_on_card(cuda, hd, g):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [16, 64])
+@pytest.mark.parametrize("hd", [16, 64, 128, 256])
 @pytest.mark.parametrize("g,s,window,softcap", [(1, 100, 0, 0.0), (2, 70, 24, 0.0),
                                                 (4, 37, 0, 30.0), (3, 130, 16, 5.0)])
 def test_flash_kernel_matches_plain_on_card(cuda, dtype, hd, g, s, window, softcap):
@@ -145,7 +151,8 @@ def test_flash_kernel_matches_plain_on_card(cuda, dtype, hd, g, s, window, softc
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd,g", [(16, 1), (16, 4), (64, 1), (64, 2)])
+@pytest.mark.parametrize("hd,g", [(16, 1), (16, 4), (64, 1), (64, 2), (128, 1), (128, 4),
+                                  (128, 10), (256, 1), (256, 10)])
 def test_dense_decode_kernel_matches_plain_on_card(cuda, dtype, hd, g):
     """Dense decode over S = 100 positions: kv_len 0 (zeros), 1, ragged,
     a full 64-key chunk, S; q cast to the cache dtype; one launch."""
@@ -163,6 +170,21 @@ def test_dense_decode_kernel_matches_plain_on_card(cuda, dtype, hd, g):
     want = dense_decode_ref(tq.to(dtype), tk, tv, tl, softcap=5.0)
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got, want, atol=tol, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,d", [(2, 64, 16), (3, 100, 8), (1, 16, 4), (5, 37, 130),
+                                   (8, 256, 2560), (2, 1, 300)])
+def test_rglru_scan_kernel_matches_plain_on_card(cuda, b, s, d):
+    """Ragged B, S and D (no padding); S past and below the 8-step
+    unroll; one launch counted, float32 out."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    a = torch.rand(b, s, d, generator=g, device=cuda) * 0.799 + 0.2
+    x = torch.randn(b, s, d, generator=g, device=cuda)
+    before = rg_ops.rglru_scan.launches
+    got = rg_ops.rglru_scan(a, x)
+    assert rg_ops.rglru_scan.launches == before + 1 and got.dtype == torch.float32
+    torch.testing.assert_close(got, rglru_scan_ref(a, x), atol=2e-5, rtol=2e-5)
 
 
 @pytest.mark.gpu

@@ -118,7 +118,7 @@ def test_every_kernel_has_plain_version_counter_and_note():
 
     pkgs = _kernel_packages()
     assert pkgs == ["bts_encode", "flash_attention", "int8_matmul", "paged_attention",
-                    "stoch_matmul"]
+                    "rglru_scan", "stoch_matmul"]
     for pkg in pkgs:
         ops = importlib.import_module(f"repro_torch.kernels.{pkg}.ops")
         importlib.import_module(f"repro_torch.kernels.{pkg}.ref")
@@ -146,7 +146,7 @@ def test_launch_registry_covers_every_counted_wrapper():
                if callable(f) and isinstance(getattr(f, "launches", None), int)}
     wrappers = kernel_wrappers()
     assert set(wrappers) == counted
-    assert {"flash_attention", "dense_attention_decode"} <= counted
+    assert {"flash_attention", "dense_attention_decode", "rglru_scan"} <= counted
     wrappers["int8_gemm"].launches = 3
     assert launch_counts()["int8_gemm"] == 3
     reset_launches()
@@ -181,3 +181,27 @@ def test_wrappers_run_plain_on_cpu_and_refuse_other_devices():
     before = flash_attention.launches
     out = flash_attention(*(torch.ones(1, 2, 4, 16) for _ in range(3)))
     assert torch.allclose(out, torch.ones(1, 2, 4, 16)) and flash_attention.launches == before
+
+
+def test_rglru_scan_wrapper_follows_the_port_rules():
+    """The linear-recurrence wrapper: its plain loop on a CPU tensor (no
+    launch counted), a refusal on any other non-CUDA device, a counter in
+    the registry, and a CUDA source that names the TPU kernel it replaces."""
+    from repro_torch.kernels import _build, launch_counts
+    from repro_torch.kernels.rglru_scan import ops
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+
+    a = torch.full((2, 3, 4), 0.5)
+    b = torch.ones(2, 3, 4)
+    before = ops.rglru_scan.launches
+    out = ops.rglru_scan(a, b)
+    assert ops.rglru_scan.launches == before and "rglru_scan" in launch_counts()
+    assert torch.equal(out, rglru_scan_ref(a, b))
+    assert torch.allclose(out[0, :, 0], torch.tensor([1.0, 1.5, 1.75]))
+    with pytest.raises(ValueError, match="device"):
+        ops.rglru_scan(a.to("meta"), b.to("meta"))
+    (src,) = _build.LIBRARIES["rglru_scan"]
+    with open(os.path.join(PORT, "kernels", src), encoding="utf-8") as f:
+        text = f.read()
+    assert "Replaces: src/repro/kernels/rglru_scan/kernel.py :: rglru_scan_kernel" in text
+    assert "sm_90a" in text and "__global__" in text
