@@ -11,7 +11,8 @@ stablelm-1.6b (random weights from a seed) through
 ``exact``, ``int8``, ``sc`` (bit-true stochastic streams) and ``mixed``
 (int8 qk/pv, stochastic projections) plans, on dense per-slot caches
 under ``exact`` and ``int8`` (``exact-dense``, ``int8-dense``: the flash
-and dense-decode kernels), calibrates static scales with
+kernel, on ``wgmma`` with TMA-fed K/V tiles, and the dense-decode kernel,
+split over the cache and merged), calibrates static scales with
 ``Model.calibrate`` and serves the calibrated ``int8`` plan and the
 ``exact`` plan on an int8 KV pool (``int8-kvq``, ``exact-kvq``: the
 paged kernel's dequantizing branch), then serves full-width
@@ -23,9 +24,12 @@ rings), checking that every request gets its tokens, the logits are
 finite, the prefix cache hits where it may, and that each serving run
 itself launched every kernel of its plan's path and no kernel of the
 other layout.  Reduced float32 models of both families are served on the
-card and on the CPU, and their greedy tokens compared.  Any failure
-raises and exits non-zero.  The line before the last is a JSON object with one entry per
-kernel; the last line is the device record.  Needs one CUDA device and
+card and on the CPU, and their greedy tokens compared.  The logs also
+give the redesigned kernels' shared memory (``[tiles]``), the dense
+decode's split count, and each profiled dense decode chunk's share of the
+dense decode kernels.  Any failure raises and exits non-zero.  The
+line before the last is a JSON object with one entry per kernel; the last
+line is the device record.  Needs one CUDA device and
 the sources of this checkout; imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
@@ -82,7 +86,10 @@ INT8_POOL_TOL = F32_TOL
 FLASH_BF16 = (4e-3, 2.0 ** -7)
 DENSE_S = 512  # dense cache positions per slot: the serving runs' max_len
 WIDE_HDS = (128, 256)  # the head dims beyond stablelm's, checked on every attention kernel
+HEAD_DIMS_ALL = (16, HD) + WIDE_HDS  # every head dim the attention kernels are built for
 SERVING_DRAWS = 4  # input draws each new kernel is held on at the serving shapes
+SRC_DENSE = "src/repro_torch/kernels/paged_attention/csrc/dense_decode.cu"
+SRC_FLASH = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 
 
 def held(got: torch.Tensor, want: torch.Tensor, atol: float, rtol: float = 0.0) -> tuple:
@@ -617,7 +624,7 @@ def check_dense(dev, g) -> None:
                                   (torch.bfloat16, FLASH_BF16, BF16_TOL)):
         name = str(dtype).split(".")[-1]
         worst, share, n = 0.0, 0.0, 0
-        for hd in (16, 64) + WIDE_HDS:
+        for hd in HEAD_DIMS_ALL:
             for grp in (1, 2, 4):
                 for window in (0, 24):
                     for softcap in (0.0, 30.0):
@@ -644,7 +651,7 @@ def check_dense(dev, g) -> None:
             f"0/30, S 37/100; non-causal Sk 128): max|kernel-plain| {worst:.2e}, "
             f"{share:.3f} of the allowance")
         worst, share = 0.0, 0.0
-        for hd in (16, 64) + WIDE_HDS:
+        for hd in HEAD_DIMS_ALL:
             for grp in (1, 4, 10):
                 for softcap in (0.0, 30.0):
                     kvh, s = 4, 100
@@ -662,6 +669,17 @@ def check_dense(dev, g) -> None:
         log(f"[dense decode] {name} hd 16/64/128/256, G 1/4/10, softcap 0/30, S=100, kv_len "
             f"[0, 1, 37, 64, 65, 100]: max|kernel-plain| {worst:.2e}, {share:.3f} of the "
             "allowance")
+
+
+def dense_splits(dev, b: int, kvh: int, s: int):
+    """The dense decode kernel's split count for ``b`` slots x ``kvh`` KV
+    heads over ``s`` positions on ``dev`` (None off the card)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.paged_attention.ops import dense_split_plan
+
+    if dev.type != "cuda":
+        return None
+    return dense_split_plan(b, kvh, s, _build.sm_count(dev.index or 0))
 
 
 def time_dense(dev, g, timer=time_ms) -> dict:
@@ -706,8 +724,7 @@ def time_dense(dev, g, timer=time_ms) -> dict:
     n_bytes = 4 * q.numel() * 2  # q, k, v read and o written once, bf16
     b_ms, b_by = bound_ms(n_bytes, 4 * pairs * h * HD, "bf16")
     out["flash_attention"] = dict(
-        name="flash_attention", route="cuda",
-        source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        name="flash_attention", route="cuda", source=SRC_FLASH,
         replaces="src/repro/kernels/flash_attention/kernel.py:85", max_abs_err=err,
         ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=l_ms)
     log(f"[time flash] B=8 S=384 H=32 hd=64 bf16 causal: max|kernel-plain| (share of the "
@@ -741,11 +758,11 @@ def time_dense(dev, g, timer=time_ms) -> dict:
     n_bytes = 2 * qd.numel() * 2 + 2 * fill * kvh * HD * 2 + kv_len.numel() * 4
     b_ms, b_by = bound_ms(n_bytes, 4 * fill * h * HD, "bf16")
     out["dense_attention_decode"] = dict(
-        name="dense_attention_decode", route="cuda",
-        source="src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
+        name="dense_attention_decode", route="cuda", source=SRC_DENSE,
         replaces="src/repro/kernels/paged_attention/kernel.py:212", max_abs_err=err,
         ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=l_ms)
-    log(f"[time dense decode] B=8 H=32 hd=64 bf16 S={DENSE_S} kv_len {DECODE_FILLS}: "
+    log(f"[time dense decode] B=8 H=32 hd=64 bf16 S={DENSE_S} kv_len {DECODE_FILLS}, "
+        f"{dense_splits(dev, 8, kvh, DENSE_S)} splits: "
         f"max|kernel-plain| (share of the allowance) per draw "
         f"{', '.join(f'{e:.2e} ({r:.3f})' for e, r in errs)}; kernel_ms {k_ms:.4f} plain_ms "
         f"{p_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) library_ms {l_ms:.4f} "
@@ -883,9 +900,8 @@ def time_wide_attention(dev, g, timer=time_ms) -> dict:
         if s == 256:
             out["flash_attention_hd256"] = dict(
                 name="flash_attention_hd256", route="cuda", wrapper="flash_attention",
-                source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
-                replaces="src/repro/kernels/flash_attention/kernel.py:85", max_abs_err=err,
-                ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=l_ms)
+                source=SRC_FLASH, replaces="src/repro/kernels/flash_attention/kernel.py:85",
+                max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=l_ms)
         del q, k, v, ke, ve, mask
 
     kv_len = torch.tensor(RG_DECODE_FILLS, dtype=torch.int32, device=dev)
@@ -909,11 +925,12 @@ def time_wide_attention(dev, g, timer=time_ms) -> dict:
     b_ms, b_by = bound_ms(n_bytes, 4 * fill * RG_H * RG_HD, "bf16")
     out["dense_attention_decode_hd256"] = dict(
         name="dense_attention_decode_hd256", route="cuda", wrapper="dense_attention_decode",
-        source="src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
-        replaces="src/repro/kernels/paged_attention/kernel.py:212", max_abs_err=err,
-        ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=l_ms)
+        source=SRC_DENSE, replaces="src/repro/kernels/paged_attention/kernel.py:212",
+        max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=l_ms)
     log(f"[time dense decode] B=8 H={RG_H} KV=1 hd={RG_HD} bf16 S={RG_WINDOW} kv_len "
-        f"{RG_DECODE_FILLS}: max|kernel-plain| per draw {', '.join(f'{e:.2e}' for e in errs)}; "
+        f"{RG_DECODE_FILLS}, {dense_splits(dev, 8, 1, RG_WINDOW)} splits: max|kernel-plain| per "
+        f"draw {', '.join(f'{e:.2e}' for e in errs)}; "
         f"kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) library_ms "
         f"{l_ms:.4f} (scaled_dot_product_attention over the whole ring with a length mask)")
     return out
@@ -1100,7 +1117,8 @@ def profile_decode_chunk(cfg, params, prompts, dev, runs, kv_block_size: int = B
     """Where a decode chunk's time goes: one engine round of 8 decode steps
     (8 slots, up to 8 of them busy) under ``torch.profiler`` — host time of
     the round against the device time of the kernels it ran (their sum over
-    the round; the rest of the round the device is idle)."""
+    the round; the rest of the round the device is idle), and on dense
+    caches the dense decode kernels' share of that device time."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve import ServeConfig, ServeEngine
@@ -1125,9 +1143,14 @@ def profile_decode_chunk(cfg, params, prompts, dev, runs, kv_block_size: int = B
         dev_ms = sum(r[0] for r in rows) / 1e3
         top = sorted(rows, reverse=True)[:5]
         share = f"{dev_ms / host_ms:.1%}" if dev_ms > 0 else "not measured"
+        dense = [r for r in rows if "dense_split_kernel" in r[1] or "dense_merge_kernel" in r[1]]
+        dense_ms = sum(r[0] for r in dense) / 1e3
+        dense_line = (f"; dense decode kernels {dense_ms:.2f} ms ({dense_ms / dev_ms:.1%} of the "
+                      f"device time, {sum(r[2] for r in dense)} launches of the split and "
+                      "merge kernels)") if dense and dev_ms > 0 else ""
         log(f"[profile {label}] one decode chunk (8 steps x 8 slots, {busy} busy): host "
             f"{host_ms:.1f} ms "
-            f"(profiled), device kernels {dev_ms:.2f} ms, device busy {share}; top: "
+            f"(profiled), device kernels {dev_ms:.2f} ms, device busy {share}{dense_line}; top: "
             + "; ".join(f"{k[:48]} {t / 1e3:.2f} ms x{c}" for t, k, c in top))
         del engine
         _free(dev)
@@ -1298,6 +1321,20 @@ def small_rg_card_vs_cpu(dev) -> None:
         assert min(agree) == 1.0, (label, agree)
 
 
+def log_tiles() -> None:
+    """Dynamic shared memory of the redesigned kernels at each head dim, as
+    their launches request it (ptxas reports static shared memory only)."""
+    from repro_torch.kernels import _build
+
+    flash = _build.load("flash_attention").flash_attention_smem_bytes
+    dense = _build.load("dense_decode").dense_attention_smem_bytes
+    for hd in HEAD_DIMS_ALL:
+        log(f"[tiles] hd {hd}: flash bf16 {flash(hd, 1)} B, float32 {flash(hd, 0)} B; dense "
+            f"decode split kernel bf16 G 1/4/10 {dense(hd, 1, 1)}/{dense(hd, 1, 4)}/"
+            f"{dense(hd, 1, 10)} B, float32 {dense(hd, 0, 1)}/{dense(hd, 0, 4)}/"
+            f"{dense(hd, 0, 10)} B")
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
@@ -1353,6 +1390,7 @@ def main() -> None:
             elif "registers" in line:
                 log(f"[ptxas {name}] {entry}: {line.split(':', 1)[-1].strip()}; {spill}")
 
+    log_tiles()
     g = torch.Generator(device=dev).manual_seed(1234)
     check_kernels(dev, g)
     check_int8_pool(dev, g)

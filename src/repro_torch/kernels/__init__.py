@@ -13,12 +13,14 @@ launches the kernel or raises.
 * ``paged_attention`` — streaming-softmax decode and causal suffix
   prefill straight from the paged KV pool through the block table
   (replaces ``repro.kernels.paged_attention.paged_attention_kernel``),
-  and ``dense_attention_decode``, the same decode over dense per-slot
-  caches (replaces ``dense_attention_kernel``)
+  and ``dense_attention_decode``, decode over dense per-slot caches, each
+  cache split across blocks (``dense_split_plan``) and the splits' partial
+  softmax states merged by a second kernel (``csrc/dense_decode.cu``, its
+  own library; replaces ``dense_attention_kernel``)
 * ``flash_attention`` — streaming-softmax attention over full sequences,
   causal with an optional sliding window, GQA folded over the query axis
-  (bf16 on the tensor cores, float32 on FMA tiles): the dense layout's
-  prefill (replaces ``repro.kernels.flash_attention``)
+  (bf16 on ``wgmma`` with K/V tiles brought by TMA, float32 on FMA tiles):
+  the dense layout's prefill (replaces ``repro.kernels.flash_attention``)
 * ``bts_encode``      — the B-to-S encoder: int8 codes -> packed 128-bit
   stochastic streams and signs (replaces ``repro.kernels.bts_encode``)
 * ``stoch_matmul``    — the OSSM array: AND, popcount and signed sum of

@@ -39,6 +39,7 @@ HEAD_DIMS = (16, 64, 128, 256)
 LIBRARIES: Dict[str, Tuple[str, ...]] = {
     "int8_matmul": ("int8_matmul/csrc/int8_matmul.cu",),
     "paged_attention": ("paged_attention/csrc/paged_attention.cu",),
+    "dense_decode": ("paged_attention/csrc/dense_decode.cu",),
     "flash_attention": ("flash_attention/csrc/flash_attention.cu",),
     "bts_encode": ("bts_encode/csrc/bts_encode.cu",),
     "stoch_matmul": ("stoch_matmul/csrc/stoch_matmul.cu",),

@@ -13,34 +13,57 @@
 // it: bf16 on the tensor cores (989 TFLOP/s), float32 on the CUDA cores
 // (67 TFLOP/s).
 //
-// Design: one 128-thread block per (64-row query tile, batch x KV head).
-// The TPU kernel carries m, l and the accumulator in output blocks that
-// its sequential grid revisits; here the block itself loops over key
-// tiles, keeping the running max m, denominator l and float32 accumulator
-// of its rows in registers (a row's owner threads hold identical copies of
-// m and l, reduced by warp shuffles).  Key tiles wholly above the diagonal
-// or wholly outside the window of every row of the tile are never visited:
-// the block walks keys [max(0, pos_lo - window + 1), pos_hi + 1) of its
-// rows' position range; keys past the end read as zero.
+// Design: in both kernels one block per (64-row query tile, batch x KV
+// head).  The TPU kernel carries m, l and the accumulator in output blocks
+// that its sequential grid revisits; here the block loops over key tiles,
+// keeping the running max m, denominator l and float32 accumulator of its
+// rows in registers.  Key tiles wholly above the diagonal or wholly outside
+// the window of every row of the tile are never visited: the block walks
+// keys [max(0, pos_lo - window + 1), pos_hi + 1) of its rows' position
+// range.
 //
-// bf16 takes the tensor cores (mma.sync m16n8k16, bf16 products summed in
-// float32, as the reference's dot_general with a float32 result): each
-// warp owns 16 query rows, holds their Q fragments in registers, and per
-// 64-key tile computes its 16 x 64 scores against K in shared memory, the
-// softmax update in registers, and O += P V with P rounded to bf16 and
-// reused as the A fragment straight from the score registers (V is staged
-// transposed so each B fragment is one 32-bit load).  float32 keeps
-// float32 products on the CUDA cores (the tensor cores' float32 modes
-// round to TF32): Q staged transposed in shared memory, 32-key tiles,
-// 4 x 4 register tiles of FMA dot products, p through shared memory.
-// Instantiated for head dims 16, 64, 128 and 256.  The tiles live in
-// dynamic shared memory (F32Smem, Bf16Smem): past head dim 64 they outgrow
-// the 48 KB of a static allocation (float32 at 256: 140 KB; bf16 at 256:
-// 104 KB), so the launch raises the kernel's limit first.  At head dim 256
-// the bf16 path's O accumulator alone is 128 floats a thread, so Q's
-// fragments are read from shared memory at each k-step instead of being
-// held in registers.  No cp.async/TMA pipeline and no wgmma yet: later
-// work.
+// bf16, for Hopper's tensor cores and copy engine:
+// * One consumer warpgroup owns the 64 rows.  S = Q K^T and O += P V are
+//   both wgmma.mma_async m64n64k16 (bf16 in, float32 out, as the
+//   reference's dot_general with a float32 result): Q and K are K-major
+//   operands in shared memory, P stays in registers as the A operand of the
+//   PV product (the S accumulator's layout is the A fragment's), and V is
+//   read as an MN-major B operand straight from its row-major tile.  O over
+//   head dim D is D/64 accumulators of 64 x 64.
+// * K/V tiles of 64 keys come by TMA (cp.async.bulk.tensor) into a ring of
+//   3 stages (2 at head dims 128 and 256), in the 128-byte swizzled layout
+//   wgmma reads, each head-dim chunk of 64 columns one box; a full and an
+//   empty mbarrier per stage.  A producer warp, one lane of it, keeps the
+//   ring's loads in flight while the consumers compute; keys and rows past
+//   the tensor's end arrive as zeros.  The three tensor maps are encoded
+//   per call (cuTensorMapEncodeTiled through the runtime's driver entry
+//   point, no link against libcuda): they hold the tensors' addresses,
+//   which change from call to call in the serving loop, and encoding is
+//   host work with no device call, so a cache keyed by address would
+//   rarely hit.
+// * Only tiles that straddle the diagonal, the window edge, the key end or
+//   a GQA fold boundary run masked_logit; the others take no mask, and
+//   without a softcap they keep the raw dots, the scale riding on the max
+//   and on the exponent's FMA.  p = e^(x - m) is 2^(x log2(e) - m log2(e)):
+//   one FMA and ex2.approx per score, where the accurate expf is a longer
+//   instruction sequence.  O is rescaled only when a row max of the warp
+//   moved.
+// * Head dim 256: the accumulator is 128 floats a thread.  The block is one
+//   consumer warpgroup and one producer warp (160 threads) with one block
+//   per SM at that head dim (its tiles take 161 KB of shared memory), so
+//   the launch bounds already let the consumers use up to 255 registers
+//   (ptxas: 199, no spill); setmaxnreg moves registers between the
+//   warpgroups of one block and has nothing to move here.  Head dim 16 runs
+//   as one 64-column chunk whose extra columns TMA fills with zeros.
+//
+// float32 keeps float32 products on the CUDA cores (the tensor cores'
+// float32 modes round to TF32): Q staged transposed in shared memory,
+// 32-key tiles, 4 x 4 register tiles of FMA dot products, p through shared
+// memory (F32Smem: 140 KB at head dim 256, dynamic shared memory).  It
+// serves the reduced float32 models.
+//
+// Instantiated for head dims 16, 64, 128 and 256.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -49,19 +72,28 @@
 
 namespace {
 
-constexpr int THREADS = 128;
+constexpr int THREADS = 128;  // float32 kernel
 constexpr int RT = 64;  // query rows per block
 constexpr float NEG_INF = -1e30f;
 
-// Keys [k_lo, k_hi) that some row of the tile starting at row r0 may see.
-__device__ __forceinline__ void key_range(int r0, int R, int Sk, int q_len, int causal,
-                                          int window, int& k_lo, int& k_hi) {
+// Query positions [pos_lo, pos_hi] of the rows of the tile starting at row
+// r0 (all of [0, q_len) when the tile spans a head boundary).
+__device__ __forceinline__ void tile_positions(int r0, int R, int q_len, int& pos_lo,
+                                               int& pos_hi) {
   const int r_last = min(r0 + RT, R) - 1;
-  int pos_lo = r0 % q_len, pos_hi = r_last % q_len;
+  pos_lo = r0 % q_len;
+  pos_hi = r_last % q_len;
   if (r0 / q_len != r_last / q_len) {  // the tile spans a head boundary
     pos_lo = 0;
     pos_hi = q_len - 1;
   }
+}
+
+// Keys [k_lo, k_hi) that some row of the tile starting at row r0 may see.
+__device__ __forceinline__ void key_range(int r0, int R, int Sk, int q_len, int causal,
+                                          int window, int& k_lo, int& k_hi) {
+  int pos_lo, pos_hi;
+  tile_positions(r0, R, q_len, pos_lo, pos_hi);
   k_hi = causal ? min(Sk, pos_hi + 1) : Sk;
   k_lo = window > 0 ? max(0, pos_lo - window + 1) : 0;
 }
@@ -237,17 +269,135 @@ flash_attention_f32_kernel(const float* __restrict__ q,  // [BH, R, D]
 
 // ------------------------------------------------------------------- bf16
 using bf16 = __nv_bfloat16;
-constexpr int MMA_KC = 64;  // keys per tile
-constexpr int PAD = 8;      // bf16 padding of a shared-memory row: conflict-free fragments
-static_assert(RT == 16 * (THREADS / 32), "each warp owns 16 query rows");
+constexpr int BN = 64;                          // keys per K/V tile
+constexpr int CONSUMERS = 128;                  // one warpgroup: the tile's 64 rows, 16 a warp
+constexpr int BF16_THREADS = CONSUMERS + 32;    // and one producer warp
+constexpr int CHUNK = 64;                       // head-dim columns of one 128-byte swizzle atom
+constexpr uint32_t TILE_BYTES = 64 * CHUNK * 2;  // a 64-row x 64-column bf16 tile
+constexpr float LOG2E = 1.4426950408889634f;
+static_assert(RT == 64 && BN == 64, "one m64n64 wgmma per k-step covers a score tile");
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
+// Shared memory of the bf16 kernel, in bytes from a 1024-byte aligned base
+// (the 128-byte swizzle repeats every 8 rows of 128 bytes): Q's head-dim
+// chunks, then STAGES ring stages of K's chunks and V's chunks, then the
+// mbarriers (full[STAGES], empty[STAGES], q).  Head dim 16 is held as one
+// 64-column chunk whose columns past 16 TMA fills with zeros.
+template <int D>
+struct Bf16Cfg {
+  static constexpr int NCH = (D + CHUNK - 1) / CHUNK;
+  static constexpr int STAGES = D <= 64 ? 3 : 2;
+  static constexpr int MIN_BLOCKS = D <= 64 ? 3 : (D <= 128 ? 2 : 1);  // per SM
+  static constexpr uint32_t Q_BYTES = NCH * TILE_BYTES;
+  static constexpr uint32_t STAGE_BYTES = 2 * NCH * TILE_BYTES;
+  static constexpr uint32_t BAR = Q_BYTES + STAGES * STAGE_BYTES;
+  static constexpr size_t bytes = 1024 + BAR + (2 * STAGES + 1) * 8;  // + base alignment
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// returns once the barrier's phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one box {64 columns, 64 rows, 1} of a [planes, rows, cols] tensor at
+// (col, row, plane) into shared memory, completing bytes on bar
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int col,
+                                         int row, int plane, uint32_t bar) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(plane), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte swizzled tile: 8-row groups
+// 1024 bytes apart (SBO), layout type 1 (128B swizzle).  The leading offset
+// is unused: every product reads one 64-column atom along its swizzled
+// dimension (K-major Q and K: 16 columns at a k-step; MN-major V: N = 64).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving reads or writes of the accumulator across
+// the asynchronous product's issue and wait
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define WGMMA_D32                                                                         \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),   \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),        \
+      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),     \
+      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),     \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),     \
+      "+f"(d[31])
+#define WGMMA_D32_OPERANDS                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+// d[64 x 64] += A[64 x 16] B[16 x 64], A and B K-major in shared memory
+// (S = Q K^T: A a Q tile, B a K tile), bf16 in, float32 out
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D32_OPERANDS
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WGMMA_D32
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d[64 x 64] += A[64 x 16] B[16 x 64], A in registers (the P fragment), B
+// MN-major in shared memory (O += P V: a V tile, head dim contiguous)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D32_OPERANDS
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WGMMA_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+#undef WGMMA_D32
+#undef WGMMA_D32_OPERANDS
+
+// 2^x on the hardware's approximate exp2 (denormal results flush to zero)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // two bf16 (round to nearest even), the lower column in the low half
@@ -256,52 +406,62 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Dynamic shared memory of the bf16 kernel, in bytes: K as is (B fragments
-// of QK^T), V transposed (B fragments of PV), and past head dim 128 the
-// tile's Q rows (A fragments of QK^T).
 template <int D>
-struct Bf16Smem {
-  static constexpr bool QSMEM = D > 128;
-  static constexpr size_t KS = 0, VT = KS + MMA_KC * (D + PAD) * sizeof(bf16),
-                          QS = VT + D * (MMA_KC + PAD) * sizeof(bf16),
-                          bytes = QS + (QSMEM ? RT * (D + PAD) * sizeof(bf16) : 0);
-};
-
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_attention_bf16_kernel(const bf16* __restrict__ q,  // [BH, R, D]
-                            const bf16* __restrict__ k,  // [BH, Sk, D]
-                            const bf16* __restrict__ v,  // [BH, Sk, D]
-                            bf16* __restrict__ out,      // [BH, R, D]
+__global__ void __launch_bounds__(BF16_THREADS, Bf16Cfg<D>::MIN_BLOCKS)
+flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap map_q,  // [BH, R, D]
+                            const __grid_constant__ CUtensorMap map_k,  // [BH, Sk, D]
+                            const __grid_constant__ CUtensorMap map_v,  // [BH, Sk, D]
+                            bf16* __restrict__ out,                     // [BH, R, D]
                             int R, int Sk, int q_len, int causal, int window, float scale,
                             float softcap) {
-  constexpr int VEC = 8;            // bf16 per 16-byte load
-  constexpr int KD = D / 16;        // k-steps of QK^T over the head dim
-  constexpr int ND = D / 8;         // n-tiles of O over the head dim
-  constexpr int NK = MMA_KC / 8;    // n-tiles of S over a tile's keys
-  static_assert(D % 16 == 0, "head dim must be whole mma k-steps");
-  using L = Bf16Smem<D>;
-  constexpr bool QSMEM = L::QSMEM;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16(*const ks)[D + PAD] = reinterpret_cast<bf16(*)[D + PAD]>(smem_raw + L::KS);
-  bf16(*const vt)[MMA_KC + PAD] = reinterpret_cast<bf16(*)[MMA_KC + PAD]>(smem_raw + L::VT);
-  bf16(*const qs)[D + PAD] = reinterpret_cast<bf16(*)[D + PAD]>(smem_raw + L::QS);
+  using C = Bf16Cfg<D>;
+  constexpr int NCH = C::NCH, STAGES = C::STAGES;
+  extern __shared__ __align__(1024) unsigned char bf16_smem[];
+  const uint32_t base = (smem_u32(bf16_smem) + 1023u) & ~1023u;
+  const uint32_t q_s = base, ring = base + C::Q_BYTES, bars = base + C::BAR;
+  const uint32_t q_bar = bars + 16 * STAGES;
+  auto full = [&](int st) { return bars + 8 * st; };
+  auto empty = [&](int st) { return bars + 8 * (STAGES + st); };
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int gid = lane / 4, tig = lane % 4;  // mma fragment row group, thread in group
-  const int r0 = blockIdx.x * RT;
-  const size_t bh = blockIdx.y;
-  const bf16* qb = q + bh * R * D;
-  const bf16* kb = k + bh * Sk * D;
-  const bf16* vb = v + bh * Sk * D;
-  int k_lo, k_hi;
+  const int r0 = blockIdx.x * RT, bh = blockIdx.y;
+  int k_lo, k_hi, pos_lo, pos_hi;
   key_range(r0, R, Sk, q_len, causal, window, k_lo, k_hi);
+  tile_positions(r0, R, q_len, pos_lo, pos_hi);
+  const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + BN - 1) / BN : 0;
 
-  // this thread's two rows (fragment rows gid and gid + 8 of the warp's 16)
+  if (tid == 0) {
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), CONSUMERS);
+    }
+    mbar_init(q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == CONSUMERS / 32) {  // producer: one lane keeps the ring's loads in flight
+    if (lane == 0) {
+      mbar_expect_tx(q_bar, C::Q_BYTES);
+      for (int c = 0; c < NCH; ++c)
+        tma_load(q_s + c * TILE_BYTES, &map_q, c * CHUNK, r0, bh, q_bar);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % STAGES;
+        if (t >= STAGES) mbar_wait(empty(st), ((t / STAGES) - 1) & 1);
+        mbar_expect_tx(full(st), C::STAGE_BYTES);
+        const uint32_t ks = ring + st * C::STAGE_BYTES, vs = ks + NCH * TILE_BYTES;
+        const int kb = k_lo + t * BN;  // rows past Sk arrive as zeros
+        for (int c = 0; c < NCH; ++c) {
+          tma_load(ks + c * TILE_BYTES, &map_k, c * CHUNK, kb, bh, full(st));
+          tma_load(vs + c * TILE_BYTES, &map_v, c * CHUNK, kb, bh, full(st));
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: accumulator row gid (+ 8) of warp `warp`'s 16 rows
+  const int gid = lane / 4, tig = lane % 4;
   int row[2], pos[2];
   bool row_ok[2];
 #pragma unroll
@@ -310,106 +470,85 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,  // [BH, R, D]
     row_ok[h] = row[h] < R;
     pos[h] = row_ok[h] ? row[h] % q_len : 0;
   }
-  uint32_t qf[QSMEM ? 1 : KD][4];  // A fragments of Q, rows past R zero
-  if constexpr (QSMEM) {
-    // the tile's Q rows, rows past R zero; the first tile's barrier
-    // publishes them
-    for (int c = tid; c < RT * (D / VEC); c += THREADS) {
-      const int r = c / (D / VEC), dv = (c % (D / VEC)) * VEC;
-      uint4 w = make_uint4(0u, 0u, 0u, 0u);
-      if (r0 + r < R) w = *reinterpret_cast<const uint4*>(qb + (size_t)(r0 + r) * D + dv);
-      *reinterpret_cast<uint4*>(&qs[r][dv]) = w;
-    }
-  } else {
+  float o[NCH][32], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
 #pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      const int c = kk * 16 + tig * 2;
+  for (int c = 0; c < NCH; ++c)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const bf16* qr = qb + (size_t)row[h] * D + c;
-        qf[kk][h] = row_ok[h] ? ld32(qr) : 0u;
-        qf[kk][h + 2] = row_ok[h] ? ld32(qr + 8) : 0u;
-      }
-    }
-  }
-  float o[ND][4], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+    for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
 
-  for (int base = k_lo; base < k_hi; base += MMA_KC) {
-    __syncthreads();  // the previous tile's readers are done
-    for (int c = tid; c < MMA_KC * (D / VEC); c += THREADS) {
-      const int j = c % MMA_KC, dv = (c / MMA_KC) * VEC;
-      const int kp = base + j;
-      uint4 kw = make_uint4(0u, 0u, 0u, 0u), vw = kw;
-      if (kp < k_hi) {
-        kw = *reinterpret_cast<const uint4*>(kb + (size_t)kp * D + dv);
-        vw = *reinterpret_cast<const uint4*>(vb + (size_t)kp * D + dv);
-      }
-      *reinterpret_cast<uint4*>(&ks[j][dv]) = kw;
-      const bf16* ve = reinterpret_cast<const bf16*>(&vw);
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) vt[dv + i][j] = ve[i];
-    }
-    __syncthreads();
+  mbar_wait(q_bar, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % STAGES;
+    const uint32_t ks = ring + st * C::STAGE_BYTES, vs = ks + NCH * TILE_BYTES;
+    mbar_wait(full(st), (t / STAGES) & 1);
 
-    float s[NK][4];  // scores: [n-tile][c0 c1 (row gid) c2 c3 (row gid + 8)]
+    // S = Q K^T over the (padded) head dim, 16 columns a k-step
+    float s[32];
 #pragma unroll
-    for (int j = 0; j < NK; ++j)
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    for (int kk = 0; kk < NCH * 4; ++kk) {
+      const uint32_t off = (kk / 4) * TILE_BYTES + (kk % 4) * 32;
+      wgmma_ss(s, smem_desc(q_s + off), smem_desc(ks + off));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    // s[4j + e]: row gid + 8 (e / 2), key 8j + 2 tig + (e % 2) of the tile.
+    // A tile wholly inside the causal, window and key bounds of every row
+    // takes no mask.
+    const int kb = k_lo + t * BN;
+    const bool whole = kb + BN <= k_hi && (!causal || kb + BN - 1 <= pos_lo) &&
+                       (window <= 0 || pos_hi - kb < window);
+    // (the branch stays outside the loops: inside them the compiler
+    // predicates both paths for every score).  Without a softcap a whole
+    // tile keeps the raw dots: the scale rides on the max and on the exp's
+    // FMA (a positive factor commutes with the max, rounding included).
+    float raw = 1.f;  // what takes s to logits: scale for raw dots
+    if (whole) {
+      if (softcap > 0.f) {
 #pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t a[4];
-      if constexpr (QSMEM) {
-        const bf16* qr = &qs[warp * 16 + gid][kk * 16 + tig * 2];
-        a[0] = ld32(qr);
-        a[1] = ld32(qr + 8 * (D + PAD));
-        a[2] = ld32(qr + 8);
-        a[3] = ld32(qr + 8 * (D + PAD) + 8);
+        for (int i = 0; i < 32; ++i) s[i] = tanhf(s[i] * scale / softcap) * softcap;
       } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) a[e] = qf[kk][e];
+        raw = scale;
       }
+    } else {
 #pragma unroll
-      for (int j = 0; j < NK; ++j) {  // each s[j] still sums its k-steps in order
-        const bf16* kr = &ks[j * 8 + gid][kk * 16 + tig * 2];
-        mma_bf16(s[j], a, ld32(kr), ld32(kr + 8));
-      }
+      for (int i = 0; i < 32; ++i)
+        s[i] = masked_logit(s[i], row_ok[(i % 4) / 2], pos[(i % 4) / 2],
+                            kb + (i / 4) * 8 + tig * 2 + (i & 1), k_hi, causal, window, scale,
+                            softcap);
     }
-
     float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-    for (int j = 0; j < NK; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e / 2;
-        s[j][e] = masked_logit(s[j][e], row_ok[h], pos[h], base + j * 8 + tig * 2 + (e & 1),
-                               k_hi, causal, window, scale, softcap);
-        mx[h] = fmaxf(mx[h], s[j][e]);
-      }
-    float m_safe[2], alpha[2];
+    for (int i = 0; i < 32; ++i) mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], s[i]);
+    // e^(x - m) as 2^(x log2(e) - m log2(e)): one FMA and the hardware's
+    // exp2 (ex2.approx, relative error 2^-22) per score
+    float m_l2[2], alpha[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       // a row's 4 owner threads are neighbouring lanes
       mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
       mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      const float m_new = fmaxf(m[h], mx[h]);
+      const float m_new = fmaxf(m[h], mx[h] * raw);
       // guard fully-masked rows exactly as the reference kernel does
-      m_safe[h] = m_new <= NEG_INF / 2 ? 0.f : m_new;
-      alpha[h] = m[h] <= NEG_INF / 2 ? 0.f : expf(m[h] - m_safe[h]);
+      const float m_safe = m_new <= NEG_INF / 2 ? 0.f : m_new;
+      alpha[h] = m[h] <= NEG_INF / 2 ? 0.f : ex2((m[h] - m_safe) * LOG2E);
+      m_l2[h] = m_safe * LOG2E;
       m[h] = m_new;
     }
     float lsum[2] = {0.f, 0.f};
-    uint32_t pf[NK][2];  // p rounded to bf16 (V's dtype): row gid, row gid + 8
+    uint32_t pf[BN / 8][2];  // p rounded to bf16 (V's dtype): row gid, row gid + 8
+    const float to_l2 = raw * LOG2E;
 #pragma unroll
-    for (int j = 0; j < NK; ++j) {
+    for (int j = 0; j < BN / 8; ++j) {
       float p[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        p[e] = s[j][e] > NEG_INF / 2 ? expf(s[j][e] - m_safe[e / 2]) : 0.f;
+        // a masked score (-1e30) gives exactly 0: ex2 of -1.4e30 underflows
+        p[e] = ex2(fmaf(s[4 * j + e], to_l2, -m_l2[e / 2]));
         lsum[e / 2] += p[e];  // the denominator sums the unrounded p
       }
       pf[j][0] = pack_bf16(p[0], p[1]);
@@ -421,88 +560,167 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,  // [BH, R, D]
       lsum[h] += __shfl_xor_sync(0xffffffffu, lsum[h], 2);
       l[h] = alpha[h] * l[h] + lsum[h];
     }
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {  // a max moved
 #pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
+      for (int c = 0; c < NCH; ++c)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[c][i] *= alpha[(i % 4) / 2];
     }
+
+    // O += P V: the score tiles of keys 16kc .. 16kc + 15 are the A fragment
+    wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < MMA_KC / 16; ++kc) {
-      // the score tiles of keys kc*16 .. +15 are the A fragment of P
-      const uint32_t a[4] = {pf[2 * kc][0], pf[2 * kc][1], pf[2 * kc + 1][0],
-                             pf[2 * kc + 1][1]};
+    for (int c = 0; c < NCH; ++c) {
 #pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        const bf16* vr = &vt[n * 8 + gid][kc * 16 + tig * 2];
-        mma_bf16(o[n], a, ld32(vr), ld32(vr + 8));
+      for (int kc = 0; kc < BN / 16; ++kc) {
+        const uint32_t a[4] = {pf[2 * kc][0], pf[2 * kc][1], pf[2 * kc + 1][0],
+                               pf[2 * kc + 1][1]};
+        wgmma_rs(o[c], a, smem_desc(vs + c * TILE_BYTES + kc * 16 * 128));
       }
     }
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) fence_regs(o[c]);
+    mbar_arrive(empty(st));  // this stage's K and V have been read
   }
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (!row_ok[h]) continue;
     const float denom = fmaxf(l[h], 1e-30f);
-    bf16* orow = out + (bh * R + row[h]) * D + tig * 2;
+    bf16* orow = out + ((size_t)bh * R + row[h]) * D;
 #pragma unroll
-    for (int n = 0; n < ND; ++n)
-      *reinterpret_cast<uint32_t*>(orow + n * 8) =
-          pack_bf16(o[n][2 * h] / denom, o[n][2 * h + 1] / denom);
+    for (int c = 0; c < NCH; ++c)
+#pragma unroll
+      for (int j = 0; j < CHUNK / 8; ++j) {
+        const int col = c * CHUNK + j * 8 + tig * 2;
+        if (col < D)
+          *reinterpret_cast<uint32_t*>(orow + col) =
+              pack_bf16(o[c][4 * j + 2 * h] / denom, o[c][4 * j + 2 * h + 1] / denom);
+      }
   }
 }
 
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
+// (no link against libcuda)
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// TMA map of a contiguous bf16 [planes, rows, D] tensor, read in boxes of 64
+// columns x 64 rows, 128-byte swizzled; coordinates past the tensor read as
+// zeros.  Returns 0 or 10000 + the CUresult.
+int encode_map(CUtensorMap* map, const void* ptr, int D, int rows, int planes) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(planes)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(rows) * D * 2};
+  const cuuint32_t box[3] = {CHUNK, 64, 1}, step[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+                            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : 10000 + static_cast<int>(r);
+}
+
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int BH, int R,
-                   int Sk, int q_len, int causal, int window, float scale, float softcap,
-                   cudaStream_t s) {
+constexpr size_t smem_bytes() {
+  if constexpr (std::is_same<T, float>::value)
+    return F32Smem<D>::bytes;
+  else
+    return Bf16Cfg<D>::bytes;
+}
+
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, void* out, int BH, int R, int Sk,
+           int q_len, int causal, int window, float scale, float softcap, cudaStream_t s) {
+  constexpr size_t smem = smem_bytes<T, D>();
+  static_assert(smem <= 232448, "tiles exceed the 227 KB a block may use");
   dim3 grid((R + RT - 1) / RT, BH);
   if constexpr (std::is_same<T, float>::value) {
-    constexpr size_t smem = F32Smem<D>::bytes;
-    static_assert(smem <= 232448, "tiles exceed the 227 KB a block may use");
     auto* kern = flash_attention_f32_kernel<D>;
     if (smem > 48 * 1024) {  // past the default limit: ask for it (per device, cheap)
       const cudaError_t e = cudaFuncSetAttribute(
           kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-      if (e != cudaSuccess) return e;
+      if (e != cudaSuccess) return static_cast<int>(e);
     }
     kern<<<grid, THREADS, smem, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(out), R, Sk, q_len, causal, window,
         scale, softcap);
   } else {
-    constexpr size_t smem = Bf16Smem<D>::bytes;
-    static_assert(smem <= 232448, "tiles exceed the 227 KB a block may use");
+    // the maps hold the tensors' addresses and shapes, so they are encoded
+    // per call: a host-side encoding, no device work
+    CUtensorMap mq, mk, mv;
+    int e = encode_map(&mq, q, D, R, BH);
+    if (e == 0) e = encode_map(&mk, k, D, Sk, BH);
+    if (e == 0) e = encode_map(&mv, v, D, Sk, BH);
+    if (e != 0) return e;
     auto* kern = flash_attention_bf16_kernel<D>;
-    if (smem > 48 * 1024) {  // past the default limit: ask for it (per device, cheap)
-      const cudaError_t e = cudaFuncSetAttribute(
-          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-      if (e != cudaSuccess) return e;
-    }
-    kern<<<grid, THREADS, smem, s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<bf16*>(out), R, Sk, q_len, causal, window, scale, softcap);
+    const cudaError_t a = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (a != cudaSuccess) return static_cast<int>(a);
+    kern<<<grid, BF16_THREADS, smem, s>>>(mq, mk, mv, static_cast<bf16*>(out), R, Sk, q_len,
+                                          causal, window, scale, softcap);
   }
-  return cudaSuccess;
+  return 0;
 }
 
-template <int D>
-cudaError_t launch_dtype(const void* q, const void* k, const void* v, void* out, int BH,
-                         int R, int Sk, int q_len, int causal, int window, float scale,
-                         float softcap, int dtype, cudaStream_t s) {
-  if (dtype == 0)
-    return launch<float, D>(q, k, v, out, BH, R, Sk, q_len, causal, window, scale, softcap, s);
-  if (dtype == 1)
-    return launch<bf16, D>(q, k, v, out, BH, R, Sk, q_len, causal, window, scale, softcap, s);
-  return cudaErrorInvalidValue;
+// One instantiation of the kernel: dtype and head dim.
+template <typename T, int D_>
+struct Inst {
+  using type = T;
+  static constexpr int D = D_;
+};
+
+// Calls f(Inst<T, D>{}) for the instantiation that serves head dim D and
+// dtype (0 float32, 1 bf16); returns `none` for one it is not built for.
+// The launch and the shared-memory query both take it.
+template <typename R, typename F>
+R with_inst(int D, int dtype, R none, F&& f) {
+  if (dtype != 0 && dtype != 1) return none;
+  switch (D) {  // the head dims the kernel is instantiated for (_build.py HEAD_DIMS)
+    case 16:
+      return dtype == 0 ? f(Inst<float, 16>{}) : f(Inst<bf16, 16>{});
+    case 64:
+      return dtype == 0 ? f(Inst<float, 64>{}) : f(Inst<bf16, 64>{});
+    case 128:
+      return dtype == 0 ? f(Inst<float, 128>{}) : f(Inst<bf16, 128>{});
+    case 256:
+      return dtype == 0 ? f(Inst<float, 256>{}) : f(Inst<bf16, 256>{});
+    default:
+      return none;
+  }
 }
 
 }  // namespace
 
 // q [BH, R, D] with R = G * q_len (G query heads of one KV head stacked);
 // k, v [BH, Sk, D]; out [BH, R, D], all of one dtype (0 float32, 1 bf16),
-// contiguous with 16-byte aligned starts.  Returns a cudaError_t.
+// contiguous with 16-byte aligned starts.  Returns a cudaError_t, or
+// 10000 + the CUresult of a failed TMA map encoding (bf16).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                                       int BH, int R, int Sk, int D, int q_len, int causal,
                                       int window, float scale, float softcap, int dtype,
@@ -510,27 +728,20 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (BH <= 0 || BH > 65535 || R <= 0 || Sk <= 0 || q_len <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e;
-  switch (D) {  // the head dims the kernel is instantiated for (_build.py HEAD_DIMS)
-    case 16:
-      e = launch_dtype<16>(q, k, v, out, BH, R, Sk, q_len, causal, window, scale, softcap,
-                           dtype, s);
-      break;
-    case 64:
-      e = launch_dtype<64>(q, k, v, out, BH, R, Sk, q_len, causal, window, scale, softcap,
-                           dtype, s);
-      break;
-    case 128:
-      e = launch_dtype<128>(q, k, v, out, BH, R, Sk, q_len, causal, window, scale, softcap,
-                            dtype, s);
-      break;
-    case 256:
-      e = launch_dtype<256>(q, k, v, out, BH, R, Sk, q_len, causal, window, scale, softcap,
-                            dtype, s);
-      break;
-    default:
-      e = cudaErrorInvalidValue;
-  }
-  if (e != cudaSuccess) return static_cast<int>(e);
+  const int e = with_inst(D, dtype, static_cast<int>(cudaErrorInvalidValue), [&](auto t) {
+    using I = decltype(t);
+    return launch<typename I::type, I::D>(q, k, v, out, BH, R, Sk, q_len, causal, window,
+                                           scale, softcap, s);
+  });
+  if (e != 0) return e;
   return static_cast<int>(cudaGetLastError());
+}
+
+// Dynamic shared memory of the kernel at head dim D and dtype (0 float32,
+// 1 bf16); 0 for a head dim it is not built for.
+extern "C" int flash_attention_smem_bytes(int D, int dtype) {
+  return with_inst(D, dtype, 0, [](auto t) {
+    using I = decltype(t);
+    return static_cast<int>(smem_bytes<typename I::type, I::D>());
+  });
 }

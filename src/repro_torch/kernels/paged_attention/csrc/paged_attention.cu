@@ -6,12 +6,9 @@
 // position lens[b] + r % q_len; keys at or before it are visible) — over
 // float32/bf16 pools and over int8 pools (the kernel's quantized branch,
 // kernel.py:96-98: float32 queries, each streamed K/V element dequantized
-// as float(k) * k_scale[h], the reference's float32 product); and
-// dense_attention_kernel (kernel.py:212), the same decode body over dense
-// per-slot caches [B, KVH, S, D]: the DENSE policy reads "block 0 of slot
-// b" as slot b's own S-position row (no table), keys past lens[b] or S
-// masked and read as zero (the reference's ragged trailing block, V rows
-// zeroed).
+// as float(k) * k_scale[h], the reference's float32 product).
+// dense_attention_kernel (kernel.py:212) has a kernel of its own,
+// dense_decode.cu, split over the cache.
 //
 // What bounds it on an H100: decode reads every live K/V position of every
 // slot once per step (2 * kv_len * KVH * hd * itemsize bytes: 1 byte an
@@ -82,12 +79,12 @@ struct Smem {
   static constexpr size_t bytes = PG * sizeof(float) + KC * sizeof(int);
 };
 
-template <typename TQ, typename TKV, int D, int RT, int KC, bool DENSE>
+template <typename TQ, typename TKV, int D, int RT, int KC>
 __global__ void __launch_bounds__(THREADS)
 paged_attention_kernel(const TQ* __restrict__ q,          // [B, KVH, R, D]
                        const TKV* __restrict__ k_pool,    // [NB, KVH, BS, D]
                        const TKV* __restrict__ v_pool,    // [NB, KVH, BS, D]
-                       const int32_t* __restrict__ table,  // [B, W] (unused if DENSE)
+                       const int32_t* __restrict__ table,  // [B, W]
                        const int32_t* __restrict__ lens,   // [B]
                        const float* __restrict__ k_scale,  // [KVH] (int8 pools)
                        const float* __restrict__ v_scale,  // [KVH] (int8 pools)
@@ -145,8 +142,7 @@ paged_attention_kernel(const TQ* __restrict__ q,          // [B, KVH, R, D]
   for (int base = 0; base < n_keys; base += KC) {
     if (tid < KC) {
       const int kp = base + tid;
-      // DENSE: slot b's cache is one "block" of BS = S positions, block b
-      pg[tid] = kp < n_keys ? (DENSE ? b : table[(size_t)b * W + kp / BS]) : 0;
+      pg[tid] = kp < n_keys ? table[(size_t)b * W + kp / BS] : 0;
     }
     __syncthreads();
     for (int c = tid; c < KC * (D / VEC); c += THREADS) {
@@ -240,11 +236,11 @@ struct Args {
   float scale, softcap;
 };
 
-template <typename TQ, typename TKV, int D, int RT, int KC, bool DENSE>
+template <typename TQ, typename TKV, int D, int RT, int KC>
 cudaError_t launch(const Args& a, cudaStream_t s) {
   constexpr size_t smem = Smem<D, RT, KC>::bytes;
   static_assert(smem <= 232448, "tiles exceed the 227 KB a block may use");
-  auto* kern = paged_attention_kernel<TQ, TKV, D, RT, KC, DENSE>;
+  auto* kern = paged_attention_kernel<TQ, TKV, D, RT, KC>;
   if (smem > 48 * 1024) {  // past the default limit: ask for it (per device, cheap)
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -260,49 +256,43 @@ cudaError_t launch(const Args& a, cudaStream_t s) {
 
 // Row tiles: 1 (decode, G = 1), 8 or 16 (decode with GQA: 16 holds the 10
 // query heads of a recurrentgemma KV head with 6 rows idle, not 22) or 32
-// rows (prefill); DENSE reads slot b's own cache (dense decode) instead of
-// a block table.
-template <typename TQ, typename TKV, int D, bool DENSE = false>
+// rows (prefill).
+template <typename TQ, typename TKV, int D>
 cudaError_t launch_rows(const Args& a, cudaStream_t s) {
-  if (a.R == 1) return launch<TQ, TKV, D, 1, 64, DENSE>(a, s);
-  if (a.R <= 8) return launch<TQ, TKV, D, 8, 64, DENSE>(a, s);
-  if (a.R <= 16) return launch<TQ, TKV, D, 16, 64, DENSE>(a, s);
-  return launch<TQ, TKV, D, 32, 32, DENSE>(a, s);
+  if (a.R == 1) return launch<TQ, TKV, D, 1, 64>(a, s);
+  if (a.R <= 8) return launch<TQ, TKV, D, 8, 64>(a, s);
+  if (a.R <= 16) return launch<TQ, TKV, D, 16, 64>(a, s);
+  return launch<TQ, TKV, D, 32, 32>(a, s);
 }
 
 // dtype code: 0 float32 pool and queries, 1 bf16 pool and queries,
-// 2 int8 pool with float32 queries and per-KV-head scales (DENSE: 0 and 1)
-template <int D, bool DENSE>
+// 2 int8 pool with float32 queries and per-KV-head scales
+template <int D>
 cudaError_t launch_dtype(const Args& a, int dtype, cudaStream_t s) {
   switch (dtype) {
     case 0:
-      return launch_rows<float, float, D, DENSE>(a, s);
+      return launch_rows<float, float, D>(a, s);
     case 1:
-      return launch_rows<__nv_bfloat16, __nv_bfloat16, D, DENSE>(a, s);
+      return launch_rows<__nv_bfloat16, __nv_bfloat16, D>(a, s);
     case 2:
-      if constexpr (DENSE) {
-        return cudaErrorInvalidValue;  // dense caches stay in the model dtype
-      } else {
-        if (a.k_scale == nullptr || a.v_scale == nullptr) return cudaErrorInvalidValue;
-        return launch_rows<float, int8_t, D, DENSE>(a, s);
-      }
+      if (a.k_scale == nullptr || a.v_scale == nullptr) return cudaErrorInvalidValue;
+      return launch_rows<float, int8_t, D>(a, s);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
 // the head dims the kernel is instantiated for (_build.py HEAD_DIMS)
-template <bool DENSE>
 cudaError_t launch_head_dim(const Args& a, int D, int dtype, cudaStream_t s) {
   switch (D) {
     case 16:
-      return launch_dtype<16, DENSE>(a, dtype, s);
+      return launch_dtype<16>(a, dtype, s);
     case 64:
-      return launch_dtype<64, DENSE>(a, dtype, s);
+      return launch_dtype<64>(a, dtype, s);
     case 128:
-      return launch_dtype<128, DENSE>(a, dtype, s);
+      return launch_dtype<128>(a, dtype, s);
     case 256:
-      return launch_dtype<256, DENSE>(a, dtype, s);
+      return launch_dtype<256>(a, dtype, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -326,22 +316,7 @@ extern "C" int paged_attention_launch(const void* q, const void* kp, const void*
                static_cast<const int32_t*>(lens), static_cast<const float*>(k_scale),
                static_cast<const float*>(v_scale), static_cast<float*>(out),
                B, KVH, R, BS, W, q_len, causal, scale, softcap};
-  const cudaError_t e = launch_head_dim<false>(a, D, dtype, s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Dense decode: q [B,KVH,G,D] and caches k/v [B,KVH,S,D] of one dtype (0
-// float32, 1 bf16), lens [B] int32 = kv_len; out [B,KVH,G,D] float32,
-// already divided by the softmax denominator.
-extern "C" int dense_attention_launch(const void* q, const void* k, const void* v,
-                                      const void* lens, void* out, int B, int KVH, int G,
-                                      int D, int S, float scale, float softcap, int dtype,
-                                      void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Args a{q, k, v, nullptr, static_cast<const int32_t*>(lens), nullptr, nullptr,
-               static_cast<float*>(out), B, KVH, G, S, 1, 1, 0, scale, softcap};
-  const cudaError_t e = launch_head_dim<true>(a, D, dtype, s);
+  const cudaError_t e = launch_head_dim(a, D, dtype, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

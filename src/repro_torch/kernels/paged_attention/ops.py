@@ -2,19 +2,21 @@
 
 Port of ``repro.kernels.paged_attention.ops``: decode and causal suffix
 prefill through the block table, and decode over dense per-slot caches
-(:func:`dense_attention_decode`, the kernel's contiguous-index branch).
-Queries
-arrive in the model's ``[B, H, ...]`` head layout and are folded into
-per-KV-head row groups (row ``g * q_len + i``), cast to the pool dtype —
-or to float32 for an int8 pool, whose blocks the kernel dequantizes with
-the per-KV-head ``k_scale``/``v_scale`` as it streams them; the kernel
-returns the float32 output already divided by the softmax denominator,
-and the wrapper returns it in the query dtype.
+(:func:`dense_attention_decode`, the reference's ``dense_attention_kernel``).
+Queries arrive in the model's ``[B, H, ...]`` head layout and are folded
+into per-KV-head row groups (row ``g * q_len + i``), cast to the pool
+dtype — or to float32 for an int8 pool, whose blocks the kernel
+dequantizes with the per-KV-head ``k_scale``/``v_scale`` as it streams
+them.  The paged kernel returns the float32 output already divided by the
+softmax denominator, and the wrapper returns it in the query dtype; the
+dense decode kernel writes the query dtype itself.
 
 On a CPU tensor each wrapper runs the plain version (``ref.py``); on a
-CUDA tensor it launches ``csrc/paged_attention.cu`` or raises.  Each
-wrapper's ``launches`` counts every launch; the paged wrappers'
-``int8_launches`` count the launches on int8 pools among them.
+CUDA tensor it launches ``csrc/paged_attention.cu`` (paged) or
+``csrc/dense_decode.cu`` (dense: one split kernel over
+:func:`dense_split_plan`'s ranges of each cache, then a merge) or raises.
+Each wrapper's ``launches`` counts every call that launched; the paged
+wrappers' ``int8_launches`` count the launches on int8 pools among them.
 """
 from __future__ import annotations
 
@@ -42,12 +44,27 @@ def _lib():
 
 
 def _dense_lib():
-    fn = _build.load("paged_attention").dense_attention_launch
+    fn = _build.load("dense_decode").dense_attention_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                       + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+                       + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+DENSE_CHUNK = 16  # keys per chunk of the dense decode kernel: the unit its splits are cut in
+DENSE_WAVES = 2  # blocks per SM the split plan aims for
+
+
+def dense_split_plan(b: int, kvh: int, s: int, n_sm: int) -> int:
+    """Ranges each (slot, KV head) cache of ``s`` positions is split into
+    for dense decode, from shapes alone (the host never reads ``kv_len``):
+    enough that the ``b * kvh * splits`` blocks fill the ``n_sm`` SMs about
+    ``DENSE_WAVES`` times, never more than the cache has ``DENSE_CHUNK``-key
+    chunks, at least one.  On the device each block takes its share of the
+    live keys ``[0, kv_len)`` in whole chunks."""
+    want = -(-DENSE_WAVES * n_sm // max(1, b * kvh))
+    return max(1, min(want, -(-s // DENSE_CHUNK)))
 
 
 def _prepare(q, k_pool, v_pool, k_scale, v_scale):
@@ -157,7 +174,7 @@ def dense_attention_decode(q, k, v, kv_len, *, softcap: float = 0.0):
     ``k/v [B, KVH, S, hd]``: keys at positions >= ``kv_len[b]`` are
     invisible and ``kv_len == 0`` gives zeros.  q is cast to the cache
     dtype first, as the reference's wrapper casts it.  Returns [B, H, hd]
-    in ``q.dtype``."""
+    in ``q.dtype`` (float32 or bfloat16 on the card)."""
     b, h, hd = q.shape
     if k.dim() != 4 or v.shape != k.shape or k.shape[0] != b or k.shape[3] != hd:
         raise ValueError(f"dense attention: caches {tuple(k.shape)}/{tuple(v.shape)} do "
@@ -174,20 +191,30 @@ def dense_attention_decode(q, k, v, kv_len, *, softcap: float = 0.0):
     if hd not in HEAD_DIMS:
         raise NotImplementedError(f"dense attention kernel built for head dims "
                                   f"{HEAD_DIMS}, got {hd}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"dense attention writes float32/bfloat16 outputs, got {q.dtype}")
     for name, t in (("k", k), ("v", v), ("kv_len", kv_len)):
         if t.device != q.device:
             raise ValueError(f"dense attention: {name} on {t.device}, queries on {q.device}")
+    out = torch.empty((b, h, hd), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    g = h // kvh
     qd, k, v = _build.aligned(qd), _build.aligned(k), _build.aligned(v)
     lens = kv_len.to(torch.int32).contiguous()
-    out = torch.empty((b, kvh, h // kvh, hd), dtype=torch.float32, device=q.device)
-    if out.numel() == 0:
-        return out.reshape(b, h, hd).to(q.dtype)
+    splits = dense_split_plan(b, kvh, s, _build.sm_count(q.device.index))
+    # each split's (o, m, l), which the merge turns into the output
+    part_o = torch.empty((b, kvh, g, splits, hd), dtype=torch.float32, device=q.device)
+    part_ml = torch.empty((2, b, kvh, g, splits), dtype=torch.float32, device=q.device)
     rc = _dense_lib()(qd.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
-                      out.data_ptr(), b, kvh, h // kvh, hd, s, hd ** -0.5, float(softcap),
-                      POOL_DTYPES[k.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+                      part_o.data_ptr(), part_ml[0].data_ptr(), part_ml[1].data_ptr(),
+                      out.data_ptr(),
+                      b, kvh, g, hd, s, splits, hd ** -0.5, float(softcap),
+                      POOL_DTYPES[k.dtype], POOL_DTYPES[q.dtype],
+                      torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "dense_attention")
     dense_attention_decode.launches += 1
-    return out.reshape(b, h, hd).to(q.dtype)
+    return out
 
 
 paged_attention_decode.launches = paged_attention_decode.int8_launches = 0

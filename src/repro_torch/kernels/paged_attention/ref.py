@@ -78,3 +78,27 @@ def dense_decode_ref(q, k, v, kv_len, *, softcap=0.0):
     qg = q.reshape(b, kvh, h // kvh, 1, hd)
     o = _masked_attn(qg, k, v, mask, hd ** -0.5, softcap).reshape(b, h, hd)
     return torch.where(kv_len[:, None, None] > 0, o, torch.zeros_like(o))
+
+
+def dense_split_ranges(kv_len, s: int, splits: int, chunk: int = 16):
+    """The key ranges ``[lo, hi)`` of each slot's ``splits`` splits, as the
+    dense decode kernel cuts them on the device: the live keys ``[0,
+    min(kv_len, s))`` in whole ``chunk``-key chunks, ``ceil(chunks /
+    splits)`` chunks a split; ``lo >= hi`` marks an empty split.  Returns
+    two int64 tensors ``[B, splits]``."""
+    n = kv_len.to(torch.int64).clamp(0, s)
+    per = -(-(-(-n // chunk)) // splits)  # chunks per split, ceil(ceil(n / chunk) / splits)
+    lo = torch.arange(splits, device=n.device)[None] * (per * chunk)[:, None]
+    return lo, torch.minimum(n[:, None], lo + (per * chunk)[:, None])
+
+
+def dense_merge_ref(o, m, l):
+    """Merge per-split partials as the dense decode kernel does: ``o
+    [..., splits, hd]`` unnormalised float32 sums, ``m``/``l [..., splits]``
+    running max and denominator, an empty split at ``m <= -1e30 / 2``.
+    Returns ``sum e^(m_i - M) o_i / max(sum e^(m_i - M) l_i, 1e-30)`` over
+    the non-empty splits, ``M = max m_i`` (zeros when all are empty)."""
+    live = m > -1e30 / 2
+    w = torch.where(live, torch.exp(m - m.amax(dim=-1, keepdim=True)), torch.zeros_like(m))
+    den = torch.clamp((w * l).sum(-1, keepdim=True), min=1e-30)
+    return (w[..., None] * o).sum(-2) / den

@@ -13,7 +13,9 @@ signs and stochastic accumulators bit-exact; paged attention float32
 kernel rounds p to bf16 before the PV product, like the reference
 kernel; the plain version keeps p in float32); on int8 pools float32
 1e-5 (both sides dequantize to the same float32 K/V and compute in
-float32); dense decode as paged decode; flash attention float32 1e-5,
+float32); dense decode as paged decode (split over the cache, the splits
+merged in float32; a bf16 output adds one rounding, within 2e-2 on these
+O(1) outputs); flash attention float32 1e-5,
 bf16 4e-3 + 2^-7 |want| per element (its plain version rounds p to bf16
 too, but against each row's final max where the kernel uses its running
 max, and both round the output to bf16: one output ulp, 2^-7 of |want| at
@@ -132,10 +134,15 @@ def test_int8_pool_kernels_match_plain_on_card(cuda, hd, g):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd", [16, 64, 128, 256])
 @pytest.mark.parametrize("g,s,window,softcap", [(1, 100, 0, 0.0), (2, 70, 24, 0.0),
-                                                (4, 37, 0, 30.0), (3, 130, 16, 5.0)])
+                                                (4, 37, 0, 30.0), (3, 130, 16, 5.0),
+                                                (3, 50, 40, 0.0), (1, 200, 64, 0.0),
+                                                (2, 129, 0, 20.0), (5, 77, 33, 3.0)])
 def test_flash_kernel_matches_plain_on_card(cuda, dtype, hd, g, s, window, softcap):
-    """Causal flash attention: GQA folds that straddle the 64-row tile,
-    windows, softcap, S not a multiple of the tiles; one launch counted."""
+    """Causal flash attention: GQA folds that straddle the 64-row tile
+    (fold boundaries inside a tile: 3 x 50, 5 x 77 rows), windows whose
+    edge falls inside a 64-key tile (16, 24, 33, 40) or on one (64),
+    softcap, S not a multiple of the tiles (37 .. 200, one key past two
+    tiles at 129); one launch counted."""
     rng = np.random.default_rng(2)
     kvh = 2
     q = rng.standard_normal((2, kvh * g, s, hd)).astype(np.float32)
@@ -147,6 +154,58 @@ def test_flash_kernel_matches_plain_on_card(cuda, dtype, hd, g, s, window, softc
     want = flash_attention_ref(tq, tk, tv, causal=True, window=window, softcap=softcap)
     atol, rtol = (1e-5, 0.0) if dtype == torch.float32 else (4e-3, 2.0 ** -7)
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 64, 128, 256])
+@pytest.mark.parametrize("window", [0, 40])
+def test_flash_kernel_non_causal_on_card(cuda, dtype, hd, window):
+    """Non-causal flash attention over whole reference key tiles (Sk 128,
+    50 queries, G 2), with and without a window; one launch counted."""
+    rng = np.random.default_rng(4)
+    q = rng.standard_normal((2, 4, 50, hd)).astype(np.float32)
+    k, v = (rng.standard_normal((2, 2, 128, hd)).astype(np.float32) for _ in range(2))
+    tq, tk, tv = (x.to(cuda, dtype) for x in _t(q, k, v))
+    before = fa_ops.flash_attention.launches
+    got = fa_ops.flash_attention(tq, tk, tv, causal=False, window=window)
+    assert fa_ops.flash_attention.launches == before + 1
+    want = flash_attention_ref(tq, tk, tv, causal=False, window=window)
+    atol, rtol = (1e-5, 0.0) if dtype == torch.float32 else (4e-3, 2.0 ** -7)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 256])
+@pytest.mark.parametrize("g", [1, 10])
+@pytest.mark.parametrize("kvh,s,fills,split", [
+    (1, 2048, (0, 1, 15, 16, 17, 270, 2047, 2048), True),
+    (32, 512, (0, 1, 15, 16, 17, 130, 270, 511, 512), False),
+], ids=["split", "one_split"])
+def test_dense_decode_splits_on_card(cuda, dtype, hd, g, kvh, s, fills, split):
+    """Dense decode split over the cache.  8 slots over one KV head of a
+    2048-position cache take many splits, and fills 0, 1, 15, 16, 17, 270,
+    2047 and 2048 leave splits empty or cut a chunk at its edge; 9 slots x
+    32 KV heads over 512 positions fill the card with one split per cache,
+    merged all the same.  Softcap; q in the cache dtype, so the merge
+    writes it.  One launch counted per call."""
+    rng = np.random.default_rng(5)
+    kv_len = np.asarray(fills, np.int32)
+    b = kv_len.size
+    q = rng.standard_normal((b, kvh * g, hd)).astype(np.float32)
+    k, v = (rng.standard_normal((b, kvh, s, hd)).astype(np.float32) for _ in range(2))
+    tq, tk, tv = (x.to(cuda, dtype) for x in _t(q, k, v))
+    tl = _t(kv_len)[0].to(cuda)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    assert (pa_ops.dense_split_plan(b, kvh, s, n_sm) > 1) == split
+    before = pa_ops.dense_attention_decode.launches
+    got = pa_ops.dense_attention_decode(tq, tk, tv, tl, softcap=5.0)
+    assert pa_ops.dense_attention_decode.launches == before + 1
+    assert got.dtype == dtype and not got[0].any()
+    want = dense_decode_ref(tq, tk, tv, tl, softcap=5.0)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want, atol=tol, rtol=0)
 
 
 @pytest.mark.gpu

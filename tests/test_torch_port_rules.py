@@ -130,6 +130,9 @@ def test_every_kernel_has_plain_version_counter_and_note():
         assert plain, f"{pkg}: ops.py does not use a plain version from ref.py"
         srcs = [s for s in _build.LIBRARIES[pkg]]
         assert srcs and all(os.path.exists(os.path.join(PORT, "kernels", s)) for s in srcs)
+    # every library's sources (a package may build more than one library)
+    for name, srcs in _build.LIBRARIES.items():
+        assert srcs and all(s.startswith(tuple(f"{p}/csrc/" for p in pkgs)) for s in srcs), name
         for s in srcs:
             with open(os.path.join(PORT, "kernels", s), encoding="utf-8") as f:
                 text = f.read()
