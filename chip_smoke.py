@@ -24,10 +24,16 @@ rings), checking that every request gets its tokens, the logits are
 finite, the prefix cache hits where it may, and that each serving run
 itself launched every kernel of its plan's path and no kernel of the
 other layout.  Reduced float32 models of both families are served on the
-card and on the CPU, and their greedy tokens compared.  The logs also
-give the redesigned kernels' shared memory (``[tiles]``), the dense
-decode's split count, and each profiled dense decode chunk's share of the
-dense decode kernels.  Any failure raises and exits non-zero.  The
+card and on the CPU, and their greedy tokens compared.  One int8
+product runs on ``wgmma`` with TMA-fed tiles at admission and on a
+weight-streaming kernel at decode: both are held bit for bit at every
+serving shape and at each kernel's edges, each model's decode step and
+admission pass are timed summed (admission beside ``torch._int_mm``),
+short admissions time the ``wgmma`` kernel split against unsplit, and
+every int8 serving run must launch both.  The logs also give the redesigned kernels' shared
+memory (``[tiles]``), the dense decode's split count, and each profiled
+decode chunk's dense decode and int8 GEMM kernels and fills.  Any
+failure raises and exits non-zero.  The
 line before the last is a JSON object with one entry per kernel; the last
 line is the device record.  Needs one CUDA device and
 the sources of this checkout; imports neither JAX nor the JAX package.
@@ -55,11 +61,18 @@ HBM_BYTES_S = 3.35e12  # H100 SXM: HBM3 bandwidth
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "popc": 16 * 132 * 1.98e9, "fp32": 67e12}
 D, F, V = 2048, 5632, 100352  # stablelm-1.6b d_model, d_ff, vocab
 BS, HD = 16, 64  # KV block size, head dim
-# (M, K, N) of the int8 GEMMs: one decode step at 8 slots (with how many
-# of each a step runs: 24 layers x q,k,v,o / up,gate / down, + lm_head),
-# and an admission prefill of ~3k suffix tokens (ragged M)
+# (M, K, N) of the int8 GEMMs -> how many of each one forward pass runs
+# (24 layers x q,k,v,o / up,gate / down, + lm_head): one decode step at 8
+# slots, and an admission prefill of ~3k suffix tokens (ragged M)
 DECODE_GEMMS = {(8, D, D): 24 * 4, (8, D, F): 24 * 2, (8, F, D): 24, (8, D, V): 1}
-PREFILL_GEMMS = [(1531, D, D), (3072, D, F), (3072, F, D), (1531, D, V)]
+PREFILL_GEMMS = {(1531, D, D): 24 * 4, (3072, D, F): 24 * 2, (3072, F, D): 24, (1531, D, V): 1}
+# each int8 GEMM kernel's edges (M, K, N): one activation row, 16 (two n8
+# tiles), 17 (wgmma on a split K), N past a tile, K past a step, few weight
+# rows with long K, ragged M, N and K at once, and K % 16 != 0 (the mma
+# kernel)
+INT8_EDGES = [(1, D, D), (16, D, D), (17, D, D), (8, D, 129), (8, 2064, D), (16, 12288, 40),
+              (1531, 2064, 129), (8, 2056, D), (1531, 2056, 129)]
+SRC_INT8 = "src/repro_torch/kernels/int8_matmul/csrc/int8_gemm_sm90.cu"
 DECODE_FILLS = [130, 170, 230, 290, 330, 370, 400, 410]  # kv_len of 8 slots mid-run
 # the sc plan runs every weight GEMM of DECODE_GEMMS through bts_encode +
 # stoch_matmul; its admission prefill packs 4 requests of up to 160 tokens
@@ -101,6 +114,13 @@ def held(got: torch.Tensor, want: torch.Tensor, atol: float, rtol: float = 0.0) 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def n_sm(dev) -> int:
+    """The device's SMs (an H100's 132 for a CPU rehearsal)."""
+    from repro_torch.kernels import _build
+
+    return _build.sm_count(dev.index or 0) if dev.type == "cuda" else 132
 
 
 def bound_ms(n_bytes: float, ops: float, kind: str):
@@ -207,12 +227,17 @@ def check_kernels(dev, g) -> None:
                 assert err <= tol, (name, hd, grp, err)
                 log(f"[paged prefill] {name} hd={hd} G={grp} S={s} starts {start.tolist()}: "
                     f"max|kernel-plain| {err:.2e} <= {tol}")
-    for m, k, n in list(DECODE_GEMMS) + PREFILL_GEMMS + list(RG_DECODE_GEMMS) + RG_PREFILL_GEMMS:
+    for m, k, n in [*DECODE_GEMMS, *PREFILL_GEMMS, *RG_DECODE_GEMMS, *RG_PREFILL_GEMMS,
+                    *INT8_EDGES]:
         x = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
         w_t = torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
+        plan = i8.int8_gemm_plan(m, n, k, n_sm(dev))
+        before = dict(i8.int8_gemm.paths)
         assert torch.equal(i8.int8_gemm(x, w_t), int8_matmul_acc_ref(x, w_t)), (m, k, n)
-        log(f"[int8 gemm] M={m} K={k} N={n}: int32 accumulators equal the plain "
-            "version bit for bit")
+        moved = {p for p, c in i8.int8_gemm.paths.items() if c != before[p]}
+        assert moved == ({plan.path} if dev.type == "cuda" else set()), (m, k, n, plan, moved)
+        log(f"[int8 gemm] M={m} K={k} N={n} ({plan.path}, grid {plan.grid}, {plan.splits} K "
+            "splits): int32 accumulators equal the plain version bit for bit")
 
 
 def time_kernels(dev, g, timer=time_ms) -> dict:
@@ -268,53 +293,92 @@ def time_kernels(dev, g, timer=time_ms) -> dict:
         f"{err:.2e} <= {BF16_TOL}; kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) library_ms none (no single "
         "PyTorch call attends through a block table)")
 
-    out["int8_gemm"] = time_int8_gemms(dev, g, "int8_gemm", DECODE_GEMMS, PREFILL_GEMMS, timer)
+    out.update(time_int8_gemms(dev, g, "int8_gemm", DECODE_GEMMS, PREFILL_GEMMS, timer))
     return out
 
 
-def time_int8_gemms(dev, g, name: str, decode: dict, prefill: list, timer=time_ms) -> dict:
-    """The int8 GEMM at one model's shapes: every weight GEMM of one decode
-    step (``decode``: (M, K, N) -> count per step) summed into the
-    kernel-table row ``name``, held bit for bit against the plain version,
-    and each admission shape of ``prefill`` timed beside ``torch._int_mm``
-    for the log."""
+def time_int8_gemms(dev, g, name: str, decode: dict, prefill: dict, timer=time_ms,
+                    plain_timer=time_ms) -> dict:
+    """The int8 GEMM at one model's shapes, two kernel-table rows: ``name``,
+    every weight GEMM of one decode step (``decode``: (M, K, N) -> count
+    per step; the stream kernel), and ``name_admission``, every weight GEMM
+    of one admission pass (``prefill``, counted the same way; the wgmma
+    kernel) beside ``torch._int_mm`` on the same operands.  Each shape is
+    held bit for bit against the plain version and timed; the rows sum
+    over the pass, the bound over the pass's bytes and operations."""
     from repro_torch.kernels.int8_matmul import ops as i8
     from repro_torch.kernels.int8_matmul.ref import int8_matmul_acc_ref
 
-    k_ms = p_ms = 0.0
-    n_bytes = ops = err = 0
-    for (m, k, n), count in decode.items():
-        x = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
-        w_t = torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
-        diff = i8.int8_gemm(x, w_t).long() - int8_matmul_acc_ref(x, w_t).long()
-        err = max(err, diff.abs().max().item())
-        t_k = timer(lambda: i8.int8_gemm(x, w_t))
-        t_p = timer(lambda: int8_matmul_acc_ref(x, w_t), reps=3)
-        k_ms += count * t_k
-        p_ms += count * t_p
-        n_bytes += count * (m * k + n * k + 4 * m * n)
-        ops += count * 2 * m * n * k
-        bb, _ = bound_ms(m * k + n * k + 4 * m * n, 2 * m * n * k, "int8")
-        log(f"[time {name}] M={m} K={k} N={n} x{count} per step: kernel_ms {t_k:.4f} "
-            f"plain_ms {t_p:.4f} bound_ms {bb:.4f} library_ms none (torch._int_mm "
-            "takes M > 16 only)")
-    assert err == 0, (name, "at decode shapes", err)
-    b_ms, b_by = bound_ms(n_bytes, ops, "int8")
-    log(f"[time {name}] all weight GEMMs of one decode step (M=8): kernel_ms {k_ms:.4f} "
-        f"plain_ms {p_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) library_ms none")
-    for m, k, n in prefill:
-        x = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
-        w_t = torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
-        t_k = timer(lambda: i8.int8_gemm(x, w_t), reps=5)
-        t_l = timer(lambda: torch._int_mm(x, w_t.t()), reps=5)
-        bb, by = bound_ms(m * k + n * k + 4 * m * n, 2 * m * n * k, "int8")
-        log(f"[time {name}] prefill M={m} K={k} N={n}: kernel_ms {t_k:.4f} bound_ms "
-            f"{bb:.4f} ({by}) library_ms {t_l:.4f} (torch._int_mm); kernel "
-            f"{2 * m * n * k / max(t_k, 1e-9) / 1e9:.1f} TOPS")
-    return dict(name=name, route="cuda", wrapper="int8_gemm",
-                source="src/repro_torch/kernels/int8_matmul/csrc/int8_matmul.cu",
-                replaces="src/repro/kernels/int8_matmul/kernel.py:38", max_abs_err=float(err),
-                ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    rows = {}
+    for phase, shapes in (("decode", decode), ("admission", prefill)):
+        k_ms = p_ms = l_ms = 0.0
+        n_bytes = ops = err = 0
+        paths = set()
+        for (m, k, n), count in shapes.items():
+            x = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+            w_t = torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
+            plan = i8.int8_gemm_plan(m, n, k, n_sm(dev))
+            paths.add(plan.path)
+            diff = i8.int8_gemm(x, w_t).long() - int8_matmul_acc_ref(x, w_t).long()
+            err = max(err, diff.abs().max().item())
+            del diff
+            t_k = timer(lambda: i8.int8_gemm(x, w_t), reps=10 if phase == "decode" else 5)
+            t_p = plain_timer(lambda: int8_matmul_acc_ref(x, w_t),
+                              reps=3 if phase == "decode" else 1)
+            k_ms += count * t_k
+            p_ms += count * t_p
+            b_shape = m * k + n * k + 4 * m * n
+            n_bytes += count * b_shape
+            ops += count * 2 * m * n * k
+            bb, by = bound_ms(b_shape, 2 * m * n * k, "int8")
+            if phase == "decode":
+                lib = "library_ms none (torch._int_mm takes M > 16 only)"
+            else:
+                t_l = timer(lambda: torch._int_mm(x, w_t.t()), reps=5)
+                l_ms += count * t_l
+                lib = f"library_ms {t_l:.4f} (torch._int_mm, kernel/library {t_k / t_l:.2f}x)"
+            log(f"[time {name}] {phase} M={m} K={k} N={n} x{count} per pass ({plan.path}, "
+                f"grid {plan.grid}, {plan.splits} K splits): kernel_ms {t_k:.4f} "
+                f"plain_ms {t_p:.4f} bound_ms {bb:.4f} ({by}, {bb / t_k:.1%} of it) "
+                f"{lib}; "
+                f"{2 * m * n * k / max(t_k, 1e-9) / 1e9:.1f} TOPS")
+            del x, w_t
+        assert err == 0, (name, phase, err)
+        b_ms, b_by = bound_ms(n_bytes, ops, "int8")
+        lib = (f"library_ms {l_ms:.4f} (torch._int_mm summed the same way, kernel/library "
+               f"{k_ms / l_ms:.2f}x)" if phase == "admission" else "library_ms none")
+        log(f"[time {name}] all weight GEMMs of one {phase} pass, weighted by their counts "
+            f"(path {'/'.join(sorted(paths))}): kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} "
+            f"bound_ms {b_ms:.4f} ({b_by}, {b_ms / k_ms:.1%} of it) {lib}")
+        row = name if phase == "decode" else f"{name}_admission"
+        kernel = "stream" if phase == "decode" else "wgmma"
+        rows[row] = dict(
+            name=row, route="cuda", wrapper=f"int8_gemm_{kernel}",
+            source=SRC_INT8, replaces="src/repro/kernels/int8_matmul/kernel.py:38",
+            max_abs_err=float(err), ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=l_ms if phase == "admission" else None)
+        _free(dev)
+
+    # short admissions (one and two 128-row tiles), where the plan may split
+    # K: the wgmma kernel unsplit and split to about one block per SM, each
+    # held bit for bit; int8_gemm_plan's split rule is set from these times
+    for m in (64, 256):
+        for (_, k, n), count in prefill.items():
+            if count == 1:  # the head: its tiles fill the card at any M
+                continue
+            x = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+            w_t = torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
+            ref = int8_matmul_acc_ref(x, w_t)
+            plan = i8.int8_gemm_plan(m, n, k, n_sm(dev))
+            times = []
+            for want in (0, n_sm(dev)):
+                p = i8.wgmma_plan(m, n, k, want)
+                assert torch.equal(i8.run_plan(x, w_t, p), ref), (name, m, k, n, p.splits)
+                times.append(f"{p.splits} splits {timer(lambda: i8.run_plan(x, w_t, p)):.4f} ms")
+            log(f"[time {name}] short admission M={m} K={k} N={n}, {plan.grid[0] * plan.grid[1]} "
+                f"tiles: wgmma {', '.join(times)}; the plan takes {plan.splits} splits")
+            del x, w_t, ref
+    return rows
 
 
 def _codes(g, dev, *shape) -> torch.Tensor:
@@ -783,13 +847,13 @@ RG_D, RG_HD, RG_H, RG_WINDOW, RG_F, RG_V = 2560, 256, 10, 2048, 7680, 256000
 RG_DECODE_GEMMS = {(8, RG_D, 2 * RG_D): 18, (8, RG_D, RG_D): 18 * 3 + 8 * 2,
                    (8, RG_D, RG_HD): 8 * 2, (8, RG_D, RG_F): 26 * 2, (8, RG_F, RG_D): 26,
                    (8, RG_D, RG_V): 1}
-RG_PREFILL_GEMMS = [(8 * 256, k, n) for _, k, n in RG_DECODE_GEMMS]
+RG_PREFILL_GEMMS = {(8 * 256, k, n): c for (_, k, n), c in RG_DECODE_GEMMS.items()}
 RG_SHAPES = [(3, 37, 130), (8, 256, RG_D), (8, 2048, RG_D)]
 RG_TOL = 2e-5
 RG_DECODE_FILLS = [260, 264, 268, 272, 276, 280, 284, 288]  # kv_len of 8 slots mid-run
 # kernel rows timed at recurrentgemma's shapes: their launches are the rg runs'
 RG_ROWS = ("rglru_scan", "flash_attention_hd256", "dense_attention_decode_hd256",
-           "int8_gemm_rg")
+           "int8_gemm_rg", "int8_gemm_rg_admission")
 
 
 def check_rglru(dev, g) -> None:
@@ -964,21 +1028,24 @@ def make_sc_prompts(vocab: int, rng) -> list:
 # the kernels each plan's serving path must launch: qk/pv run in the paged
 # kernel when exact (its int8 branch on an int8 pool); under mixed they are
 # int8 and take the gathered view; on dense caches (-dense) prefill runs the
-# flash kernel and decode the dense decode kernel
+# flash kernel and decode the dense decode kernel.  The int8 GEMM's
+# admissions (M > 16) take its wgmma kernel and its decode steps (8 slots)
+# the weight-streaming kernel.
+INT8_KERNELS = ("int8_gemm", "int8_gemm_wgmma", "int8_gemm_stream")
 PLAN_KERNELS = {
     "exact": ("paged_attention_decode", "paged_attention_prefill"),
-    "int8": ("paged_attention_decode", "paged_attention_prefill", "int8_gemm"),
+    "int8": ("paged_attention_decode", "paged_attention_prefill") + INT8_KERNELS,
     "sc": ("paged_attention_decode", "paged_attention_prefill", "bts_encode",
            "stoch_matmul_packed"),
     "mixed": ("bts_encode", "stoch_matmul_packed", "int8_gemm_batched"),
     "exact-kvq": ("paged_attention_decode", "paged_attention_prefill",
                   "paged_attention_decode_int8", "paged_attention_prefill_int8"),
     "int8-kvq": ("paged_attention_decode", "paged_attention_prefill",
-                 "paged_attention_decode_int8", "paged_attention_prefill_int8", "int8_gemm"),
+                 "paged_attention_decode_int8", "paged_attention_prefill_int8") + INT8_KERNELS,
     "exact-dense": ("flash_attention", "dense_attention_decode"),
-    "int8-dense": ("flash_attention", "dense_attention_decode", "int8_gemm"),
+    "int8-dense": ("flash_attention", "dense_attention_decode") + INT8_KERNELS,
     "rg-exact": ("flash_attention", "dense_attention_decode", "rglru_scan"),
-    "rg-int8": ("flash_attention", "dense_attention_decode", "rglru_scan", "int8_gemm"),
+    "rg-int8": ("flash_attention", "dense_attention_decode", "rglru_scan") + INT8_KERNELS,
 }
 # kernels of one KV layout, which a serving run on the other must not launch
 LAYOUT_KERNELS = {
@@ -1117,8 +1184,9 @@ def profile_decode_chunk(cfg, params, prompts, dev, runs, kv_block_size: int = B
     """Where a decode chunk's time goes: one engine round of 8 decode steps
     (8 slots, up to 8 of them busy) under ``torch.profiler`` — host time of
     the round against the device time of the kernels it ran (their sum over
-    the round; the rest of the round the device is idle), and on dense
-    caches the dense decode kernels' share of that device time."""
+    the round; the rest of the round the device is idle), on dense caches
+    the dense decode kernels' share of that device time, and the int8 GEMM
+    kernels and the fill/memset kernels the round ran."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve import ServeConfig, ServeEngine
@@ -1138,19 +1206,35 @@ def profile_decode_chunk(cfg, params, prompts, dev, runs, kv_block_size: int = B
             engine.step()  # a pure decode chunk: 8 steps
             _sync(dev)
             host_ms = (time.perf_counter() - t0) * 1e3
-        rows = [(getattr(e, "self_device_time_total", 0.0), e.key, e.count)
-                for e in prof.key_averages()]
-        dev_ms = sum(r[0] for r in rows) / 1e3
+        events = prof.key_averages()
+        rows = [(getattr(e, "self_device_time_total", 0.0), e.key, e.count) for e in events]
+        # the device rows alone (kernels, memsets, copies: device_type CUDA),
+        # so each device event counts once and not again in the CPU op above it
+        on_dev = [r for e, r in zip(events, rows)
+                  if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+        once_ms = sum(r[0] for r in on_dev) / 1e3
         top = sorted(rows, reverse=True)[:5]
-        share = f"{dev_ms / host_ms:.1%}" if dev_ms > 0 else "not measured"
-        dense = [r for r in rows if "dense_split_kernel" in r[1] or "dense_merge_kernel" in r[1]]
+        share = f"{once_ms / host_ms:.1%}" if once_ms > 0 else "not measured"
+        dense = [r for r in on_dev if "dense_split_kernel" in r[1] or "dense_merge_kernel" in r[1]]
         dense_ms = sum(r[0] for r in dense) / 1e3
-        dense_line = (f"; dense decode kernels {dense_ms:.2f} ms ({dense_ms / dev_ms:.1%} of the "
+        dense_line = (f"; dense decode kernels {dense_ms:.2f} ms ({dense_ms / once_ms:.1%} of the "
                       f"device time, {sum(r[2] for r in dense)} launches of the split and "
-                      "merge kernels)") if dense and dev_ms > 0 else ""
+                      "merge kernels)") if dense and once_ms > 0 else ""
+        # the int8 GEMM's kernels, and every fill or memset kernel the chunk
+        # ran: a GEMM zeroing its output would add one per GEMM against the
+        # same chunk under exact (a dynamic activation scale adds one too:
+        # quantize's ones_like)
+        gemm = [r for r in on_dev if "int8_gemm" in r[1]]
+        fills = [r for r in on_dev if "fill" in r[1].lower() or "memset" in r[1].lower()]
+        if gemm:
+            dense_line += (f"; int8 GEMM kernels {sum(r[0] for r in gemm) / 1e3:.2f} ms over "
+                           f"{sum(r[2] for r in gemm)} launches ("
+                           + ", ".join(f"{r[1][:48]} x{r[2]}" for r in gemm) + ")")
+        dense_line += (f"; fill/memset kernels: {sum(r[2] for r in fills)} launches ("
+                       + (", ".join(f"{r[1][:72]} x{r[2]}" for r in fills) or "none") + ")")
         log(f"[profile {label}] one decode chunk (8 steps x 8 slots, {busy} busy): host "
-            f"{host_ms:.1f} ms "
-            f"(profiled), device kernels {dev_ms:.2f} ms, device busy {share}{dense_line}; top: "
+            f"{host_ms:.1f} ms (profiled), device kernels {once_ms:.2f} ms, device busy "
+            f"{share}{dense_line}; top: "
             + "; ".join(f"{k[:48]} {t / 1e3:.2f} ms x{c}" for t, k, c in top))
         del engine
         _free(dev)
@@ -1282,8 +1366,7 @@ def serve_rg(cfg, dev) -> dict:
     agree = (tokens["rg-int8"] == tokens["rg-exact"]).mean()
     log(f"[agreement rg-int8] greedy tokens equal to rg-exact: {agree:.1%} (reported, not "
         "gated: random weights at bf16)")
-    profile_decode_chunk(cfg, params, prompts, dev, runs[:1], kv_block_size=0,
-                         max_len=cfg.window)
+    profile_decode_chunk(cfg, params, prompts, dev, runs, kv_block_size=0, max_len=cfg.window)
     del params
     _free(dev)
     return launches
@@ -1328,6 +1411,10 @@ def log_tiles() -> None:
 
     flash = _build.load("flash_attention").flash_attention_smem_bytes
     dense = _build.load("dense_decode").dense_attention_smem_bytes
+    int8 = _build.load("int8_gemm_sm90").int8_gemm_smem_bytes
+    log(f"[tiles] int8 GEMM: wgmma kernel {int8(0)} B (3 stages of 128 x 128-byte X and Wt "
+        f"slabs); stream kernel M <= 8 / M <= 16: {int8(1)} / {int8(2)} B (4 warps x 6 stages "
+        "of 16 weight rows and the X rows, 128 K bytes each)")
     for hd in HEAD_DIMS_ALL:
         log(f"[tiles] hd {hd}: flash bf16 {flash(hd, 1)} B, float32 {flash(hd, 0)} B; dense "
             f"decode split kernel bf16 G 1/4/10 {dense(hd, 1, 1)}/{dense(hd, 1, 4)}/"
@@ -1389,6 +1476,8 @@ def main() -> None:
                 spill = line.strip()
             elif "registers" in line:
                 log(f"[ptxas {name}] {entry}: {line.split(':', 1)[-1].strip()}; {spill}")
+            elif "wgmma" in line or "warning" in line.lower():
+                log(f"[ptxas {name}] {line.strip()}")
 
     log_tiles()
     g = torch.Generator(device=dev).manual_seed(1234)
@@ -1401,8 +1490,7 @@ def main() -> None:
     kernels = {**time_kernels(dev, g), **time_int8_pool(dev, g), **time_dense(dev, g),
                **time_stochastic(dev, g), **time_rglru(dev, g),
                **time_wide_attention(dev, g),
-               "int8_gemm_rg": time_int8_gemms(dev, g, "int8_gemm_rg", RG_DECODE_GEMMS,
-                                               RG_PREFILL_GEMMS)}
+               **time_int8_gemms(dev, g, "int8_gemm_rg", RG_DECODE_GEMMS, RG_PREFILL_GEMMS)}
 
     cfg = get_arch("stablelm-1.6b")
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff, cfg.vocab,

@@ -8,7 +8,10 @@ On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
 launches the kernel or raises.
 
 * ``int8_matmul``     — int8 x int8 -> int32 GEMM on the tensor cores,
-  one product or a batch of them per launch
+  one product or a batch of them per launch; one product runs on
+  ``wgmma`` with TMA-fed tiles at admission and streams the weight at
+  decode (``csrc/int8_gemm_sm90.cu``, its own library), the batch and a K
+  that is not a multiple of 16 on ``mma.sync`` tiles
   (replaces ``repro.kernels.int8_matmul``)
 * ``paged_attention`` — streaming-softmax decode and causal suffix
   prefill straight from the paged KV pool through the block table
@@ -33,7 +36,9 @@ launches the kernel or raises.
 clear every wrapper's launch counter, so a harness can count what one
 run launched.  The paged-attention wrappers' launches on int8 pools (the
 kernel's dequantizing branch) are also counted apart, as
-``paged_attention_decode_int8`` and ``paged_attention_prefill_int8``.
+``paged_attention_decode_int8`` and ``paged_attention_prefill_int8``, and
+``int8_gemm``'s launches by the kernel they took, as ``int8_gemm_wgmma``,
+``int8_gemm_stream`` and ``int8_gemm_mma``.
 """
 
 # counters of a wrapper's int8-pool branch -> the wrapper that keeps them
@@ -70,6 +75,9 @@ def reset_launches() -> None:
         fn.launches = 0
     for parent in INT8_BRANCHES.values():
         wrappers[parent].int8_launches = 0
+    paths = wrappers["int8_gemm"].paths
+    for path in paths:
+        paths[path] = 0
 
 
 def launch_counts() -> dict:
@@ -77,4 +85,5 @@ def launch_counts() -> dict:
     counts = {name: fn.launches for name, fn in wrappers.items()}
     counts.update({name: wrappers[parent].int8_launches
                    for name, parent in INT8_BRANCHES.items()})
+    counts.update({f"int8_gemm_{path}": c for path, c in wrappers["int8_gemm"].paths.items()})
     return counts

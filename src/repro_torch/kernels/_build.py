@@ -4,10 +4,11 @@ the launch helpers the wrappers share (``check``, ``sm_count``, ``split_k``).
 Each kernel package keeps its sources under ``csrc/``.  At first use the
 sources are compiled for Hopper (``sm_90a``) into a shared library with a
 plain C interface, cached under ``build/torch_kernels/`` in the checkout
-(listed in ``.gitignore``) and keyed by a hash of the sources and flags,
-so an edited source rebuilds and an unchanged one loads at once.  Nothing
-is compiled at import time: the CPU tests import every module and never
-reach a build.
+(listed in ``.gitignore``) and keyed by a hash of the flags, the sources
+and every header they include (``common/hopper.cuh`` is shared by three
+libraries), so an edited source or header rebuilds and an unchanged one
+loads at once.  Nothing is compiled at import time: the CPU tests import
+every module and never reach a build.
 
 :func:`build_all` starts one ``nvcc`` per library at the same time and
 waits for all of them, so a fresh checkout pays for the slowest build,
@@ -19,6 +20,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -38,6 +40,7 @@ HEAD_DIMS = (16, 64, 128, 256)
 # library name -> sources (relative to this package)
 LIBRARIES: Dict[str, Tuple[str, ...]] = {
     "int8_matmul": ("int8_matmul/csrc/int8_matmul.cu",),
+    "int8_gemm_sm90": ("int8_matmul/csrc/int8_gemm_sm90.cu",),
     "paged_attention": ("paged_attention/csrc/paged_attention.cu",),
     "dense_decode": ("paged_attention/csrc/dense_decode.cu",),
     "flash_attention": ("flash_attention/csrc/flash_attention.cu",),
@@ -62,11 +65,32 @@ def _nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def headers(name: str) -> List[Path]:
+    """The headers that library ``name``'s sources include with quotes
+    (``#include "..."``, resolved against the including file's directory),
+    and the headers those include, in the order first met."""
+    found: List[Path] = []
+    todo = [_PKG / s for s in LIBRARIES[name]]
+    while todo:
+        f = todo.pop(0)
+        for inc in _INCLUDE.findall(f.read_text(encoding="utf-8")):
+            path = (f.parent / inc).resolve()
+            if path not in found:
+                found.append(path)
+                todo.append(path)
+    return found
+
+
 def _target(name: str) -> Tuple[Path, List[Path]]:
+    """The cached library's path, keyed by the flags and the bytes of the
+    sources and of every header they include, and the sources."""
     srcs = [_PKG / s for s in LIBRARIES[name]]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
-        h.update(s.read_bytes())
+    for f in srcs + headers(name):
+        h.update(f.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so", srcs
 
 

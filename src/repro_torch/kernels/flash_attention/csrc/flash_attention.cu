@@ -70,7 +70,11 @@
 
 #include <type_traits>
 
+#include "../../common/hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int THREADS = 128;  // float32 kernel
 constexpr int RT = 64;  // query rows per block
@@ -293,71 +297,6 @@ struct Bf16Cfg {
   static constexpr size_t bytes = 1024 + BAR + (2 * STAGES + 1) * 8;  // + base alignment
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-// returns once the barrier's phase of the given parity has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// one box {64 columns, 64 rows, 1} of a [planes, rows, cols] tensor at
-// (col, row, plane) into shared memory, completing bytes on bar
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int col,
-                                         int row, int plane, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(plane), "r"(bar)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte swizzled tile: 8-row groups
-// 1024 bytes apart (SBO), layout type 1 (128B swizzle).  The leading offset
-// is unused: every product reads one 64-column atom along its swizzled
-// dimension (K-major Q and K: 16 columns at a k-step; MN-major V: N = 64).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keeps the compiler from moving reads or writes of the accumulator across
-// the asynchronous product's issue and wait
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
 #define WGMMA_D32                                                                         \
   "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),   \
       "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),        \
@@ -436,7 +375,7 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap map_q,  // [BH, 
       mbar_init(empty(st), CONSUMERS);
     }
     mbar_init(q_bar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -444,7 +383,7 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap map_q,  // [BH, 
     if (lane == 0) {
       mbar_expect_tx(q_bar, C::Q_BYTES);
       for (int c = 0; c < NCH; ++c)
-        tma_load(q_s + c * TILE_BYTES, &map_q, c * CHUNK, r0, bh, q_bar);
+        tma_load_3d(q_s + c * TILE_BYTES, &map_q, c * CHUNK, r0, bh, q_bar);
       for (int t = 0; t < n_tiles; ++t) {
         const int st = t % STAGES;
         if (t >= STAGES) mbar_wait(empty(st), ((t / STAGES) - 1) & 1);
@@ -452,8 +391,8 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap map_q,  // [BH, 
         const uint32_t ks = ring + st * C::STAGE_BYTES, vs = ks + NCH * TILE_BYTES;
         const int kb = k_lo + t * BN;  // rows past Sk arrive as zeros
         for (int c = 0; c < NCH; ++c) {
-          tma_load(ks + c * TILE_BYTES, &map_k, c * CHUNK, kb, bh, full(st));
-          tma_load(vs + c * TILE_BYTES, &map_v, c * CHUNK, kb, bh, full(st));
+          tma_load_3d(ks + c * TILE_BYTES, &map_k, c * CHUNK, kb, bh, full(st));
+          tma_load_3d(vs + c * TILE_BYTES, &map_v, c * CHUNK, kb, bh, full(st));
         }
       }
     }
@@ -602,47 +541,14 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap map_q,  // [BH, 
   }
 }
 
-// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
-// (no link against libcuda)
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                           cudaEnableDefault, &found);
-#else
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiledFn>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // TMA map of a contiguous bf16 [planes, rows, D] tensor, read in boxes of 64
 // columns x 64 rows, 128-byte swizzled; coordinates past the tensor read as
 // zeros.  Returns 0 or 10000 + the CUresult.
 int encode_map(CUtensorMap* map, const void* ptr, int D, int rows, int planes) {
-  const EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(planes)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
-                                 static_cast<cuuint64_t>(rows) * D * 2};
-  const cuuint32_t box[3] = {CHUNK, 64, 1}, step[3] = {1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
-                            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : 10000 + static_cast<int>(r);
+  const cuuint32_t box[3] = {CHUNK, 64, 1};
+  return encode_swizzled_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 3, ptr, dims, box);
 }
 
 template <typename T, int D>

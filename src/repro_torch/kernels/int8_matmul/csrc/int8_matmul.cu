@@ -23,8 +23,11 @@
 // stays bit-identical to the plain version.  A separate instantiation runs
 // gridDim.z over a batch of independent products as well (the attention
 // qk/pv products of every slot and KV head under a quantized plan, one
-// launch per layer and site).  Not yet here: wgmma, TMA and
-// a multi-stage pipeline (loads and math of one block do not overlap).
+// launch per layer and site).  This kernel serves the batched entry and
+// the single product when K % 16 != 0; every other single product runs in
+// int8_gemm_sm90.cu (wgmma + TMA at admission, weight streaming at
+// decode), as ops.int8_gemm_plan picks.  Loads and math of one block do not
+// overlap here.
 #include <cuda_runtime.h>
 #include <stdint.h>
 

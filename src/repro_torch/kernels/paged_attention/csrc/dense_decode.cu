@@ -62,7 +62,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "../../common/hopper.cuh"
+
 namespace {
+
+using hopper::cp_async16;
+using hopper::cp_async_commit;
+using hopper::cp_async_wait;
+using hopper::smem_u32;
 
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
@@ -91,21 +98,6 @@ template <> __device__ __forceinline__ float round_p<__nv_bfloat16>(float v) {
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
-
-// 16 bytes global -> shared, zero-filled when !valid (nothing is read then)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 template <typename T, int D>
 struct Geom {
@@ -251,7 +243,7 @@ dense_split_kernel(const T* __restrict__ q,        // [B, KVH, G, D]
         const int kp = lo + c * CK + j;
         const bool ok = kp < hi;
         const T* src = (which ? v : k) + (kv0 + (ok ? kp : lo)) * D + dv;
-        cp_async16(st + (which * CK + j) * D + dv, src, ok);
+        cp_async16(smem_u32(st + (which * CK + j) * D + dv), src, ok);
       }
     }
     cp_async_commit();  // empty groups keep the count uniform

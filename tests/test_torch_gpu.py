@@ -7,7 +7,8 @@ without JAX:
 
   PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 
-Tolerances: int8 accumulators (one product or a batch), stream words,
+Tolerances: int8 accumulators (one product on each of its three kernels,
+or a batch), stream words,
 signs and stochastic accumulators bit-exact; paged attention float32
 1e-5 (same math, keys streamed in chunks with rescaling), bf16 2e-2 (the
 kernel rounds p to bf16 before the PV product, like the reference
@@ -67,13 +68,32 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,k,n", [(8, 2048, 2048), (8, 5632, 2048), (37, 320, 200),
-                                   (257, 2048, 5632), (5, 100, 33), (70, 1000, 129)])
-def test_int8_kernel_bit_exact_on_card(cuda, m, k, n):
+@pytest.mark.parametrize("m,k,n,path", [
+    (8, 2048, 2048, "stream"), (8, 5632, 2048, "stream"), (37, 320, 200, "wgmma"),
+    (257, 2048, 5632, "wgmma"), (5, 100, 33, "mma"), (70, 1000, 129, "mma"),
+    # each path's edges: one activation row, 16 (two n8 tiles), 17 (the
+    # wgmma path on a split K), N past a tile, K past a step, few weight
+    # rows with long K (the stream kernel's warps split it), ragged M with
+    # unsplit K, the lm_head
+    (1, 2048, 2048, "stream"), (16, 2048, 2048, "stream"), (17, 2048, 2048, "wgmma"),
+    (8, 2048, 129, "stream"), (8, 2064, 2048, "stream"), (3, 16, 5, "stream"),
+    (12, 9600, 40, "stream"), (8, 15360, 64, "stream"), (16, 12288, 40, "stream"),
+    (12, 4608, 17000, "stream"), (1531, 2064, 129, "wgmma"),
+    (1531, 2048, 2048, "wgmma"),
+    (8, 2048, 100352, "stream"), (16, 100, 40, "mma"), (300, 17, 300, "mma")])
+def test_int8_kernel_bit_exact_on_card(cuda, m, k, n, path):
+    """One product on the kernel :func:`int8_gemm_plan` picks, twice in a
+    row: int32 accumulators equal the plain version's, and that kernel's
+    counter moved by two."""
     g = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randint(-127, 128, (m, k), generator=g, device=cuda, dtype=torch.int8)
     w_t = torch.randint(-127, 128, (n, k), generator=g, device=cuda, dtype=torch.int8)
-    assert torch.equal(int8_ops.int8_gemm(x, w_t), int8_matmul_acc_ref(x, w_t))
+    want = int8_matmul_acc_ref(x, w_t)
+    before = dict(int8_ops.int8_gemm.paths)
+    for _ in range(2):
+        assert torch.equal(int8_ops.int8_gemm(x, w_t), want)
+    moved = {p: c - before[p] for p, c in int8_ops.int8_gemm.paths.items() if c != before[p]}
+    assert moved == {path: 2}, moved
 
 
 @pytest.mark.gpu

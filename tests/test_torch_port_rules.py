@@ -208,3 +208,26 @@ def test_rglru_scan_wrapper_follows_the_port_rules():
         text = f.read()
     assert "Replaces: src/repro/kernels/rglru_scan/kernel.py :: rglru_scan_kernel" in text
     assert "sm_90a" in text and "__global__" in text
+
+
+def test_build_key_covers_included_headers(tmp_path, monkeypatch):
+    """A library's build key hashes the headers its sources include, so
+    editing the shared Hopper header rebuilds the libraries that include
+    it (flash attention, dense decode and the sm_90 int8 GEMM) and no
+    other."""
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    users = {n for n in _build.LIBRARIES
+             if any(p.name == "hopper.cuh" for p in _build.headers(n))}
+    assert users == {"flash_attention", "dense_decode", "int8_gemm_sm90"}
+    copy = tmp_path / "kernels"
+    shutil.copytree(os.path.join(PORT, "kernels"), copy,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    monkeypatch.setattr(_build, "_PKG", copy)
+    before = {n: _build._target(n)[0] for n in _build.LIBRARIES}
+    with open(copy / "common" / "hopper.cuh", "a", encoding="utf-8") as f:
+        f.write("\n// edited\n")
+    after = {n: _build._target(n)[0] for n in _build.LIBRARIES}
+    assert {n for n in before if before[n] != after[n]} == users
