@@ -15,7 +15,7 @@ kernel, on ``wgmma`` with TMA-fed K/V tiles, and the dense-decode kernel,
 split over the cache and merged), calibrates static scales with
 ``Model.calibrate`` and serves the calibrated ``int8`` plan and the
 ``exact`` plan on an int8 KV pool (``int8-kvq``, ``exact-kvq``: the
-paged kernel's dequantizing branch), then serves full-width
+paged kernels' dequantizing branch), then serves full-width
 recurrentgemma-2b (RG-LRU + sliding-window local attention, head dim
 256) on dense per-slot caches under ``exact`` and ``int8`` (``rg-exact``,
 ``rg-int8``: the ``rglru_scan`` kernel in every recurrent layer's
@@ -30,7 +30,13 @@ weight-streaming kernel at decode: both are held bit for bit at every
 serving shape and at each kernel's edges, each model's decode step and
 admission pass are timed summed (admission beside ``torch._int_mm``),
 short admissions time the ``wgmma`` kernel split against unsplit, and
-every int8 serving run must launch both.  The logs also give the redesigned kernels' shared
+every int8 serving run must launch both.  Every paged admission runs the
+causal prefill kernels of ``paged_prefill.cu`` (``wgmma`` tiles gathered
+through the block table for a bf16 pool, float32 FMA tiles for float32
+and int8 pools): checked on every pool, head dim and block sizes 8, 12,
+16 and 128 (``[paged prefill]``), timed at a cold and a warm admission
+beside flash attention at the cold shape (``[time paged prefill]``).
+The logs also give the redesigned kernels' shared
 memory (``[tiles]``), the dense decode's split count, and each profiled
 decode chunk's dense decode and int8 GEMM kernels and fills.  Any
 failure raises and exits non-zero.  The
@@ -97,6 +103,16 @@ INT8_POOL_TOL = F32_TOL
 # on outputs in [2, 4)).  Dense decode as paged decode (F32_TOL /
 # BF16_TOL): its output stays float32, and only its p is rounded to bf16.
 FLASH_BF16 = (4e-3, 2.0 ** -7)
+# causal paged prefill checks: block sizes 8, 12 (not a multiple of 8), 16
+# (the serving pool's) and 128 (a 64-key tile inside one block); suffix
+# lengths 1, 37 (fold boundaries inside a 64-row tile) and 65 (a row past
+# a tile)
+PREFILL_BLOCKS = (8, 12, 16, 128)
+PREFILL_LENS = (1, 37, 65)
+# the warm admission: 8 suffixes of 128 after a shared 256-token prefix
+# already in the pool (what the prefix-sharing requests send)
+WARM_PREFIX, WARM_S = 256, 128
+SRC_PREFILL = "src/repro_torch/kernels/paged_attention/csrc/paged_prefill.cu"
 DENSE_S = 512  # dense cache positions per slot: the serving runs' max_len
 WIDE_HDS = (128, 256)  # the head dims beyond stablelm's, checked on every attention kernel
 HEAD_DIMS_ALL = (16, HD) + WIDE_HDS  # every head dim the attention kernels are built for
@@ -189,7 +205,7 @@ def check_kernels(dev, g) -> None:
     from repro_torch.kernels.int8_matmul import ops as i8
     from repro_torch.kernels.int8_matmul.ref import int8_matmul_acc_ref
     from repro_torch.kernels.paged_attention import ops as pa
-    from repro_torch.kernels.paged_attention.ref import paged_decode_ref, paged_prefill_ref
+    from repro_torch.kernels.paged_attention.ref import paged_decode_ref
 
     def randn(*shape, dtype):
         return torch.randn(*shape, generator=g, device=dev).to(dtype)
@@ -215,18 +231,6 @@ def check_kernels(dev, g) -> None:
                     assert not got[0].any(), "kv_len 0 must give zeros"
                     log(f"[paged decode] {name} hd={hd} G={grp} softcap={softcap} kv_len "
                         f"{kv_len.tolist()}: max|kernel-plain| {err:.2e} <= {tol}")
-            for grp in (1, 4):
-                kvh, w, nb, s = 4, 8, 64, 37
-                start = torch.tensor([0, 7, BS, BS + 9, 3 * BS], dtype=torch.int32, device=dev)
-                table = torch.randint(1, nb, (5, w), generator=g, device=dev, dtype=torch.int32)
-                q = randn(5, kvh * grp, s, hd, dtype=dtype)
-                kp, vp = randn(nb, kvh, BS, hd, dtype=dtype), randn(nb, kvh, BS, hd, dtype=dtype)
-                got = pa.paged_attention_prefill(q, kp, vp, table, start, softcap=0.0)
-                want = paged_prefill_ref(q, kp, vp, table, start, softcap=0.0)
-                err = (got.float() - want).abs().max().item()
-                assert err <= tol, (name, hd, grp, err)
-                log(f"[paged prefill] {name} hd={hd} G={grp} S={s} starts {start.tolist()}: "
-                    f"max|kernel-plain| {err:.2e} <= {tol}")
     for m, k, n in [*DECODE_GEMMS, *PREFILL_GEMMS, *RG_DECODE_GEMMS, *RG_PREFILL_GEMMS,
                     *INT8_EDGES]:
         x = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
@@ -245,7 +249,7 @@ def time_kernels(dev, g, timer=time_ms) -> dict:
     and held there against its plain version (bf16 attention within
     ``BF16_TOL``, the int8 GEMM bit for bit)."""
     from repro_torch.kernels.paged_attention import ops as pa
-    from repro_torch.kernels.paged_attention.ref import paged_decode_ref, paged_prefill_ref
+    from repro_torch.kernels.paged_attention.ref import paged_decode_ref
 
     out = {}
     src_pa = "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu"
@@ -273,27 +277,83 @@ def time_kernels(dev, g, timer=time_ms) -> dict:
         f"{b_ms:.4f} ({b_by}) library_ms none (no single PyTorch call attends through a "
         "block table)")
 
-    s = 384  # 8 cold suffixes of 384 tokens: one admission prefill
-    start = torch.zeros(8, dtype=torch.int32, device=dev)
-    qs = torch.randn(8, h, s, HD, generator=g, device=dev).bfloat16()
-    tbl = table[:, : s // BS].contiguous()
-    k_ms = timer(lambda: pa.paged_attention_prefill(qs, kp, vp, tbl, start), reps=5)
-    p_ms = timer(lambda: paged_prefill_ref(qs, kp, vp, tbl, start), reps=3)
-    err = (pa.paged_attention_prefill(qs, kp, vp, tbl, start).float()
-           - paged_prefill_ref(qs, kp, vp, tbl, start)).abs().max().item()
-    assert err <= BF16_TOL, ("paged prefill at serving shapes", err)
-    pairs =8 * s * (s + 1) // 2  # causal (row, key) pairs per head
-    n_bytes = 2 * qs.numel() * 2 + 2 * 8 * s * kvh * HD * 2 + tbl.numel() * 4
-    b_ms, b_by = bound_ms(n_bytes, 4 * pairs * h * HD, "bf16")
     out["paged_attention_prefill"] = dict(
-        name="paged_attention_prefill", route="cuda", source=src_pa,
-        replaces="src/repro/kernels/paged_attention/kernel.py:146", max_abs_err=err,
-        ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    log(f"[time paged prefill] B=8 S=384 H=32 hd=64 bf16 cold: max|kernel-plain| "
-        f"{err:.2e} <= {BF16_TOL}; kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) library_ms none (no single "
-        "PyTorch call attends through a block table)")
+        name="paged_attention_prefill", route="cuda", source=SRC_PREFILL,
+        replaces="src/repro/kernels/paged_attention/kernel.py:146", library_ms=None,
+        **time_paged_prefill(dev, g, kp, vp, table, (), BF16_TOL, timer))
 
     out.update(time_int8_gemms(dev, g, "int8_gemm", DECODE_GEMMS, PREFILL_GEMMS, timer))
+    return out
+
+
+def time_paged_prefill(dev, g, kp, vp, table, scales, tol, timer=time_ms) -> dict:
+    """The causal prefill kernel at the serving path's two admissions, on
+    the pool ``kp``/``vp`` (32 KV heads of ``HD`` in blocks of ``BS``;
+    ``scales`` its int8 scales or ``()``): cold, 8 suffixes of 384 from
+    position 0 (the first 24 blocks of ``table``'s rows), and warm, 8
+    suffixes of ``WARM_S`` after a ``WARM_PREFIX``-token prefix that the 8
+    slots share.  Each is held against the plain version within ``tol``
+    and timed beside its bound: each pool block the table reaches read
+    once, q read and o written once (in the query dtype: bf16 for a bf16
+    pool, float32 otherwise); 4 operations per visible (row, key) pair
+    and head-dim element, on the tensor cores for bf16 and the CUDA cores
+    for float32.  Flash attention of the query dtype is timed at the cold
+    shape beside it, on dense K/V (the yardstick: the same causal work
+    without the table).  A bf16 pool is also timed cold in blocks of 12,
+    which its kernel gathers by ``cp.async`` (blocks of 16: TMA boxes).
+    Returns the cold shape's numbers at ``BS``."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.paged_attention import ops as pa
+    from repro_torch.kernels.paged_attention.ref import paged_prefill_ref
+
+    h = kvh = kp.shape[1]
+    qdt = torch.bfloat16 if kp.dtype == torch.bfloat16 else torch.float32
+    pool = "int8" if scales else str(kp.dtype).split(".")[-1]
+    kw = dict(zip(("k_scale", "v_scale"), scales))
+    shared = table[0, : WARM_PREFIX // BS]  # the prefix's blocks, in every slot's table
+    warm = torch.cat([shared.expand(8, -1),
+                      table[:, WARM_PREFIX // BS: (WARM_PREFIX + WARM_S) // BS]], 1)
+    cases = [("cold", 384, 0, BS, kp, vp, table[:, : 384 // BS].contiguous()),
+             ("warm", WARM_S, WARM_PREFIX, BS, kp, vp, warm.contiguous())]
+    if qdt == torch.bfloat16:  # the same cold admission in blocks of 12: the cp.async route
+        kp12, vp12 = (torch.randn(8 * 32 + 1, kvh, 12, HD, generator=g, device=dev).to(qdt)
+                      for _ in range(2))
+        tbl12 = (torch.randperm(8 * 32, generator=g, device=dev).reshape(8, 32) + 1).int()
+        cases.append(("cold", 384, 0, 12, kp12, vp12, tbl12))
+    out = {}
+    for label, s, n, bs, k_pool, v_pool, tbl in cases:
+        start = torch.full((8,), n, dtype=torch.int32, device=dev)
+        qs = torch.randn(8, h, s, HD, generator=g, device=dev).to(qdt)
+
+        def kernel():
+            return pa.paged_attention_prefill(qs, k_pool, v_pool, tbl, start, *scales)
+
+        def plain():
+            return paged_prefill_ref(qs, k_pool, v_pool, tbl, start, **kw)
+
+        err = (kernel().float() - plain()).abs().max().item()
+        assert err <= tol, (f"paged prefill {pool} pool {label} at serving shapes", err)
+        k_ms, p_ms = timer(kernel, reps=5), timer(plain, reps=3)
+        pairs = 8 * sum(n + i + 1 for i in range(s))  # visible (row, key) pairs per head
+        ops = 4 * pairs * h * HD
+        n_bytes = (2 * qs.numel() * qs.element_size()
+                   + 2 * torch.unique(tbl).numel() * kvh * bs * HD * k_pool.element_size()
+                   + tbl.numel() * 4 + start.numel() * 4 + 2 * kvh * 4 * bool(scales))
+        b_ms, b_by = bound_ms(n_bytes, ops, "bf16" if qdt == torch.bfloat16 else "fp32")
+        yard = ""
+        if label == "cold" and bs == BS:
+            qf, kf, vf = (torch.randn(8, h, s, HD, generator=g, device=dev).to(qdt)
+                          for _ in range(3))
+            f_ms = timer(lambda: fa.flash_attention(qf, kf, vf, causal=True), reps=5)
+            yard = (f"; flash_ms {f_ms:.4f} (flash attention's {str(qdt).split('.')[-1]} "
+                    "kernel, the same causal work on dense K/V)")
+            out = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+        route = "" if qdt != torch.bfloat16 else (", TMA boxes" if bs % 8 == 0 else ", cp.async")
+        log(f"[time paged prefill] {pool} pool {label}: B=8 S={s} from position {n} H={h} "
+            f"hd={HD} BS={bs}{route}: max|kernel-plain| {err:.2e} <= {tol}; kernel_ms {k_ms:.4f} "
+            f"plain_ms {p_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) library_ms none (no single "
+            f"PyTorch call attends through a block table){yard}; kernel "
+            f"{ops / max(k_ms, 1e-9) / 1e9:.2f} TFLOP/s")
     return out
 
 
@@ -549,22 +609,22 @@ def time_stochastic(dev, g, timer=time_ms, plain_timer=wall_ms) -> dict:
     return out
 
 
-def _int8_pool(g, dev, n_blocks, kvh, hd):
+def _int8_pool(g, dev, n_blocks, kvh, hd, bs=BS):
     """Random int8 K/V pools and per-KV-head float32 scales (what
     calibration gives: ~absmax / 127)."""
-    pools = [torch.randint(-127, 128, (n_blocks, kvh, BS, hd), generator=g, device=dev,
+    pools = [torch.randint(-127, 128, (n_blocks, kvh, bs, hd), generator=g, device=dev,
                            dtype=torch.int8) for _ in range(2)]
     scales = [torch.rand(kvh, generator=g, device=dev) * 0.02 + 0.01 for _ in range(2)]
     return (*pools, *scales)
 
 
 def check_int8_pool(dev, g) -> None:
-    """The paged kernel's int8-pool branch against its plain version at
-    reduced shapes: decode (G 1 and 4, softcap, kv_len 0 to the full
-    table, scratch entries) and causal prefill (mid-block starts), head
-    dims 16 and 64, float32 within ``INT8_POOL_TOL``."""
+    """The paged decode kernel's int8-pool branch against its plain
+    version at reduced shapes (G 1, 4 and 10, softcap, kv_len 0 to the
+    full table, scratch entries), head dims 16 and 64, float32 within
+    ``INT8_POOL_TOL``.  Its causal prefill: ``check_paged_prefill``."""
     from repro_torch.kernels.paged_attention import ops as pa
-    from repro_torch.kernels.paged_attention.ref import paged_decode_ref, paged_prefill_ref
+    from repro_torch.kernels.paged_attention.ref import paged_decode_ref
 
     for hd in (16, 64):
         for grp in (1, 4, 10):
@@ -585,28 +645,16 @@ def check_int8_pool(dev, g) -> None:
                 assert not got[0].any(), "kv_len 0 must give zeros"
                 log(f"[int8 pool decode] hd={hd} G={grp} softcap={softcap} kv_len "
                     f"{kv_len.tolist()}: max|kernel-plain| {err:.2e} <= {INT8_POOL_TOL}")
-        for grp in (1, 4):
-            kvh, w, nb, s = 4, 8, 64, 37
-            start = torch.tensor([0, 7, BS, BS + 9, 3 * BS], dtype=torch.int32, device=dev)
-            table = torch.randint(1, nb, (5, w), generator=g, device=dev, dtype=torch.int32)
-            q = torch.randn(5, kvh * grp, s, hd, generator=g, device=dev)
-            kp, vp, ks, vs = _int8_pool(g, dev, nb, kvh, hd)
-            got = pa.paged_attention_prefill(q, kp, vp, table, start, ks, vs)
-            want = paged_prefill_ref(q, kp, vp, table, start, k_scale=ks, v_scale=vs)
-            err = (got - want).abs().max().item()
-            assert err <= INT8_POOL_TOL, ("int8 pool prefill", hd, grp, err)
-            log(f"[int8 pool prefill] hd={hd} G={grp} S={s} starts {start.tolist()}: "
-                f"max|kernel-plain| {err:.2e} <= {INT8_POOL_TOL}")
 
 
 def time_int8_pool(dev, g, timer=time_ms) -> dict:
     """The int8-pool branch at the serving shapes — decode of 8 slots x 32
-    heads x 64 at ``DECODE_FILLS``, causal prefill of 8 cold 384-token
-    suffixes — held against its plain version within ``INT8_POOL_TOL``
-    and timed beside its bound (int8 K/V read once, float32 queries and
-    outputs; float32 operations)."""
+    heads x 64 at ``DECODE_FILLS``, causal prefill at the cold and warm
+    admissions (``time_paged_prefill``) — held against its plain version
+    within ``INT8_POOL_TOL`` and timed beside its bound (int8 K/V read
+    once, float32 queries and outputs; float32 operations)."""
     from repro_torch.kernels.paged_attention import ops as pa
-    from repro_torch.kernels.paged_attention.ref import paged_decode_ref, paged_prefill_ref
+    from repro_torch.kernels.paged_attention.ref import paged_decode_ref
 
     out = {}
     src = "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu"
@@ -639,32 +687,65 @@ def time_int8_pool(dev, g, timer=time_ms) -> dict:
         f"{p_ms:.4f} bound_ms {b_ms:.4f} ({b_by}; {n_bytes / 1e6:.2f} MB) library_ms none "
         "(no PyTorch call attends through a block table)")
 
-    s = 384
-    start = torch.zeros(8, dtype=torch.int32, device=dev)
-    qs = torch.randn(8, h, s, HD, generator=g, device=dev)
-    tbl = table[:, : s // BS].contiguous()
-
-    def kernel_p():
-        return pa.paged_attention_prefill(qs, kp, vp, tbl, start, ks, vs)
-
-    def plain_p():
-        return paged_prefill_ref(qs, kp, vp, tbl, start, k_scale=ks, v_scale=vs)
-
-    err = (kernel_p() - plain_p()).abs().max().item()
-    assert err <= INT8_POOL_TOL, ("int8 pool prefill at serving shapes", err)
-    k_ms, p_ms = timer(kernel_p, reps=5), timer(plain_p, reps=3)
-    pairs = 8 * s * (s + 1) // 2
-    n_bytes = 2 * qs.numel() * 4 + 2 * 8 * s * kvh * HD + tbl.numel() * 4 + 2 * kvh * 4
-    b_ms, b_by = bound_ms(n_bytes, 4 * pairs * h * HD, "fp32")
     out["paged_attention_prefill_int8"] = dict(
-        name="paged_attention_prefill_int8", route="cuda", source=src, replaces=replaces,
-        max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None)
-    log(f"[time int8 pool prefill] B=8 S=384 H=32 hd=64 int8 K/V cold: max|kernel-plain| "
-        f"{err:.2e} <= {INT8_POOL_TOL}; kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} bound_ms "
-        f"{b_ms:.4f} ({b_by}) library_ms none (no PyTorch call attends through a block "
-        "table)")
+        name="paged_attention_prefill_int8", route="cuda", source=SRC_PREFILL,
+        replaces=replaces, library_ms=None,
+        **time_paged_prefill(dev, g, kp, vp, table, (ks, vs), INT8_POOL_TOL, timer))
     return out
+
+
+def check_paged_prefill(dev, g) -> None:
+    """The causal prefill kernels (``paged_prefill.cu``) against their plain
+    version on every pool (float32 and int8 within ``F32_TOL`` /
+    ``INT8_POOL_TOL``, bf16 within ``BF16_TOL``) and head dim, G 1, 4 and
+    10, block sizes ``PREFILL_BLOCKS``, suffix lengths ``PREFILL_LENS``,
+    softcap 0 and 30, starts at 0, mid-block, on a block edge, past one
+    and two blocks in, through tables with scratch-block entries; each
+    call counts one launch (and one on the int8 branch for an int8
+    pool)."""
+    from repro_torch.kernels.paged_attention import ops as pa
+    from repro_torch.kernels.paged_attention.ref import paged_prefill_ref
+
+    fn = pa.paged_attention_prefill
+    for name, tol in (("float32", F32_TOL), ("bfloat16", BF16_TOL), ("int8", INT8_POOL_TOL)):
+        for hd in HEAD_DIMS_ALL:
+            worst, n = 0.0, 0
+            for bs in PREFILL_BLOCKS:
+                kvh = 4
+                w = -(-(2 * bs + max(PREFILL_LENS)) // bs) + 1
+                nb = 5 * w + 1
+                start = torch.tensor([0, bs // 2, bs, bs + 7, 2 * bs], dtype=torch.int32,
+                                     device=dev)
+                table = torch.randint(1, nb, (5, w), generator=g, device=dev, dtype=torch.int32)
+                table[1, 0] = table[4, -1] = 0  # entries at scratch block 0
+                if name == "int8":
+                    kp, vp, *scales = _int8_pool(g, dev, nb, kvh, hd, bs)
+                    qdt = torch.float32
+                else:
+                    qdt = getattr(torch, name)
+                    kp, vp = (torch.randn(nb, kvh, bs, hd, generator=g, device=dev).to(qdt)
+                              for _ in range(2))
+                    scales = []
+                kw = dict(zip(("k_scale", "v_scale"), scales))
+                for grp in (1, 4, 10):
+                    for s in PREFILL_LENS:
+                        for softcap in (0.0, 30.0):
+                            q = torch.randn(5, kvh * grp, s, hd, generator=g,
+                                            device=dev).to(qdt)
+                            before = (fn.launches, fn.int8_launches)
+                            got = fn(q, kp, vp, table, start, *scales, softcap=softcap)
+                            counted = (fn.launches - before[0], fn.int8_launches - before[1])
+                            if dev.type == "cuda":
+                                assert counted == (1, int(name == "int8")), counted
+                            assert got.dtype == qdt and got.shape == q.shape
+                            want = paged_prefill_ref(q, kp, vp, table, start, softcap=softcap,
+                                                     **kw)
+                            err = (got.float() - want).abs().max().item()
+                            assert err <= tol, (name, hd, bs, grp, s, softcap, err)
+                            worst, n = max(worst, err), n + 1
+            log(f"[paged prefill] {name} pool hd={hd}: {n} cases (BS {PREFILL_BLOCKS}, G 1/4/10, "
+                f"S {PREFILL_LENS}, softcap 0/30, starts 0 / mid-block / block edge / past it "
+                f"/ 2 blocks): max|kernel-plain| {worst:.2e} <= {tol}")
 
 
 def check_dense(dev, g) -> None:
@@ -1411,6 +1492,7 @@ def log_tiles() -> None:
 
     flash = _build.load("flash_attention").flash_attention_smem_bytes
     dense = _build.load("dense_decode").dense_attention_smem_bytes
+    prefill = _build.load("paged_prefill").paged_prefill_smem_bytes
     int8 = _build.load("int8_gemm_sm90").int8_gemm_smem_bytes
     log(f"[tiles] int8 GEMM: wgmma kernel {int8(0)} B (3 stages of 128 x 128-byte X and Wt "
         f"slabs); stream kernel M <= 8 / M <= 16: {int8(1)} / {int8(2)} B (4 warps x 6 stages "
@@ -1419,7 +1501,8 @@ def log_tiles() -> None:
         log(f"[tiles] hd {hd}: flash bf16 {flash(hd, 1)} B, float32 {flash(hd, 0)} B; dense "
             f"decode split kernel bf16 G 1/4/10 {dense(hd, 1, 1)}/{dense(hd, 1, 4)}/"
             f"{dense(hd, 1, 10)} B, float32 {dense(hd, 0, 1)}/{dense(hd, 0, 4)}/"
-            f"{dense(hd, 0, 10)} B")
+            f"{dense(hd, 0, 10)} B; paged prefill bf16 {prefill(hd, 1)} B, float32 pool "
+            f"{prefill(hd, 0)} B, int8 pool {prefill(hd, 2)} B")
 
 
 def _to(tree, device):
@@ -1483,6 +1566,7 @@ def main() -> None:
     g = torch.Generator(device=dev).manual_seed(1234)
     check_kernels(dev, g)
     check_int8_pool(dev, g)
+    check_paged_prefill(dev, g)
     check_dense(dev, g)
     check_wide_attention(dev, g)
     check_rglru(dev, g)

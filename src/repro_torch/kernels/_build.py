@@ -5,7 +5,7 @@ Each kernel package keeps its sources under ``csrc/``.  At first use the
 sources are compiled for Hopper (``sm_90a``) into a shared library with a
 plain C interface, cached under ``build/torch_kernels/`` in the checkout
 (listed in ``.gitignore``) and keyed by a hash of the flags, the sources
-and every header they include (``common/hopper.cuh`` is shared by three
+and every header they include (``common/hopper.cuh`` is shared by four
 libraries), so an edited source or header rebuilds and an unchanged one
 loads at once.  Nothing is compiled at import time: the CPU tests import
 every module and never reach a build.
@@ -42,6 +42,7 @@ LIBRARIES: Dict[str, Tuple[str, ...]] = {
     "int8_matmul": ("int8_matmul/csrc/int8_matmul.cu",),
     "int8_gemm_sm90": ("int8_matmul/csrc/int8_gemm_sm90.cu",),
     "paged_attention": ("paged_attention/csrc/paged_attention.cu",),
+    "paged_prefill": ("paged_attention/csrc/paged_prefill.cu",),
     "dense_decode": ("paged_attention/csrc/dense_decode.cu",),
     "flash_attention": ("flash_attention/csrc/flash_attention.cu",),
     "bts_encode": ("bts_encode/csrc/bts_encode.cu",),

@@ -1,8 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the hand-written kernels:
 // mbarriers, TMA tile loads, the wgmma shared-memory descriptor of a
 // 128-byte swizzled tile, wgmma fences and the host-side encoding of TMA
-// maps (flash_attention.cu, int8_gemm_sm90.cu), and 16-byte cp.async
-// copies (int8_gemm_sm90.cu, dense_decode.cu).
+// maps (flash_attention.cu, int8_gemm_sm90.cu, paged_prefill.cu), 16-byte
+// cp.async copies (int8_gemm_sm90.cu, dense_decode.cu, paged_prefill.cu),
+// their mbarrier arrive and the proxy fence that hands their bytes to
+// wgmma (paged_prefill.cu), and the attention kernels' bf16 m64n64k16
+// products, exp2 and bf16 packing (flash_attention.cu, paged_prefill.cu,
+// dense_decode.cu: exp2).
 //
 // Every operand tile these kernels hand to wgmma is 128 bytes wide along
 // its contiguous dimension (64 bf16 or 128 int8 values) and lies at a
@@ -12,6 +16,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -50,6 +55,13 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
+// orders the generic-proxy writes to shared memory that this thread has
+// made or observed (its own stores, copies it waited for, bytes a barrier
+// handed it) before its later async-proxy reads (wgmma operands)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // 16 bytes global -> shared at dst, zero-filled when !valid (nothing is
 // read then)
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
@@ -59,6 +71,11 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool v
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// arrives on bar (one of its expected arrivals: .noinc) once every cp.async
+// this thread has issued so far has landed; the thread does not wait
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
 }
 // returns once at most N of the thread's committed copy groups are pending
 template <int N>
@@ -109,6 +126,54 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 __device__ __forceinline__ void wgmma_wait_all() { wgmma_wait<0>(); }
+
+#define WGMMA_D32                                                                         \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),   \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),        \
+      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),     \
+      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),     \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),     \
+      "+f"(d[31])
+#define WGMMA_D32_OPERANDS                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+// d[64 x 64] += A[64 x 16] B[16 x 64], A and B K-major in shared memory
+// (S = Q K^T: A a Q tile, B a K tile), bf16 in, float32 out
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D32_OPERANDS
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WGMMA_D32
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d[64 x 64] += A[64 x 16] B[16 x 64], A in registers (the P fragment), B
+// MN-major in shared memory (O += P V: a V tile, head dim contiguous)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D32_OPERANDS
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WGMMA_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+#undef WGMMA_D32
+#undef WGMMA_D32_OPERANDS
+
+// 2^x on the hardware's approximate exp2 (denormal results flush to zero)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// two bf16 (round to nearest even), the lower column in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
 
 // keeps the compiler from moving reads or writes of an accumulator across
 // the asynchronous product's issue and wait

@@ -297,54 +297,6 @@ struct Bf16Cfg {
   static constexpr size_t bytes = 1024 + BAR + (2 * STAGES + 1) * 8;  // + base alignment
 };
 
-#define WGMMA_D32                                                                         \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),   \
-      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),        \
-      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),     \
-      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),     \
-      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),     \
-      "+f"(d[31])
-#define WGMMA_D32_OPERANDS                                                           \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
-  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-
-// d[64 x 64] += A[64 x 16] B[16 x 64], A and B K-major in shared memory
-// (S = Q K^T: A a Q tile, B a K tile), bf16 in, float32 out
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D32_OPERANDS
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : WGMMA_D32
-      : "l"(a), "l"(b), "r"(1));
-}
-
-// d[64 x 64] += A[64 x 16] B[16 x 64], A in registers (the P fragment), B
-// MN-major in shared memory (O += P V: a V tile, head dim contiguous)
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D32_OPERANDS
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : WGMMA_D32
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-#undef WGMMA_D32
-#undef WGMMA_D32_OPERANDS
-
-// 2^x on the hardware's approximate exp2 (denormal results flush to zero)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// two bf16 (round to nearest even), the lower column in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 template <int D>
 __global__ void __launch_bounds__(BF16_THREADS, Bf16Cfg<D>::MIN_BLOCKS)
 flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap map_q,  // [BH, R, D]

@@ -69,6 +69,7 @@ namespace {
 using hopper::cp_async16;
 using hopper::cp_async_commit;
 using hopper::cp_async_wait;
+using hopper::ex2;  // relative error 2^-22; denormal results flush to zero
 using hopper::smem_u32;
 
 constexpr int THREADS = 128;
@@ -78,14 +79,6 @@ constexpr int SSW = CK + 4;  // a score row in shared memory: whole 16-byte vect
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned FULL = 0xffffffffu;
-
-// 2^x on the hardware's approximate exp2 (relative error 2^-22; denormal
-// results flush to zero)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }

@@ -1,26 +1,22 @@
-// Streaming-softmax attention straight from the paged KV pool (sm_90a).
+// Single-query decode straight from the paged KV pool (sm_90a).
 //
 // Replaces: src/repro/kernels/paged_attention/kernel.py ::
-// paged_attention_kernel, both modes — single-query decode (key position
-// < lens[b]) and causal suffix prefill (row r of a tile sits at absolute
-// position lens[b] + r % q_len; keys at or before it are visible) — over
-// float32/bf16 pools and over int8 pools (the kernel's quantized branch,
-// kernel.py:96-98: float32 queries, each streamed K/V element dequantized
-// as float(k) * k_scale[h], the reference's float32 product).
-// dense_attention_kernel (kernel.py:212) has a kernel of its own,
+// paged_attention_kernel, its decode mode (causal=False: key position <
+// lens[b]) over float32/bf16 pools and over int8 pools (the kernel's
+// quantized branch, kernel.py:96-98: float32 queries, each streamed K/V
+// element dequantized as float(k) * k_scale[h], the reference's float32
+// product).  Its causal suffix prefill has kernels of its own,
+// paged_prefill.cu, and dense_attention_kernel (kernel.py:212) has
 // dense_decode.cu, split over the cache.
 //
 // What bounds it on an H100: decode reads every live K/V position of every
 // slot once per step (2 * kv_len * KVH * hd * itemsize bytes: 1 byte an
 // element in an int8 pool, half of bf16) against ~4 * kv_len * H * hd
-// flops, so HBM bytes bound it (floor: bytes / 3.35 TB/s).  Prefill over S
-// suffix rows reuses each K/V position S times and becomes compute bound
-// once S passes a few hundred.
+// flops, so HBM bytes bound it (floor: bytes / 3.35 TB/s).
 //
 // Design: one 128-thread block per (row tile, KV head, slot).  The block
 // reads its slot's fill and block-table row from device memory (no host
-// sync) and walks only live keys — [0, lens[b]) in decode, up to the tile's
-// last row position in causal mode — KC keys at a time.  Each step gathers
+// sync) and walks only live keys, [0, lens[b]), KC keys at a time.  Each step gathers
 // the KC keys' pool blocks through the table (keys past the end read as
 // zero), converts K/V to float32 in shared memory with 16-byte loads, and
 // updates running max m, denominator l and the float32 accumulator held
@@ -33,11 +29,11 @@
 // float32 scale on the way into shared memory.  GQA is
 // native: the G query heads of a KV head are rows of the same tile, so K/V
 // is read once per KV head.  The tiles live in dynamic shared memory
-// (Smem below): at head dim 256 they take 103-152 KB, past the 48 KB a
+// (Smem below): at head dim 256 they take 130-149 KB, past the 48 KB a
 // static allocation may hold, so the launch raises the kernel's limit
 // first.  Instantiated for head dims 16, 64, 128 and 256.  The plain FMA
-// loops do not use the tensor cores and a decode block covers one slot's
-// whole fill; split-K (flash-decoding) and wgmma tiles are later work.
+// loops do not use the tensor cores and a block covers one slot's whole
+// fill; split-K (flash-decoding) is later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -89,8 +85,7 @@ paged_attention_kernel(const TQ* __restrict__ q,          // [B, KVH, R, D]
                        const float* __restrict__ k_scale,  // [KVH] (int8 pools)
                        const float* __restrict__ v_scale,  // [KVH] (int8 pools)
                        float* __restrict__ out,            // [B, KVH, R, D]
-                       int KVH, int R, int BS, int W, int q_len, int causal,
-                       float scale, float softcap) {
+                       int KVH, int R, int BS, int W, float scale, float softcap) {
   constexpr bool QUANT = std::is_same<TKV, int8_t>::value;
   constexpr int VEC = 16 / sizeof(TKV);
   constexpr int NACC = (RT * D + THREADS - 1) / THREADS;
@@ -109,16 +104,7 @@ paged_attention_kernel(const TQ* __restrict__ q,          // [B, KVH, R, D]
 
   const int tid = threadIdx.x;
   const int r0 = blockIdx.x * RT, h = blockIdx.y, b = blockIdx.z;
-  const int n = lens[b];
-  int n_keys;
-  if (causal) {
-    const int r_last = min(r0 + RT, R) - 1;
-    const int i_hi = (r0 / q_len != r_last / q_len) ? q_len - 1 : r_last % q_len;
-    n_keys = n + i_hi + 1;
-  } else {
-    n_keys = n;
-  }
-  n_keys = max(0, min(n_keys, W * BS));
+  const int n_keys = max(0, min(lens[b], W * BS));
   const size_t row_base = ((size_t)b * KVH + h) * R;
   float k_sc = 1.f, v_sc = 1.f;
   if constexpr (QUANT) {
@@ -174,8 +160,7 @@ paged_attention_kernel(const TQ* __restrict__ q,          // [B, KVH, R, D]
     for (int e = tid; e < RT * KC; e += THREADS) {
       const int r = e / KC, j = e % KC;
       const int kp = base + j;
-      const bool valid = (r0 + r < R) && kp < n_keys &&
-                         (causal ? kp <= n + (r0 + r) % q_len : kp < n);
+      const bool valid = (r0 + r < R) && kp < n_keys;
       float s = 0.f;
 #pragma unroll 16
       for (int d = 0; d < D; ++d) s += qs[r][d] * ks[j][d];
@@ -232,7 +217,7 @@ struct Args {
   const int32_t *table, *lens;
   const float *k_scale, *v_scale;
   float* out;
-  int B, KVH, R, BS, W, q_len, causal;
+  int B, KVH, R, BS, W;
   float scale, softcap;
 };
 
@@ -250,19 +235,18 @@ cudaError_t launch(const Args& a, cudaStream_t s) {
   kern<<<grid, THREADS, smem, s>>>(
       static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.kp),
       static_cast<const TKV*>(a.vp), a.table, a.lens, a.k_scale, a.v_scale, a.out, a.KVH,
-      a.R, a.BS, a.W, a.q_len, a.causal, a.scale, a.softcap);
+      a.R, a.BS, a.W, a.scale, a.softcap);
   return cudaSuccess;
 }
 
-// Row tiles: 1 (decode, G = 1), 8 or 16 (decode with GQA: 16 holds the 10
-// query heads of a recurrentgemma KV head with 6 rows idle, not 22) or 32
-// rows (prefill).
+// Row tiles of the G query heads of a KV head: 1 (G = 1), 8 or 16 (16
+// holds the 10 query heads of a recurrentgemma KV head with 6 rows idle,
+// not 22); more than 16 take several 16-row tiles.
 template <typename TQ, typename TKV, int D>
 cudaError_t launch_rows(const Args& a, cudaStream_t s) {
   if (a.R == 1) return launch<TQ, TKV, D, 1, 64>(a, s);
   if (a.R <= 8) return launch<TQ, TKV, D, 8, 64>(a, s);
-  if (a.R <= 16) return launch<TQ, TKV, D, 16, 64>(a, s);
-  return launch<TQ, TKV, D, 32, 32>(a, s);
+  return launch<TQ, TKV, D, 16, 64>(a, s);
 }
 
 // dtype code: 0 float32 pool and queries, 1 bf16 pool and queries,
@@ -300,22 +284,21 @@ cudaError_t launch_head_dim(const Args& a, int D, int dtype, cudaStream_t s) {
 
 }  // namespace
 
-// q [B,KVH,R,D] (the pool dtype; float32 for an int8 pool); pools
-// [NB,KVH,BS,D]; table [B,W] int32; lens [B] int32 (kv_len in decode,
-// suffix start when causal); k_scale/v_scale [KVH] float32 for an int8
-// pool, null otherwise; out [B,KVH,R,D] float32, already divided by the
-// softmax denominator.  dtype: 0 float32, 1 bf16, 2 int8 (see launch_dtype).
+// q [B,KVH,R,D] (R = G query heads; the pool dtype, float32 for an int8
+// pool); pools [NB,KVH,BS,D]; table [B,W] int32; lens [B] int32 (each
+// slot's kv_len); k_scale/v_scale [KVH] float32 for an int8 pool, null
+// otherwise; out [B,KVH,R,D] float32, already divided by the softmax
+// denominator.  dtype: 0 float32, 1 bf16, 2 int8 (see launch_dtype).
 extern "C" int paged_attention_launch(const void* q, const void* kp, const void* vp,
                                       const void* table, const void* lens,
                                       const void* k_scale, const void* v_scale, void* out,
                                       int B, int KVH, int R, int D, int BS, int W,
-                                      int q_len, int causal, float scale, float softcap,
-                                      int dtype, void* stream) {
+                                      float scale, float softcap, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Args a{q, kp, vp, static_cast<const int32_t*>(table),
                static_cast<const int32_t*>(lens), static_cast<const float*>(k_scale),
                static_cast<const float*>(v_scale), static_cast<float*>(out),
-               B, KVH, R, BS, W, q_len, causal, scale, softcap};
+               B, KVH, R, BS, W, scale, softcap};
   const cudaError_t e = launch_head_dim(a, D, dtype, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());

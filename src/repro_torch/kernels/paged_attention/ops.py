@@ -5,14 +5,16 @@ prefill through the block table, and decode over dense per-slot caches
 (:func:`dense_attention_decode`, the reference's ``dense_attention_kernel``).
 Queries arrive in the model's ``[B, H, ...]`` head layout and are folded
 into per-KV-head row groups (row ``g * q_len + i``), cast to the pool
-dtype — or to float32 for an int8 pool, whose blocks the kernel
-dequantizes with the per-KV-head ``k_scale``/``v_scale`` as it streams
-them.  The paged kernel returns the float32 output already divided by the
-softmax denominator, and the wrapper returns it in the query dtype; the
-dense decode kernel writes the query dtype itself.
+dtype — or to float32 for an int8 pool, whose blocks the kernels
+dequantize with the per-KV-head ``k_scale``/``v_scale`` as they stream
+them.  Every kernel returns its output already divided by the softmax
+denominator: paged decode in float32, which the wrapper casts to the
+query dtype; paged prefill and dense decode in the kernel's query dtype.
 
 On a CPU tensor each wrapper runs the plain version (``ref.py``); on a
-CUDA tensor it launches ``csrc/paged_attention.cu`` (paged) or
+CUDA tensor it launches ``csrc/paged_attention.cu`` (paged decode),
+``csrc/paged_prefill.cu`` (causal suffix prefill: ``wgmma`` tiles for a
+bf16 pool, float32 FMA tiles for float32 and int8 pools) or
 ``csrc/dense_decode.cu`` (dense: one split kernel over
 :func:`dense_split_plan`'s ranges of each cache, then a merge) or raises.
 Each wrapper's ``launches`` counts every call that launched; the paged
@@ -36,6 +38,15 @@ POOL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 def _lib():
     fn = _build.load("paged_attention").paged_attention_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+                       + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _prefill_lib():
+    fn = _build.load("paged_prefill").paged_prefill_launch
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                        + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
@@ -87,10 +98,12 @@ def _prepare(q, k_pool, v_pool, k_scale, v_scale):
     return q.to(torch.float32), *scales
 
 
-def _launch(qg, k_pool, v_pool, table, lens, k_scale, v_scale, *, causal: bool,
-            q_len: int, softcap: float) -> torch.Tensor:
-    """qg [B, KVH, R, hd] in the kernel's query dtype -> normalized float32
-    [B, KVH, R, hd]."""
+def _launch(qg, k_pool, v_pool, table, lens, k_scale, v_scale, *, q_len: int,
+            softcap: float) -> torch.Tensor:
+    """qg [B, KVH, R, hd] in the kernel's query dtype -> the normalized
+    output [B, KVH, R, hd]: decode (``q_len`` 0; ``lens`` = kv_len) in
+    float32, causal suffix prefill (``R = G * q_len``; ``lens`` = each
+    slot's suffix start) in the query dtype."""
     dev = qg.device
     named = (("k_pool", k_pool), ("v_pool", v_pool), ("table", table), ("lens", lens),
              ("k_scale", k_scale), ("v_scale", v_scale))
@@ -107,17 +120,21 @@ def _launch(qg, k_pool, v_pool, table, lens, k_scale, v_scale, *, causal: bool,
     qg, k_pool, v_pool = _build.aligned(qg), _build.aligned(k_pool), _build.aligned(v_pool)
     table = table.to(torch.int32).contiguous()
     lens = lens.to(torch.int32).contiguous()
-    out = torch.empty((b, kvh, r, hd), dtype=torch.float32, device=dev)
+    out = torch.empty((b, kvh, r, hd), dtype=qg.dtype if q_len else torch.float32, device=dev)
     if out.numel() == 0:
         return out
     ks, vs = (None if s is None else s.contiguous() for s in (k_scale, v_scale))
-    rc = _lib()(qg.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
-                lens.data_ptr(), None if ks is None else ks.data_ptr(),
-                None if vs is None else vs.data_ptr(), out.data_ptr(), b, kvh, r, hd,
-                k_pool.shape[2], table.shape[1], q_len, int(causal), hd ** -0.5,
-                float(softcap), POOL_DTYPES[k_pool.dtype],
-                torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(rc, "paged_attention")
+    ptrs = (qg.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
+            lens.data_ptr(), None if ks is None else ks.data_ptr(),
+            None if vs is None else vs.data_ptr(), out.data_ptr())
+    nb, bs, w = k_pool.shape[0], k_pool.shape[2], table.shape[1]
+    tail = (hd ** -0.5, float(softcap), POOL_DTYPES[k_pool.dtype],
+            torch.cuda.current_stream(dev).cuda_stream)
+    if q_len:
+        rc = _prefill_lib()(*ptrs, b, nb, kvh, r, hd, bs, w, q_len, *tail)
+    else:
+        rc = _lib()(*ptrs, b, kvh, r, hd, bs, w, *tail)
+    _build.check(rc, "paged_prefill" if q_len else "paged_attention")
     return out
 
 
@@ -142,7 +159,7 @@ def paged_attention_decode(q, k_pool, v_pool, table, kv_len, k_scale=None, v_sca
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention_decode: unsupported device {q.device}")
     o = _launch(qd.reshape(b, kvh, h // kvh, hd), k_pool, v_pool, table, kv_len, ks, vs,
-                causal=False, q_len=1, softcap=softcap)
+                q_len=0, softcap=softcap)
     _count(paged_attention_decode, k_pool)
     return o.reshape(b, h, hd).to(q.dtype)
 
@@ -164,7 +181,7 @@ def paged_attention_prefill(q, k_pool, v_pool, table, start, k_scale=None, v_sca
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention_prefill: unsupported device {q.device}")
     o = _launch(qd.reshape(b, kvh, (h // kvh) * s, hd), k_pool, v_pool, table, start, ks, vs,
-                causal=True, q_len=s, softcap=softcap)
+                q_len=s, softcap=softcap)
     _count(paged_attention_prefill, k_pool)
     return o.reshape(b, h, s, hd).to(q.dtype)
 

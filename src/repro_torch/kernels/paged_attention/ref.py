@@ -5,7 +5,9 @@ mask (``pool[table]`` -> dense logical view -> masked softmax in float32),
 the memory-hungry formulation the kernel streams away.  An int8 pool is
 dequantized right after the gather (``k.float() * k_scale`` per KV head).
 ``dense_decode_ref`` is the same masked softmax over dense per-slot
-caches, with no table.
+caches, with no table.  ``paged_prefill_tiles`` is the causal kernels'
+tile walk, and ``dense_split_ranges``/``dense_merge_ref`` the dense
+decode's split and merge, for the tests to hold against the reference.
 """
 from __future__ import annotations
 
@@ -66,6 +68,34 @@ def paged_prefill_ref(q, k_pool, v_pool, table, start, *, softcap=0.0,
     mask = q_pos[:, :, None] >= torch.arange(k.shape[2], device=q.device)[None, None]
     qg = q.reshape(b, kvh, h // kvh, s, hd)
     return _masked_attn(qg, k, v, mask, hd ** -0.5, softcap).reshape(b, h, s, hd)
+
+
+def paged_prefill_tiles(start, q_len: int, g: int, ctx: int, rows: int = 64,
+                        keys: int = 64):
+    """The causal prefill kernels' tile walk (``csrc/paged_prefill.cu``):
+    for each slot and each ``rows``-row tile of its ``R = g * q_len`` query
+    rows (row ``r`` at absolute position ``start[b] + r % q_len``), a tuple
+    ``(r0, r1, k_hi, masked)``: the tile holds rows ``[r0, r1)``, visits
+    keys ``[0, k_hi)`` in ``keys``-key tiles (``k_hi`` = one past its last
+    row position, at most ``ctx`` = the table's ``W * BS`` positions), and
+    ``masked[t]`` says whether key tile ``t`` takes the causal mask; the
+    others are seen whole by every row of the tile.  A tile spanning a
+    fold boundary holds every suffix index.  The bf16 kernel walks 64-key
+    tiles, the float32 one 32-key tiles."""
+    out = []
+    for n in (int(x) for x in start):
+        tiles = []
+        for r0 in range(0, g * q_len, rows):
+            r1 = min(r0 + rows, g * q_len)
+            i_lo, i_hi = r0 % q_len, (r1 - 1) % q_len
+            if r0 // q_len != (r1 - 1) // q_len:
+                i_lo, i_hi = 0, q_len - 1
+            k_hi = max(0, min(n + i_hi + 1, ctx))
+            masked = tuple(not (kb + keys <= k_hi and kb + keys - 1 <= n + i_lo)
+                           for kb in range(0, k_hi, keys))
+            tiles.append((r0, r1, k_hi, masked))
+        out.append(tiles)
+    return out
 
 
 def dense_decode_ref(q, k, v, kv_len, *, softcap=0.0):

@@ -96,58 +96,90 @@ def test_int8_kernel_bit_exact_on_card(cuda, m, k, n, path):
     assert moved == {path: 2}, moved
 
 
+# causal prefill cases: suffix lengths (one row, fold boundaries inside a
+# 64-row tile, one row past a tile) x softcap 0 / 30; block sizes 8, 12
+# (not a multiple of 8), 16 (the serving pool's) and 128 (a key tile
+# inside one block)
+PREFILL_LENS = (1, 37, 65)
+BLOCK_SIZES = (8, 12, 16, 128)
+
+
+def _starts(bs):
+    """Suffix starts: 0, mid-block, on a block edge, past one, two blocks in."""
+    return np.asarray([0, bs // 2, bs, bs + 7, 2 * bs], np.int32)
+
+
+def _check_prefill(cuda, q_shape, kp, vp, table, start, dtype, tol, scales=()):
+    """paged_attention_prefill against its plain version at every suffix
+    length and softcap: one launch each, counted (and counted on the int8
+    branch for an int8 pool), the output in the query dtype."""
+    rng = np.random.default_rng(3)
+    fn = pa_ops.paged_attention_prefill
+    for s in PREFILL_LENS:
+        for softcap in (0.0, 30.0):
+            q = torch.from_numpy(rng.standard_normal((*q_shape[:2], s, q_shape[2]))
+                                 .astype(np.float32)).to(cuda, dtype)
+            before = (fn.launches, fn.int8_launches)
+            got = fn(q, kp, vp, table, start, *scales, softcap=softcap)
+            int8 = int(kp.dtype == torch.int8)
+            assert (fn.launches, fn.int8_launches) == (before[0] + 1, before[1] + int8)
+            assert got.dtype == dtype and got.shape == q.shape
+            kw = dict(zip(("k_scale", "v_scale"), scales))
+            want = paged_prefill_ref(q, kp, vp, table, start, softcap=softcap, **kw)
+            torch.testing.assert_close(got.float(), want, atol=tol, rtol=0,
+                                       msg=lambda m: f"S={s} softcap={softcap}: {m}")
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("g", [1, 4, 10])
-@pytest.mark.parametrize("hd", [64, 128, 256])
-def test_paged_kernels_match_plain_on_card(cuda, dtype, g, hd):
-    kvh, bs, w, s = 4, 16, 6, 5
+@pytest.mark.parametrize("hd", [16, 64, 128, 256])
+@pytest.mark.parametrize("bs", BLOCK_SIZES)
+def test_paged_kernels_match_plain_on_card(cuda, dtype, g, hd, bs):
+    """Paged decode (ragged fills, kv_len 0) and causal prefill (starts 0,
+    mid-block, on and past a block edge; S 1 / 37 / 65; softcap 0 / 30)
+    through a table with an entry at scratch block 0."""
+    kvh = 4
+    w = -(-(2 * bs + max(PREFILL_LENS)) // bs) + 1
     rng = np.random.default_rng(0)
     kv_len = np.asarray([0, 1, bs, bs + 1, w * bs], np.int32)
-    q, kp, vp, table = _paged_inputs(rng, 5, kvh, g, hd, bs, w, 40)
-    qs = rng.standard_normal((5, kvh * g, s, hd)).astype(np.float32)
-    start = np.asarray([0, 3, bs, bs + 7, 2 * bs], np.int32)
-    tq, tqs, tk, tv = (x.to(cuda, dtype) for x in _t(q, qs, kp, vp))
-    tt, tl, ts = (x.to(cuda) for x in _t(table, kv_len, start))
+    q, kp, vp, table = _paged_inputs(rng, 5, kvh, g, hd, bs, w, 5 * w + 1)
+    tq, tk, tv = (x.to(cuda, dtype) for x in _t(q, kp, vp))
+    tt, tl, ts = (x.to(cuda) for x in _t(table, kv_len, _starts(bs)))
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     got = pa_ops.paged_attention_decode(tq, tk, tv, tt, tl).float()
     want = paged_decode_ref(tq, tk, tv, tt, tl)
     torch.testing.assert_close(got, want, atol=tol, rtol=0)
-    got = pa_ops.paged_attention_prefill(tqs, tk, tv, tt, ts).float()
-    want = paged_prefill_ref(tqs, tk, tv, tt, ts)
-    torch.testing.assert_close(got, want, atol=tol, rtol=0)
+    _check_prefill(cuda, (5, kvh * g, hd), tk, tv, tt, ts, dtype, tol)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("hd", [16, 64, 128, 256])
 @pytest.mark.parametrize("g", [1, 4, 10])
-def test_int8_pool_kernels_match_plain_on_card(cuda, hd, g):
+@pytest.mark.parametrize("bs", BLOCK_SIZES)
+def test_int8_pool_kernels_match_plain_on_card(cuda, hd, g, bs):
     """The int8-pool branch, decode and causal: ragged fills, kv_len 0
-    (zeros), starts at 0, mid-block and past a block edge; both counters
-    count the launch."""
-    kvh, bs, w, s = 4, 16, 6, 5
+    (zeros), the prefill cases of the bf16/float32 test; both counters
+    count each launch."""
+    kvh = 4
+    w = -(-(2 * bs + max(PREFILL_LENS)) // bs) + 1
     rng = np.random.default_rng(1)
     kv_len = np.asarray([0, 1, bs - 1, bs + 1, 3 * bs + 7, w * bs], np.int32)
-    start = np.asarray([0, 3, bs, bs + 7, 2 * bs, 0], np.int32)
-    table = rng.integers(1, 40, (6, w)).astype(np.int32)
+    table = rng.integers(1, 6 * w + 1, (6, w)).astype(np.int32)
     table[1, 0] = 0  # an entry at scratch block 0
     q = rng.standard_normal((6, kvh * g, hd)).astype(np.float32)
-    qs = rng.standard_normal((6, kvh * g, s, hd)).astype(np.float32)
-    kp, vp = (rng.integers(-127, 128, (40, kvh, bs, hd)).astype(np.int8) for _ in range(2))
+    kp, vp = (rng.integers(-127, 128, (6 * w + 1, kvh, bs, hd)).astype(np.int8)
+              for _ in range(2))
     ks, vs = (rng.uniform(0.005, 0.03, kvh).astype(np.float32) for _ in range(2))
-    tq, tqs, tk, tv, tt, tl, ts, tks, tvs = (
-        x.to(cuda) for x in _t(q, qs, kp, vp, table, kv_len, start, ks, vs))
-    before = (pa_ops.paged_attention_decode.int8_launches,
-              pa_ops.paged_attention_prefill.int8_launches)
+    tq, tk, tv, tt, tl, tks, tvs = (x.to(cuda) for x in _t(q, kp, vp, table, kv_len, ks, vs))
+    before = pa_ops.paged_attention_decode.int8_launches
     got = pa_ops.paged_attention_decode(tq, tk, tv, tt, tl, tks, tvs)
     want = paged_decode_ref(tq, tk, tv, tt, tl, k_scale=tks, v_scale=tvs)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
     assert not got[0].any()  # kv_len 0 -> zeros
-    got = pa_ops.paged_attention_prefill(tqs, tk, tv, tt, ts, tks, tvs)
-    want = paged_prefill_ref(tqs, tk, tv, tt, ts, k_scale=tks, v_scale=tvs)
-    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
-    assert (pa_ops.paged_attention_decode.int8_launches,
-            pa_ops.paged_attention_prefill.int8_launches) == (before[0] + 1, before[1] + 1)
+    assert pa_ops.paged_attention_decode.int8_launches == before + 1
+    ts = torch.from_numpy(np.append(_starts(bs), 0)).to(cuda)
+    _check_prefill(cuda, (6, kvh * g, hd), tk, tv, tt, ts, torch.float32, 1e-5, (tks, tvs))
 
 
 @pytest.mark.gpu
