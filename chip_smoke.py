@@ -11,8 +11,8 @@ stablelm-1.6b (random weights from a seed) through
 ``exact``, ``int8``, ``sc`` (bit-true stochastic streams) and ``mixed``
 (int8 qk/pv, stochastic projections) plans, on dense per-slot caches
 under ``exact`` and ``int8`` (``exact-dense``, ``int8-dense``: the flash
-kernel, on ``wgmma`` with TMA-fed K/V tiles, and the dense-decode kernel,
-split over the cache and merged), calibrates static scales with
+kernel, on ``wgmma`` with TMA-fed K/V tiles, and the decode kernel, split
+over the keys and merged), calibrates static scales with
 ``Model.calibrate`` and serves the calibrated ``int8`` plan and the
 ``exact`` plan on an int8 KV pool (``int8-kvq``, ``exact-kvq``: the
 paged kernels' dequantizing branch), then serves full-width
@@ -36,9 +36,13 @@ through the block table for a bf16 pool, float32 FMA tiles for float32
 and int8 pools): checked on every pool, head dim and block sizes 8, 12,
 16 and 128 (``[paged prefill]``), timed at a cold and a warm admission
 beside flash attention at the cold shape (``[time paged prefill]``).
-The logs also give the redesigned kernels' shared
-memory (``[tiles]``), the dense decode's split count, and each profiled
-decode chunk's dense decode and int8 GEMM kernels and fills.  Any
+Decode on both layouts is one split kernel and one merge
+(``decode.cu``), reading keys from the dense cache or through the block
+table; paged decode is checked on every pool, head dim and block sizes
+8, 12, 16 and 128 (``[paged decode]``).  The logs also give the
+redesigned kernels' shared memory (``[tiles]``), the decode split counts,
+and each profiled decode chunk's decode kernels (split and merge, per
+layout), int8 GEMM kernels and fills.  Any
 failure raises and exits non-zero.  The
 line before the last is a JSON object with one entry per kernel; the last
 line is the device record.  Needs one CUDA device and
@@ -103,11 +107,12 @@ INT8_POOL_TOL = F32_TOL
 # on outputs in [2, 4)).  Dense decode as paged decode (F32_TOL /
 # BF16_TOL): its output stays float32, and only its p is rounded to bf16.
 FLASH_BF16 = (4e-3, 2.0 ** -7)
-# causal paged prefill checks: block sizes 8, 12 (not a multiple of 8), 16
-# (the serving pool's) and 128 (a 64-key tile inside one block); suffix
-# lengths 1, 37 (fold boundaries inside a 64-row tile) and 65 (a row past
-# a tile)
-PREFILL_BLOCKS = (8, 12, 16, 128)
+# paged kernel checks: block sizes 8, 12 (not a multiple of 8; most
+# 16-key decode chunks start inside a block), 16 (the serving pool's) and
+# 128 (a 64-key prefill tile, or a short decode split, inside one block);
+# causal prefill suffix lengths 1, 37 (fold boundaries inside a 64-row
+# tile) and 65 (a row past a tile)
+PAGED_BLOCKS = (8, 12, 16, 128)
 PREFILL_LENS = (1, 37, 65)
 # the warm admission: 8 suffixes of 128 after a shared 256-token prefix
 # already in the pool (what the prefix-sharing requests send)
@@ -117,7 +122,8 @@ DENSE_S = 512  # dense cache positions per slot: the serving runs' max_len
 WIDE_HDS = (128, 256)  # the head dims beyond stablelm's, checked on every attention kernel
 HEAD_DIMS_ALL = (16, HD) + WIDE_HDS  # every head dim the attention kernels are built for
 SERVING_DRAWS = 4  # input draws each new kernel is held on at the serving shapes
-SRC_DENSE = "src/repro_torch/kernels/paged_attention/csrc/dense_decode.cu"
+# decode on both layouts: one split kernel and one merge kernel
+SRC_DECODE = "src/repro_torch/kernels/paged_attention/csrc/decode.cu"
 SRC_FLASH = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 
 
@@ -200,37 +206,62 @@ def wall_ms(fn, reps: int = 1) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
+def _check_paged_decode(dev, g, pool, qdt, tol) -> None:
+    """Paged decode (``decode.cu`` through the block table) against its
+    plain version on a ``pool`` (float32, bf16 or int8) with ``qdt``
+    queries, at every head dim and block size ``PAGED_BLOCKS``: G 1, 4
+    and 10, softcap 0 and 30, kv_len 0 (zeros), 1, BS, BS + 1 and the
+    whole table, table entries at scratch block 0, several splits a slot.
+    The output comes in ``qdt``, within ``tol``; each call counts one
+    launch (and one on the int8 branch for an int8 pool)."""
+    from repro_torch.kernels.paged_attention import ops as pa
+    from repro_torch.kernels.paged_attention.ref import paged_decode_ref
+
+    fn = pa.paged_attention_decode
+    name = f"{str(pool).split('.')[-1]} pool, {str(qdt).split('.')[-1]} q"
+    for hd in HEAD_DIMS_ALL:
+        worst, n = 0.0, 0
+        for bs in PAGED_BLOCKS:
+            kvh = 8
+            w = -(-80 // bs) + 1  # 80 positions and a block past them
+            nb = 5 * w + 1
+            kv_len = torch.tensor([0, 1, bs, bs + 1, w * bs], dtype=torch.int32, device=dev)
+            table = torch.randint(1, nb, (5, w), generator=g, device=dev, dtype=torch.int32)
+            table[1, 0] = table[4, w - 2] = 0  # entries at scratch block 0
+            if pool == torch.int8:
+                kp, vp, *scales = _int8_pool(g, dev, nb, kvh, hd, bs)
+            else:
+                kp, vp = (torch.randn(nb, kvh, bs, hd, generator=g, device=dev).to(pool)
+                          for _ in range(2))
+                scales = []
+            kw = dict(zip(("k_scale", "v_scale"), scales))
+            for grp in (1, 4, 10):  # 10: the 16-row tile
+                for softcap in (0.0, 30.0):
+                    q = torch.randn(5, kvh * grp, hd, generator=g, device=dev).to(qdt)
+                    before = (fn.launches, fn.int8_launches)
+                    got = fn(q, kp, vp, table, kv_len, *scales, softcap=softcap)
+                    counted = (fn.launches - before[0], fn.int8_launches - before[1])
+                    if dev.type == "cuda":
+                        assert counted == (1, int(pool == torch.int8)), counted
+                    assert got.dtype == qdt and got.shape == q.shape
+                    want = paged_decode_ref(q, kp, vp, table, kv_len, softcap=softcap, **kw)
+                    err = (got.float() - want).abs().max().item()
+                    assert err <= tol, (name, hd, bs, grp, softcap, err)
+                    assert not got[0].any(), "kv_len 0 must give zeros"
+                    worst, n = max(worst, err), n + 1
+        log(f"[paged decode] {name} hd={hd}: {n} cases (BS {PAGED_BLOCKS}, G 1/4/10, softcap "
+            f"0/30, kv_len 0 / 1 / BS / BS + 1 / W * BS, scratch-block entries, "
+            f"{decode_splits(dev, 5, 8, 88)} splits at BS 8): max|kernel-plain| {worst:.2e} "
+            f"<= {tol}")
+
+
 def check_kernels(dev, g) -> None:
     """Phases 2-4: every kernel against its plain version on the card."""
     from repro_torch.kernels.int8_matmul import ops as i8
     from repro_torch.kernels.int8_matmul.ref import int8_matmul_acc_ref
-    from repro_torch.kernels.paged_attention import ops as pa
-    from repro_torch.kernels.paged_attention.ref import paged_decode_ref
-
-    def randn(*shape, dtype):
-        return torch.randn(*shape, generator=g, device=dev).to(dtype)
 
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
-        name = str(dtype).split(".")[-1]
-        for hd in (HD,) + WIDE_HDS:
-            for grp in (1, 4, 10):  # 10: the 16-row tile
-                for softcap in (0.0, 30.0):
-                    kvh, w, nb = 8, 5, 48
-                    kv_len = torch.tensor([0, 1, BS, BS + 1, w * BS], dtype=torch.int32,
-                                          device=dev)
-                    table = torch.randint(1, nb, (5, w), generator=g, device=dev,
-                                          dtype=torch.int32)
-                    table[1, 0] = 0  # entries at scratch block 0
-                    table[4, 3] = 0
-                    q = randn(5, kvh * grp, hd, dtype=dtype)
-                    kp, vp = randn(nb, kvh, BS, hd, dtype=dtype), randn(nb, kvh, BS, hd, dtype=dtype)
-                    got = pa.paged_attention_decode(q, kp, vp, table, kv_len, softcap=softcap)
-                    want = paged_decode_ref(q, kp, vp, table, kv_len, softcap=softcap)
-                    err = (got.float() - want).abs().max().item()
-                    assert err <= tol, (name, hd, grp, softcap, err)
-                    assert not got[0].any(), "kv_len 0 must give zeros"
-                    log(f"[paged decode] {name} hd={hd} G={grp} softcap={softcap} kv_len "
-                        f"{kv_len.tolist()}: max|kernel-plain| {err:.2e} <= {tol}")
+        _check_paged_decode(dev, g, dtype, dtype, tol)
     for m, k, n in [*DECODE_GEMMS, *PREFILL_GEMMS, *RG_DECODE_GEMMS, *RG_PREFILL_GEMMS,
                     *INT8_EDGES]:
         x = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
@@ -252,7 +283,6 @@ def time_kernels(dev, g, timer=time_ms) -> dict:
     from repro_torch.kernels.paged_attention.ref import paged_decode_ref
 
     out = {}
-    src_pa = "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu"
     h = kvh = 32
     w, nb = 32, 321
     kv_len = torch.tensor(DECODE_FILLS, dtype=torch.int32, device=dev)
@@ -269,10 +299,11 @@ def time_kernels(dev, g, timer=time_ms) -> dict:
     n_bytes = 2 * q.numel() * 2 + 2 * fill * kvh * HD * 2 + table.numel() * 4
     b_ms, b_by = bound_ms(n_bytes, 4 * fill * h * HD, "bf16")
     out["paged_attention_decode"] = dict(
-        name="paged_attention_decode", route="cuda", source=src_pa,
+        name="paged_attention_decode", route="cuda", source=SRC_DECODE,
         replaces="src/repro/kernels/paged_attention/kernel.py:146", max_abs_err=err,
         ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    log(f"[time paged decode] B=8 H=32 hd=64 bf16 kv_len {DECODE_FILLS}: max|kernel-plain| "
+    log(f"[time paged decode] B=8 H=32 hd=64 bf16 kv_len {DECODE_FILLS}, "
+        f"{decode_splits(dev, 8, kvh, w * BS)} splits: max|kernel-plain| "
         f"{err:.2e} <= {BF16_TOL}; kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} bound_ms "
         f"{b_ms:.4f} ({b_by}) library_ms none (no single PyTorch call attends through a "
         "block table)")
@@ -619,32 +650,12 @@ def _int8_pool(g, dev, n_blocks, kvh, hd, bs=BS):
 
 
 def check_int8_pool(dev, g) -> None:
-    """The paged decode kernel's int8-pool branch against its plain
-    version at reduced shapes (G 1, 4 and 10, softcap, kv_len 0 to the
-    full table, scratch entries), head dims 16 and 64, float32 within
-    ``INT8_POOL_TOL``.  Its causal prefill: ``check_paged_prefill``."""
-    from repro_torch.kernels.paged_attention import ops as pa
-    from repro_torch.kernels.paged_attention.ref import paged_decode_ref
-
-    for hd in (16, 64):
-        for grp in (1, 4, 10):
-            for softcap in (0.0, 30.0):
-                kvh, w, nb = 8, 5, 48
-                kv_len = torch.tensor([0, 1, BS, BS + 1, w * BS], dtype=torch.int32, device=dev)
-                table = torch.randint(1, nb, (5, w), generator=g, device=dev, dtype=torch.int32)
-                table[1, 0] = 0  # entries at scratch block 0
-                table[4, 3] = 0
-                q = torch.randn(5, kvh * grp, hd, generator=g, device=dev)
-                kp, vp, ks, vs = _int8_pool(g, dev, nb, kvh, hd)
-                got = pa.paged_attention_decode(q, kp, vp, table, kv_len, ks, vs,
-                                                softcap=softcap)
-                want = paged_decode_ref(q, kp, vp, table, kv_len, softcap=softcap,
-                                        k_scale=ks, v_scale=vs)
-                err = (got - want).abs().max().item()
-                assert err <= INT8_POOL_TOL, ("int8 pool decode", hd, grp, softcap, err)
-                assert not got[0].any(), "kv_len 0 must give zeros"
-                log(f"[int8 pool decode] hd={hd} G={grp} softcap={softcap} kv_len "
-                    f"{kv_len.tolist()}: max|kernel-plain| {err:.2e} <= {INT8_POOL_TOL}")
+    """Paged decode's int8-pool branch against its plain version
+    (``_check_paged_decode``): float32 queries within ``INT8_POOL_TOL``,
+    and bf16 queries (the serving model's, the output written in bf16)
+    within ``BF16_TOL``.  Its causal prefill: ``check_paged_prefill``."""
+    for qdt, tol in ((torch.float32, INT8_POOL_TOL), (torch.bfloat16, BF16_TOL)):
+        _check_paged_decode(dev, g, torch.int8, qdt, tol)
 
 
 def time_int8_pool(dev, g, timer=time_ms) -> dict:
@@ -657,7 +668,6 @@ def time_int8_pool(dev, g, timer=time_ms) -> dict:
     from repro_torch.kernels.paged_attention.ref import paged_decode_ref
 
     out = {}
-    src = "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu"
     replaces = "src/repro/kernels/paged_attention/kernel.py:146"  # its int8 branch, :96-98
     h = kvh = 32
     w, nb = 32, 321
@@ -679,10 +689,11 @@ def time_int8_pool(dev, g, timer=time_ms) -> dict:
     n_bytes = 2 * q.numel() * 4 + 2 * fill * kvh * HD + table.numel() * 4 + 2 * kvh * 4
     b_ms, b_by = bound_ms(n_bytes, 4 * fill * h * HD, "fp32")
     out["paged_attention_decode_int8"] = dict(
-        name="paged_attention_decode_int8", route="cuda", source=src, replaces=replaces,
+        name="paged_attention_decode_int8", route="cuda", source=SRC_DECODE, replaces=replaces,
         max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
         library_ms=None)
-    log(f"[time int8 pool decode] B=8 H=32 hd=64 int8 K/V, f32 q, kv_len {DECODE_FILLS}: "
+    log(f"[time int8 pool decode] B=8 H=32 hd=64 int8 K/V, f32 q, kv_len {DECODE_FILLS}, "
+        f"{decode_splits(dev, 8, kvh, w * BS)} splits: "
         f"max|kernel-plain| {err:.2e} <= {INT8_POOL_TOL}; kernel_ms {k_ms:.4f} plain_ms "
         f"{p_ms:.4f} bound_ms {b_ms:.4f} ({b_by}; {n_bytes / 1e6:.2f} MB) library_ms none "
         "(no PyTorch call attends through a block table)")
@@ -698,7 +709,7 @@ def check_paged_prefill(dev, g) -> None:
     """The causal prefill kernels (``paged_prefill.cu``) against their plain
     version on every pool (float32 and int8 within ``F32_TOL`` /
     ``INT8_POOL_TOL``, bf16 within ``BF16_TOL``) and head dim, G 1, 4 and
-    10, block sizes ``PREFILL_BLOCKS``, suffix lengths ``PREFILL_LENS``,
+    10, block sizes ``PAGED_BLOCKS``, suffix lengths ``PREFILL_LENS``,
     softcap 0 and 30, starts at 0, mid-block, on a block edge, past one
     and two blocks in, through tables with scratch-block entries; each
     call counts one launch (and one on the int8 branch for an int8
@@ -710,7 +721,7 @@ def check_paged_prefill(dev, g) -> None:
     for name, tol in (("float32", F32_TOL), ("bfloat16", BF16_TOL), ("int8", INT8_POOL_TOL)):
         for hd in HEAD_DIMS_ALL:
             worst, n = 0.0, 0
-            for bs in PREFILL_BLOCKS:
+            for bs in PAGED_BLOCKS:
                 kvh = 4
                 w = -(-(2 * bs + max(PREFILL_LENS)) // bs) + 1
                 nb = 5 * w + 1
@@ -743,7 +754,7 @@ def check_paged_prefill(dev, g) -> None:
                             err = (got.float() - want).abs().max().item()
                             assert err <= tol, (name, hd, bs, grp, s, softcap, err)
                             worst, n = max(worst, err), n + 1
-            log(f"[paged prefill] {name} pool hd={hd}: {n} cases (BS {PREFILL_BLOCKS}, G 1/4/10, "
+            log(f"[paged prefill] {name} pool hd={hd}: {n} cases (BS {PAGED_BLOCKS}, G 1/4/10, "
                 f"S {PREFILL_LENS}, softcap 0/30, starts 0 / mid-block / block edge / past it "
                 f"/ 2 blocks): max|kernel-plain| {worst:.2e} <= {tol}")
 
@@ -816,15 +827,16 @@ def check_dense(dev, g) -> None:
             "allowance")
 
 
-def dense_splits(dev, b: int, kvh: int, s: int):
-    """The dense decode kernel's split count for ``b`` slots x ``kvh`` KV
-    heads over ``s`` positions on ``dev`` (None off the card)."""
+def decode_splits(dev, b: int, kvh: int, s: int):
+    """The decode kernel's split count for ``b`` slots x ``kvh`` KV heads
+    over ``s`` key positions (a dense cache's length, or the table's ``W *
+    BS``) on ``dev`` (None off the card)."""
     from repro_torch.kernels import _build
-    from repro_torch.kernels.paged_attention.ops import dense_split_plan
+    from repro_torch.kernels.paged_attention.ops import decode_split_plan
 
     if dev.type != "cuda":
         return None
-    return dense_split_plan(b, kvh, s, _build.sm_count(dev.index or 0))
+    return decode_split_plan(b, kvh, s, _build.sm_count(dev.index or 0))
 
 
 def time_dense(dev, g, timer=time_ms) -> dict:
@@ -903,11 +915,11 @@ def time_dense(dev, g, timer=time_ms) -> dict:
     n_bytes = 2 * qd.numel() * 2 + 2 * fill * kvh * HD * 2 + kv_len.numel() * 4
     b_ms, b_by = bound_ms(n_bytes, 4 * fill * h * HD, "bf16")
     out["dense_attention_decode"] = dict(
-        name="dense_attention_decode", route="cuda", source=SRC_DENSE,
+        name="dense_attention_decode", route="cuda", source=SRC_DECODE,
         replaces="src/repro/kernels/paged_attention/kernel.py:212", max_abs_err=err,
         ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=l_ms)
     log(f"[time dense decode] B=8 H=32 hd=64 bf16 S={DENSE_S} kv_len {DECODE_FILLS}, "
-        f"{dense_splits(dev, 8, kvh, DENSE_S)} splits: "
+        f"{decode_splits(dev, 8, kvh, DENSE_S)} splits: "
         f"max|kernel-plain| (share of the allowance) per draw "
         f"{', '.join(f'{e:.2e} ({r:.3f})' for e, r in errs)}; kernel_ms {k_ms:.4f} plain_ms "
         f"{p_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) library_ms {l_ms:.4f} "
@@ -1070,11 +1082,11 @@ def time_wide_attention(dev, g, timer=time_ms) -> dict:
     b_ms, b_by = bound_ms(n_bytes, 4 * fill * RG_H * RG_HD, "bf16")
     out["dense_attention_decode_hd256"] = dict(
         name="dense_attention_decode_hd256", route="cuda", wrapper="dense_attention_decode",
-        source=SRC_DENSE, replaces="src/repro/kernels/paged_attention/kernel.py:212",
+        source=SRC_DECODE, replaces="src/repro/kernels/paged_attention/kernel.py:212",
         max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
         library_ms=l_ms)
     log(f"[time dense decode] B=8 H={RG_H} KV=1 hd={RG_HD} bf16 S={RG_WINDOW} kv_len "
-        f"{RG_DECODE_FILLS}, {dense_splits(dev, 8, 1, RG_WINDOW)} splits: max|kernel-plain| per "
+        f"{RG_DECODE_FILLS}, {decode_splits(dev, 8, 1, RG_WINDOW)} splits: max|kernel-plain| per "
         f"draw {', '.join(f'{e:.2e}' for e in errs)}; "
         f"kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) library_ms "
         f"{l_ms:.4f} (scaled_dot_product_attention over the whole ring with a length mask)")
@@ -1265,9 +1277,9 @@ def profile_decode_chunk(cfg, params, prompts, dev, runs, kv_block_size: int = B
     """Where a decode chunk's time goes: one engine round of 8 decode steps
     (8 slots, up to 8 of them busy) under ``torch.profiler`` — host time of
     the round against the device time of the kernels it ran (their sum over
-    the round; the rest of the round the device is idle), on dense caches
-    the dense decode kernels' share of that device time, and the int8 GEMM
-    kernels and the fill/memset kernels the round ran."""
+    the round; the rest of the round the device is idle), the decode
+    kernels' share of that device time (split and merge, dense or paged),
+    and the int8 GEMM kernels and the fill/memset kernels the round ran."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve import ServeConfig, ServeEngine
@@ -1296,11 +1308,18 @@ def profile_decode_chunk(cfg, params, prompts, dev, runs, kv_block_size: int = B
         once_ms = sum(r[0] for r in on_dev) / 1e3
         top = sorted(rows, reverse=True)[:5]
         share = f"{once_ms / host_ms:.1%}" if once_ms > 0 else "not measured"
-        dense = [r for r in on_dev if "dense_split_kernel" in r[1] or "dense_merge_kernel" in r[1]]
-        dense_ms = sum(r[0] for r in dense) / 1e3
-        dense_line = (f"; dense decode kernels {dense_ms:.2f} ms ({dense_ms / once_ms:.1%} of the "
-                      f"device time, {sum(r[2] for r in dense)} launches of the split and "
-                      "merge kernels)") if dense and once_ms > 0 else ""
+        # the decode kernels of each layout, told apart by their Layout
+        # template argument (Dense, Paged)
+        detail = ""
+        for layout in ("Dense", "Paged"):
+            split, merge = ([r for r in on_dev if f"decode_{k}_kernel" in r[1] and layout in r[1]]
+                            for k in ("split", "merge"))
+            ms = sum(r[0] for r in split + merge) / 1e3
+            if split and once_ms > 0:
+                detail += (f"; {layout.lower()} decode kernels {ms:.2f} ms ({ms / once_ms:.1%} "
+                           f"of the device time; split {sum(r[0] for r in split) / 1e3:.2f} "
+                           f"ms x{sum(r[2] for r in split)}, merge "
+                           f"{sum(r[0] for r in merge) / 1e3:.2f} ms x{sum(r[2] for r in merge)})")
         # the int8 GEMM's kernels, and every fill or memset kernel the chunk
         # ran: a GEMM zeroing its output would add one per GEMM against the
         # same chunk under exact (a dynamic activation scale adds one too:
@@ -1308,14 +1327,14 @@ def profile_decode_chunk(cfg, params, prompts, dev, runs, kv_block_size: int = B
         gemm = [r for r in on_dev if "int8_gemm" in r[1]]
         fills = [r for r in on_dev if "fill" in r[1].lower() or "memset" in r[1].lower()]
         if gemm:
-            dense_line += (f"; int8 GEMM kernels {sum(r[0] for r in gemm) / 1e3:.2f} ms over "
-                           f"{sum(r[2] for r in gemm)} launches ("
-                           + ", ".join(f"{r[1][:48]} x{r[2]}" for r in gemm) + ")")
-        dense_line += (f"; fill/memset kernels: {sum(r[2] for r in fills)} launches ("
-                       + (", ".join(f"{r[1][:72]} x{r[2]}" for r in fills) or "none") + ")")
+            detail += (f"; int8 GEMM kernels {sum(r[0] for r in gemm) / 1e3:.2f} ms over "
+                       f"{sum(r[2] for r in gemm)} launches ("
+                       + ", ".join(f"{r[1][:48]} x{r[2]}" for r in gemm) + ")")
+        detail += (f"; fill/memset kernels: {sum(r[2] for r in fills)} launches ("
+                   + (", ".join(f"{r[1][:72]} x{r[2]}" for r in fills) or "none") + ")")
         log(f"[profile {label}] one decode chunk (8 steps x 8 slots, {busy} busy): host "
             f"{host_ms:.1f} ms (profiled), device kernels {once_ms:.2f} ms, device busy "
-            f"{share}{dense_line}; top: "
+            f"{share}{detail}; top: "
             + "; ".join(f"{k[:48]} {t / 1e3:.2f} ms x{c}" for t, k, c in top))
         del engine
         _free(dev)
@@ -1491,18 +1510,19 @@ def log_tiles() -> None:
     from repro_torch.kernels import _build
 
     flash = _build.load("flash_attention").flash_attention_smem_bytes
-    dense = _build.load("dense_decode").dense_attention_smem_bytes
+    decode = _build.load("decode").decode_smem_bytes
     prefill = _build.load("paged_prefill").paged_prefill_smem_bytes
     int8 = _build.load("int8_gemm_sm90").int8_gemm_smem_bytes
     log(f"[tiles] int8 GEMM: wgmma kernel {int8(0)} B (3 stages of 128 x 128-byte X and Wt "
         f"slabs); stream kernel M <= 8 / M <= 16: {int8(1)} / {int8(2)} B (4 warps x 6 stages "
         "of 16 weight rows and the X rows, 128 K bytes each)")
     for hd in HEAD_DIMS_ALL:
-        log(f"[tiles] hd {hd}: flash bf16 {flash(hd, 1)} B, float32 {flash(hd, 0)} B; dense "
-            f"decode split kernel bf16 G 1/4/10 {dense(hd, 1, 1)}/{dense(hd, 1, 4)}/"
-            f"{dense(hd, 1, 10)} B, float32 {dense(hd, 0, 1)}/{dense(hd, 0, 4)}/"
-            f"{dense(hd, 0, 10)} B; paged prefill bf16 {prefill(hd, 1)} B, float32 pool "
-            f"{prefill(hd, 0)} B, int8 pool {prefill(hd, 2)} B")
+        tiles = "; ".join(f"{name} G 1/4/10 {decode(hd, c, 1)}/{decode(hd, c, 4)}/"
+                          f"{decode(hd, c, 10)} B"
+                          for name, c in (("bf16", 1), ("float32", 0), ("int8 pool", 2)))
+        log(f"[tiles] hd {hd}: flash bf16 {flash(hd, 1)} B, float32 {flash(hd, 0)} B; decode "
+            f"split kernel (a paged block adds its table slice) {tiles}; paged prefill bf16 "
+            f"{prefill(hd, 1)} B, float32 pool {prefill(hd, 0)} B, int8 pool {prefill(hd, 2)} B")
 
 
 def _to(tree, device):

@@ -13,13 +13,14 @@ launches the kernel or raises.
   decode (``csrc/int8_gemm_sm90.cu``, its own library), the batch and a K
   that is not a multiple of 16 on ``mma.sync`` tiles
   (replaces ``repro.kernels.int8_matmul``)
-* ``paged_attention`` — streaming-softmax decode and causal suffix
-  prefill straight from the paged KV pool through the block table
-  (replaces ``repro.kernels.paged_attention.paged_attention_kernel``),
-  and ``dense_attention_decode``, decode over dense per-slot caches, each
-  cache split across blocks (``dense_split_plan``) and the splits' partial
-  softmax states merged by a second kernel (``csrc/dense_decode.cu``, its
-  own library; replaces ``dense_attention_kernel``)
+* ``paged_attention`` — single-query decode over dense per-slot caches
+  and through the paged pool's block table, one kernel for both layouts:
+  each (slot, KV head)'s keys split across blocks (``decode_split_plan``)
+  and the splits' partial softmax states merged by a second kernel
+  (``csrc/decode.cu``; replaces ``dense_attention_kernel`` and the decode
+  mode of ``paged_attention_kernel``), and causal suffix prefill through
+  the block table (``csrc/paged_prefill.cu``, the causal mode of
+  ``repro.kernels.paged_attention.paged_attention_kernel``)
 * ``flash_attention`` — streaming-softmax attention over full sequences,
   causal with an optional sliding window, GQA folded over the query axis
   (bf16 on ``wgmma`` with K/V tiles brought by TMA, float32 on FMA tiles):

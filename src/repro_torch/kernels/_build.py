@@ -33,7 +33,7 @@ BUILD_DIR = _PKG.parents[2] / "build" / "torch_kernels"
 # core, not one (the attention sources instantiate dozens of kernels)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--split-compile=0")
-# head dims the attention kernels (flash, paged and dense decode, paged
+# head dims the attention kernels (flash, decode over both layouts, paged
 # prefill) are instantiated for: the switch in each attention source
 HEAD_DIMS = (16, 64, 128, 256)
 
@@ -41,9 +41,8 @@ HEAD_DIMS = (16, 64, 128, 256)
 LIBRARIES: Dict[str, Tuple[str, ...]] = {
     "int8_matmul": ("int8_matmul/csrc/int8_matmul.cu",),
     "int8_gemm_sm90": ("int8_matmul/csrc/int8_gemm_sm90.cu",),
-    "paged_attention": ("paged_attention/csrc/paged_attention.cu",),
+    "decode": ("paged_attention/csrc/decode.cu",),
     "paged_prefill": ("paged_attention/csrc/paged_prefill.cu",),
-    "dense_decode": ("paged_attention/csrc/dense_decode.cu",),
     "flash_attention": ("flash_attention/csrc/flash_attention.cu",),
     "bts_encode": ("bts_encode/csrc/bts_encode.cu",),
     "stoch_matmul": ("stoch_matmul/csrc/stoch_matmul.cu",),

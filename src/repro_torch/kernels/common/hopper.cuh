@@ -2,11 +2,11 @@
 // mbarriers, TMA tile loads, the wgmma shared-memory descriptor of a
 // 128-byte swizzled tile, wgmma fences and the host-side encoding of TMA
 // maps (flash_attention.cu, int8_gemm_sm90.cu, paged_prefill.cu), 16-byte
-// cp.async copies (int8_gemm_sm90.cu, dense_decode.cu, paged_prefill.cu),
+// cp.async copies (int8_gemm_sm90.cu, decode.cu, paged_prefill.cu),
 // their mbarrier arrive and the proxy fence that hands their bytes to
 // wgmma (paged_prefill.cu), and the attention kernels' bf16 m64n64k16
 // products, exp2 and bf16 packing (flash_attention.cu, paged_prefill.cu,
-// dense_decode.cu: exp2).
+// decode.cu: exp2).
 //
 // Every operand tile these kernels hand to wgmma is 128 bytes wide along
 // its contiguous dimension (64 bf16 or 128 int8 values) and lies at a

@@ -6,8 +6,10 @@ the memory-hungry formulation the kernel streams away.  An int8 pool is
 dequantized right after the gather (``k.float() * k_scale`` per KV head).
 ``dense_decode_ref`` is the same masked softmax over dense per-slot
 caches, with no table.  ``paged_prefill_tiles`` is the causal kernels'
-tile walk, and ``dense_split_ranges``/``dense_merge_ref`` the dense
-decode's split and merge, for the tests to hold against the reference.
+tile walk, ``decode_split_ranges``/``decode_merge_ref`` the decode
+kernel's split and merge (both layouts), and ``paged_split_rows`` its walk
+through a split's table slice, for the tests to hold against the
+reference.
 """
 from __future__ import annotations
 
@@ -110,21 +112,44 @@ def dense_decode_ref(q, k, v, kv_len, *, softcap=0.0):
     return torch.where(kv_len[:, None, None] > 0, o, torch.zeros_like(o))
 
 
-def dense_split_ranges(kv_len, s: int, splits: int, chunk: int = 16):
+def decode_split_ranges(kv_len, s: int, splits: int, chunk: int = 16):
     """The key ranges ``[lo, hi)`` of each slot's ``splits`` splits, as the
-    dense decode kernel cuts them on the device: the live keys ``[0,
-    min(kv_len, s))`` in whole ``chunk``-key chunks, ``ceil(chunks /
-    splits)`` chunks a split; ``lo >= hi`` marks an empty split.  Returns
-    two int64 tensors ``[B, splits]``."""
+    decode kernel cuts them on the device: the live keys ``[0,
+    min(kv_len, s))`` (``s`` a dense cache's length or the table's ``W *
+    BS``) in whole ``chunk``-key chunks, ``ceil(chunks / splits)`` chunks a
+    split; ``lo >= hi`` marks an empty split.  Returns two int64 tensors
+    ``[B, splits]``."""
     n = kv_len.to(torch.int64).clamp(0, s)
     per = -(-(-(-n // chunk)) // splits)  # chunks per split, ceil(ceil(n / chunk) / splits)
     lo = torch.arange(splits, device=n.device)[None] * (per * chunk)[:, None]
     return lo, torch.minimum(n[:, None], lo + (per * chunk)[:, None])
 
 
-def dense_merge_ref(o, m, l):
-    """Merge per-split partials as the dense decode kernel does: ``o
-    [..., splits, hd]`` unnormalised float32 sums, ``m``/``l [..., splits]``
+def paged_split_rows(table_row, lo: int, hi: int, bs: int, chunk: int = 16):
+    """Where the decode kernel reads the keys ``lo <= kp < hi`` of one
+    split from the pool (``csrc/decode.cu``, ``KeyWalk<Paged>``): it reads
+    the split's table slice ``table_row[lo // bs : (hi - 1) // bs + 1]``
+    once, then the owner of key ``j`` of each ``chunk``-key chunk starts
+    at slice entry ``(lo % bs + j) // bs``, row ``(lo % bs + j) % bs`` and
+    steps ``chunk`` rows on per chunk by subtraction, dividing by ``bs``
+    never again.  Returns (the slice, ``[(pool block, row)]`` for ``kp =
+    lo .. hi - 1``)."""
+    tbl = [int(x) for x in table_row[lo // bs:(hi - 1) // bs + 1]]
+    rows = {}
+    for j in range(chunk):
+        blk, r = divmod(lo % bs + j, bs)
+        for kp in range(lo + j, hi, chunk):
+            rows[kp] = (tbl[blk], r)
+            r += chunk
+            while r >= bs:
+                r -= bs
+                blk += 1
+    return tbl, [rows[kp] for kp in range(lo, hi)]
+
+
+def decode_merge_ref(o, m, l):
+    """Merge per-split partials as the decode kernel does: ``o [...,
+    splits, hd]`` unnormalised float32 sums, ``m``/``l [..., splits]``
     running max and denominator, an empty split at ``m <= -1e30 / 2``.
     Returns ``sum e^(m_i - M) o_i / max(sum e^(m_i - M) l_i, 1e-30)`` over
     the non-empty splits, ``M = max m_i`` (zeros when all are empty)."""

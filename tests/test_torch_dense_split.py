@@ -1,14 +1,14 @@
 """Dense decode split over the cache, against the reference kernel.
 
-The CUDA dense decode cuts each slot's live keys into splits of whole
-16-key chunks (``dense_split_ranges``), computes one ``(o, m, l)`` triple
-per split and merges them (``dense_merge_ref`` is that merge in plain
-PyTorch).  Here the reference's ``dense_attention_kernel`` (interpret mode,
+The CUDA decode kernel cuts each slot's live keys into splits of whole
+16-key chunks (``decode_split_ranges``), computes one ``(o, m, l)``
+triple per split and merges them (``decode_merge_ref`` is that merge in
+plain PyTorch).  Here the reference's ``dense_attention_kernel`` (interpret mode,
 as ``tests/test_kernels.py`` runs it) gives each split's own triple over
 that split's key range, the port's helpers merge them, and the result is
 held against the reference's unsplit ``dense_attention_decode`` within
 1e-5 (float32 on both sides; only the summation order and the rescales
-differ).  ``dense_split_plan``, which picks the split count from shapes
+differ).  ``decode_split_plan``, which picks the split count from shapes
 alone, is tested directly.
 """
 import pytest
@@ -23,10 +23,10 @@ from repro.kernels.paged_attention.ops import (  # noqa: E402
     dense_attention_decode as jax_dense_decode,
 )
 from repro_torch.kernels.paged_attention.ops import (  # noqa: E402
-    DENSE_CHUNK, DENSE_WAVES, dense_split_plan,
+    DECODE_CHUNK, DECODE_WAVES, decode_split_plan,
 )
 from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
-    dense_decode_ref, dense_merge_ref, dense_split_ranges,
+    decode_merge_ref, decode_split_ranges, dense_decode_ref,
 )
 
 S = 40  # cache positions: 3 chunks of 16, the last ragged
@@ -41,7 +41,7 @@ def _reference_split_merge(q, k, v, kv_len, splits, softcap):
     merged by the port's helper.  Returns [B, H, hd] float32."""
     b, h, hd = q.shape
     kvh, s = k.shape[1], k.shape[2]
-    lo, hi = (x.numpy() for x in dense_split_ranges(torch.from_numpy(kv_len), s, splits))
+    lo, hi = (x.numpy() for x in decode_split_ranges(torch.from_numpy(kv_len), s, splits))
     span = max(1, int((hi - lo).max()))
     kp = np.zeros((b, splits, kvh, span, hd), np.float32)
     vp = np.zeros_like(kp)
@@ -60,7 +60,7 @@ def _reference_split_merge(q, k, v, kv_len, splits, softcap):
     # [B * splits, KVH, G, ...] -> [B, KVH, G, splits, ...]
     o, m, l = (torch.from_numpy(np.array(x)).reshape(b, splits, kvh, h // kvh, -1)
                .permute(0, 2, 3, 1, 4) for x in (o, m, l))
-    return dense_merge_ref(o, m[..., 0], l[..., 0]).reshape(b, h, hd)
+    return decode_merge_ref(o, m[..., 0], l[..., 0]).reshape(b, h, hd)
 
 
 @pytest.mark.parametrize("g,hd,splits,softcap", [
@@ -91,14 +91,14 @@ def test_split_ranges_cover_the_live_keys_in_whole_chunks(s, splits):
     """The non-empty ranges tile [0, min(kv_len, S)) in order, each but the
     last a whole number of chunks, all of one length."""
     kv_len = torch.tensor([0, 1, 15, 16, 17, 33, s - 1, s, s + 5], dtype=torch.int32)
-    lo, hi = dense_split_ranges(kv_len, s, splits)
+    lo, hi = decode_split_ranges(kv_len, s, splits)
     assert lo.shape == hi.shape == (kv_len.numel(), splits)
     for i, n in enumerate(kv_len.clamp(max=s).tolist()):
         live = [(a, c) for a, c in zip(lo[i].tolist(), hi[i].tolist()) if a < c]
         assert sum(c - a for a, c in live) == n
         ends = [0] + [c for _, c in live]
         assert all(a == e for (a, _), e in zip(live, ends))  # contiguous from 0
-        assert all(a % DENSE_CHUNK == 0 for a, _ in live)
+        assert all(a % DECODE_CHUNK == 0 for a, _ in live)
         assert len({c - a for a, c in live[:-1]}) <= 1  # equal whole shares
 
 
@@ -112,10 +112,10 @@ def test_split_ranges_cover_the_live_keys_in_whole_chunks(s, splits):
     (8, 1, 2048, 0),      # no SM count: one split
 ])
 def test_dense_split_plan(b, kvh, s, n_sm):
-    splits = dense_split_plan(b, kvh, s, n_sm)
-    chunks = -(-s // DENSE_CHUNK)
+    splits = decode_split_plan(b, kvh, s, n_sm)
+    chunks = -(-s // DECODE_CHUNK)
     assert 1 <= splits <= chunks
-    target = DENSE_WAVES * n_sm
+    target = DECODE_WAVES * n_sm
     if splits < chunks:  # S allows more: the grid reaches its target
         assert b * kvh * splits >= target
     if splits > 1:  # and does not overshoot by a whole split

@@ -13,10 +13,11 @@ signs and stochastic accumulators bit-exact; paged attention float32
 1e-5 (same math, keys streamed in chunks with rescaling), bf16 2e-2 (the
 kernel rounds p to bf16 before the PV product, like the reference
 kernel; the plain version keeps p in float32); on int8 pools float32
-1e-5 (both sides dequantize to the same float32 K/V and compute in
-float32); dense decode as paged decode (split over the cache, the splits
-merged in float32; a bf16 output adds one rounding, within 2e-2 on these
-O(1) outputs); flash attention float32 1e-5,
+1e-5 (both sides compute in float32; the kernel scales each score and
+output once where the plain version scales each code); decode on both
+layouts is split over the keys and the splits merged in float32, and a
+bf16 output adds one rounding, within 2e-2 on these O(1) outputs; flash
+attention float32 1e-5,
 bf16 4e-3 + 2^-7 |want| per element (its plain version rounds p to bf16
 too, but against each row's final max where the kernel uses its running
 max, and both round the output to bf16: one output ulp, 2^-7 of |want| at
@@ -250,13 +251,62 @@ def test_dense_decode_splits_on_card(cuda, dtype, hd, g, kvh, s, fills, split):
     tq, tk, tv = (x.to(cuda, dtype) for x in _t(q, k, v))
     tl = _t(kv_len)[0].to(cuda)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    assert (pa_ops.dense_split_plan(b, kvh, s, n_sm) > 1) == split
+    assert (pa_ops.decode_split_plan(b, kvh, s, n_sm) > 1) == split
     before = pa_ops.dense_attention_decode.launches
     got = pa_ops.dense_attention_decode(tq, tk, tv, tl, softcap=5.0)
     assert pa_ops.dense_attention_decode.launches == before + 1
     assert got.dtype == dtype and not got[0].any()
     want = dense_decode_ref(tq, tk, tv, tl, softcap=5.0)
     tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want, atol=tol, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool,qdt", [(torch.float32, torch.float32),
+                                      (torch.bfloat16, torch.bfloat16),
+                                      (torch.int8, torch.float32), (torch.int8, torch.bfloat16)])
+@pytest.mark.parametrize("hd", [64, 256])
+@pytest.mark.parametrize("g", [1, 10])
+@pytest.mark.parametrize("bs", BLOCK_SIZES)
+def test_paged_decode_splits_on_card(cuda, pool, qdt, hd, g, bs):
+    """Paged decode split over the table's keys.  8 slots over one KV head
+    of a 1536-position table take many splits, and fills 0, 1, 15, 16, 17,
+    270, 1535 and 1536 leave splits empty, cut a chunk at its edge and, at
+    block sizes 12 and 128, start splits inside a pool block; table entries
+    at scratch block 0; softcap.  The merge writes the query dtype (bf16
+    queries on an int8 pool too); one launch counted per call, and on the
+    int8 branch for an int8 pool."""
+    rng = np.random.default_rng(6)
+    s = 1536
+    w = s // bs
+    kv_len = np.asarray([0, 1, 15, 16, 17, 270, s - 1, s], np.int32)
+    b = kv_len.size
+    table = (rng.permutation(b * w).reshape(b, w) + 1).astype(np.int32)
+    table[1, 0] = 0  # entries at scratch block 0
+    table[7, w // 2] = 0
+    shape = (b * w + 1, 1, bs, hd)
+    if pool == torch.int8:
+        kp, vp = (rng.integers(-127, 128, shape).astype(np.int8) for _ in range(2))
+        scales = [x.to(cuda) for x in _t(*(rng.uniform(0.005, 0.03, 1).astype(np.float32)
+                                           for _ in range(2)))]
+    else:
+        kp, vp = (rng.standard_normal(shape).astype(np.float32) for _ in range(2))
+        scales = []
+    q = rng.standard_normal((b, g, hd)).astype(np.float32)
+    tk, tv = (x.to(cuda, pool) for x in _t(kp, vp))
+    tq = _t(q)[0].to(cuda, qdt)
+    tt, tl = (x.to(cuda) for x in _t(table, kv_len))
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    assert pa_ops.decode_split_plan(b, 1, s, n_sm) > 1
+    fn = pa_ops.paged_attention_decode
+    before = (fn.launches, fn.int8_launches)
+    got = fn(tq, tk, tv, tt, tl, *scales, softcap=5.0)
+    assert (fn.launches, fn.int8_launches) == (before[0] + 1,
+                                               before[1] + int(pool == torch.int8))
+    assert got.dtype == qdt and got.shape == tq.shape and not got[0].any()
+    kw = dict(zip(("k_scale", "v_scale"), scales))
+    want = paged_decode_ref(tq, tk, tv, tt, tl, softcap=5.0, **kw)
+    tol = 1e-5 if qdt == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want, atol=tol, rtol=0)
 
 

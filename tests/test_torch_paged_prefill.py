@@ -171,7 +171,7 @@ def test_prefill_runs_on_its_own_library():
     assert "Replaces: src/repro/kernels/paged_attention/kernel.py ::" in text
     assert "paged_attention_kernel, its causal mode" in text
     assert "wgmma_ss(" in text and "wgmma_rs(" in text and "cp_async16(" in text
-    with open(os.path.join(kdir, "paged_attention", "csrc", "paged_attention.cu"),
+    with open(os.path.join(kdir, "paged_attention", "csrc", "decode.cu"),
               encoding="utf-8") as f:
         decode = f.read()
     assert "int causal" not in decode and "q_len" not in decode

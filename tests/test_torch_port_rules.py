@@ -128,7 +128,8 @@ def test_every_kernel_has_plain_version_counter_and_note():
         plain = [n for n, f in vars(ops).items()
                  if getattr(f, "__module__", "") == f"repro_torch.kernels.{pkg}.ref"]
         assert plain, f"{pkg}: ops.py does not use a plain version from ref.py"
-        srcs = [s for s in _build.LIBRARIES[pkg]]
+        srcs = [s for lib in _build.LIBRARIES.values() for s in lib
+                if s.startswith(f"{pkg}/csrc/")]
         assert srcs and all(os.path.exists(os.path.join(PORT, "kernels", s)) for s in srcs)
     # every library's sources (a package may build more than one library)
     for name, srcs in _build.LIBRARIES.items():
@@ -213,15 +214,15 @@ def test_rglru_scan_wrapper_follows_the_port_rules():
 def test_build_key_covers_included_headers(tmp_path, monkeypatch):
     """A library's build key hashes the headers its sources include, so
     editing the shared Hopper header rebuilds the libraries that include
-    it (flash attention, dense decode, paged prefill and the sm_90 int8
-    GEMM) and no other."""
+    it (flash attention, decode, paged prefill and the sm_90 int8 GEMM) and
+    no other."""
     import shutil
 
     from repro_torch.kernels import _build
 
     users = {n for n in _build.LIBRARIES
              if any(p.name == "hopper.cuh" for p in _build.headers(n))}
-    assert users == {"flash_attention", "dense_decode", "paged_prefill", "int8_gemm_sm90"}
+    assert users == {"flash_attention", "decode", "paged_prefill", "int8_gemm_sm90"}
     copy = tmp_path / "kernels"
     shutil.copytree(os.path.join(PORT, "kernels"), copy,
                     ignore=shutil.ignore_patterns("__pycache__"))
