@@ -30,7 +30,16 @@ weight-streaming kernel at decode: both are held bit for bit at every
 serving shape and at each kernel's edges, each model's decode step and
 admission pass are timed summed (admission beside ``torch._int_mm``),
 short admissions time the ``wgmma`` kernel split against unsplit, and
-every int8 serving run must launch both.  Every paged admission runs the
+every int8 serving run must launch both.  The stochastic GEMM reads each
+operand as packed streams or as int8 codes it encodes while staging
+(``stoch_matmul.cu``): the packed, codes and codes x codes entries are held
+bit for bit under all 9 generator pairings, the ``sc`` and ``mixed`` runs
+must launch the codes entry and ``bts_encode`` only at prepare (one per
+weight with streams), and no profiled decode chunk may launch
+``bts_encode``.  The batched int8 qk/pv products of at most 16 rows run on
+a kernel that streams each product in a block of its own
+(``int8_gemm_sm90.cu``), timed beside ``mma.sync``, which keeps the
+``mixed`` admissions.  Every paged admission runs the
 causal prefill kernels of ``paged_prefill.cu`` (``wgmma`` tiles gathered
 through the block table for a bf16 pool, float32 FMA tiles for float32
 and int8 pools): checked on every pool, head dim and block sizes 8, 12,
@@ -83,6 +92,7 @@ PREFILL_GEMMS = {(1531, D, D): 24 * 4, (3072, D, F): 24 * 2, (3072, F, D): 24, (
 INT8_EDGES = [(1, D, D), (16, D, D), (17, D, D), (8, D, 129), (8, 2064, D), (16, 12288, 40),
               (1531, 2064, 129), (8, 2056, D), (1531, 2056, 129)]
 SRC_INT8 = "src/repro_torch/kernels/int8_matmul/csrc/int8_gemm_sm90.cu"
+SRC_INT8_MMA = "src/repro_torch/kernels/int8_matmul/csrc/int8_matmul.cu"
 DECODE_FILLS = [130, 170, 230, 290, 330, 370, 400, 410]  # kv_len of 8 slots mid-run
 # the sc plan runs every weight GEMM of DECODE_GEMMS through bts_encode +
 # stoch_matmul; its admission prefill packs 4 requests of up to 160 tokens
@@ -90,6 +100,9 @@ SC_PREFILL_GEMM = (640, D, F)
 # (B, M, K, N) of the batched int8 qk and pv products of one decode layer
 # under mixed: 8 slots x 32 KV heads, one query row, the 32-block view
 QKPV_DECODE = [(256, 1, HD, 512), (256, 1, 512, HD)]
+# and of one admission of the 4 sc/mixed requests (64-160 tokens): 4 slots
+# x 32 KV heads, 160 query rows against the 11-block (176-position) view
+QKPV_ADMISSION = [(128, 160, HD, 176), (128, 160, 176, HD)]
 # paged attention against its plain version: float32 1e-4 (same math; the
 # kernel takes keys 32-64 at a time and rescales); bf16 2e-2 (the kernel
 # rounds p to bf16 before the PV product, as the reference kernel does;
@@ -479,12 +492,19 @@ def _codes(g, dev, *shape) -> torch.Tensor:
 
 def check_stochastic(dev, g) -> None:
     """The stochastic kernels and the batched int8 entry against their plain
-    versions on the card, bit for bit: ``bts_encode`` under every generator
-    over every code -127..127 and at ragged, activation and full weight
-    shapes; ``stoch_matmul`` at ragged M/N/K, the decode shapes (M = 8
-    against every weight, the lm_head included), a prefill shape and a
-    batch; the batched int8 GEMM at the decode qk/pv shapes (256 heads,
-    K = 64 and K = the 512-position view) and ragged ones."""
+    versions on the card, bit for bit.  ``bts_encode`` under every
+    generator over every code -127..127 and at ragged, activation and full
+    weight shapes.  The stochastic GEMM on each of its operand forms
+    against one plain result (``bts_encode_ref`` of both operands' codes,
+    then ``stoch_matmul_packed_ref``): the packed entry, the codes entry
+    (activation codes against the weight's streams) and the codes x codes
+    batched entry, under all 9 generator pairings at ragged M/N/K, every
+    code -127..127 among the activations, and a batch; at the decode shapes
+    (M = 8 against every weight, the lm_head included) and the sc prefill
+    shape one pairing each, in turn.  The batched int8 GEMM at the decode
+    qk/pv shapes and ragged ones on its stream kernel, and at the mixed
+    admission's and other shapes on ``mma.sync``, the kernel's counter
+    asserted each time."""
     from repro_torch.core.bitstream import GENERATORS
     from repro_torch.kernels.bts_encode import bts_encode
     from repro_torch.kernels.bts_encode.ref import bts_encode_ref
@@ -506,137 +526,191 @@ def check_stochastic(dev, g) -> None:
             shapes.append(tuple(q.shape))
         log(f"[bts encode] {gen} at {shapes} (every code -127..127 first): words and signs "
             "equal the plain version bit for bit")
-    pairs = [("thermometer", "bresenham"), ("lfsr", "lfsr"), ("bresenham", "thermometer"),
-             ("lfsr", "thermometer")]
+    pairs = [(x, w) for x in GENERATORS for w in GENERATORS]
     ragged = [((), 5, 100, 33), ((), 70, 1000, 129), ((), 1, 17, 5), ((), 9, 2048, 200),
-              ((4,), 3, 64, 40)]
-    path = [((), m, k, n) for m, k, n in list(DECODE_GEMMS) + [SC_PREFILL_GEMM]]
-    for i, (lead, m, k, n) in enumerate(ragged + path):
-        x_gen, w_gen = pairs[i % len(pairs)] if i < len(ragged) else pairs[0]
-        xs, sx = bts_encode_ref(codes(*lead, m, k), x_gen)
-        ws, sw = bts_encode_ref(codes(*lead, n, k), w_gen)
-        got = sm.stoch_matmul_packed(xs, sx, ws, sw)
-        assert torch.equal(got, stoch_matmul_packed_ref(xs, sx, ws, sw)), (lead, m, k, n)
+              ((), 2, 255, 40), ((4,), 3, 64, 40)]
+    cases = [(lead, m, k, n, p) for lead, m, k, n in ragged for p in pairs]
+    cases += [((), m, k, n, pairs[i % len(pairs)])
+              for i, (m, k, n) in enumerate(list(DECODE_GEMMS) + [SC_PREFILL_GEMM])]
+    cases += [((b,), m, k, n, pairs[i]) for i, (b, m, k, n) in enumerate(QKPV_DECODE)]
+    fns = (sm.stoch_matmul_packed, sm.stoch_matmul_codes, sm.stoch_matmul_codes_batched)
+    for lead, m, k, n, (x_gen, w_gen) in cases:
+        xq, wq = codes(*lead, m, k), codes(*lead, n, k)
+        if k == 255:  # every code, in both orders
+            xq[0] = torch.arange(-127, 128, dtype=torch.int8, device=dev)
+            xq[1] = xq[0].flip(0)
+        xs, sx = bts_encode_ref(xq, x_gen)
+        ws, sw = bts_encode_ref(wq, w_gen)
+        want = stoch_matmul_packed_ref(xs, sx, ws, sw)
+        before = [f.launches for f in fns]
+        forms = ["packed"]
+        assert torch.equal(sm.stoch_matmul_packed(xs, sx, ws, sw), want), (lead, m, k, n)
+        if not lead:
+            assert torch.equal(sm.stoch_matmul_codes(xq, ws, sw, x_gen), want), (m, k, n)
+            forms.append("codes")
+        xb, wb = (xq, wq) if lead else (xq[None], wq[None])
+        got = sm.stoch_matmul_codes_batched(xb, wb, x_gen, w_gen)
+        assert torch.equal(got if lead else got[0], want), (lead, m, k, n, x_gen, w_gen)
+        forms.append("codes x codes")
+        assert [f.launches - b for f, b in zip(fns, before)] == [1, int(not lead), 1]
         log(f"[stoch matmul] {'B=%d ' % lead[0] if lead else ''}M={m} K={k} N={n} "
-            f"({x_gen} x {w_gen}): int32 accumulators equal the plain version bit for bit")
-    for b, m, k, n in QKPV_DECODE + [(3, 5, 100, 33), (128, 160, HD, 176)]:
+            f"({x_gen} x {w_gen}): {', '.join(forms)} int32 accumulators equal the plain "
+            "version bit for bit")
+        del xq, wq, xs, sx, ws, sw, want, got
+    batched = [(b, m, k, n, "stream") for b, m, k, n in QKPV_DECODE]
+    batched += [(4, m, k, n, "stream" if k % 16 == 0 else "mma")
+                for m in (1, 3, 16) for k in (64, 100, 512) for n in (5, 512, 513)]
+    batched += [(b, m, k, n, "mma") for b, m, k, n in QKPV_ADMISSION]
+    batched += [(3, 5, 100, 33, "mma"), (2, 9, 4096, 40, "stream")]
+    fn = i8.int8_gemm_batched
+    for b, m, k, n, path in batched:
         x, w_t = codes(b, m, k), codes(b, n, k)
-        assert torch.equal(i8.int8_gemm_batched(x, w_t), int8_matmul_acc_ref(x, w_t)), (b, m, k, n)
-        log(f"[int8 gemm batched] B={b} M={m} K={k} N={n}: int32 accumulators equal the "
-            "plain version bit for bit")
+        before = dict(fn.paths)
+        assert torch.equal(fn(x, w_t), int8_matmul_acc_ref(x, w_t)), (b, m, k, n)
+        moved = {p: c - before[p] for p, c in fn.paths.items() if c != before[p]}
+        assert moved == {path: 1}, (b, m, k, n, moved)
+    log(f"[int8 gemm batched] {len(batched)} batches (B, M, K, N, kernel) "
+        f"{[c for c in batched]}: int32 accumulators equal the plain version bit for bit, "
+        "each on the kernel int8_batched_plan picks")
 
 
 def time_stochastic(dev, g, timer=time_ms, plain_timer=wall_ms) -> dict:
     """The stochastic kernels and the batched int8 entry at the serving
-    path's shapes beside their bounds:
-    the activation encodes and stochastic GEMMs of one ``sc`` decode step
-    (M = 8, every weight GEMM of ``DECODE_GEMMS``), and the batched int8
-    qk/pv products of one ``mixed`` decode step (24 layers x qk, pv)."""
+    path's shapes beside their bounds.  One ``sc`` decode step (M = 8,
+    every weight GEMM of ``DECODE_GEMMS``): the codes entry (the serving
+    path since activations stopped going through ``bts_encode``), beside
+    the parent's route (an activation encode and the packed entry) and the
+    packed entry alone; the weight encodes of ``prepare`` (``bts_encode``'s
+    only launches on the serving path).  The batched int8 qk/pv products of
+    one ``mixed`` decode step (24 layers x qk, pv) on the stream kernel
+    beside ``mma.sync`` at the same shapes, and of one ``mixed`` admission
+    pass on ``mma.sync``."""
     from repro_torch.kernels.bts_encode import bts_encode
     from repro_torch.kernels.bts_encode.ref import bts_encode_ref
     from repro_torch.kernels.int8_matmul import ops as i8
     from repro_torch.kernels.int8_matmul.ref import int8_matmul_acc_ref
     from repro_torch.kernels.stoch_matmul import ops as sm
-    from repro_torch.kernels.stoch_matmul.ref import stoch_matmul_packed_ref
+    from repro_torch.kernels.stoch_matmul.ref import stoch_matmul_codes_ref
 
     def codes(*shape):
         return _codes(g, dev, *shape)
 
     out = {}
+    # the weight encodes of prepare: every weight [N, K] of a stablelm layer
+    # (q, k, v, o; up, gate; down) and the lm_head, once each
+    weights = {(D, D): 24 * 4, (F, D): 24 * 2, (D, F): 24, (V, D): 1}
     k_ms = p_ms = 0.0
     n_bytes = err = 0
-    for k, count in ((D, 24 * 6 + 1), (F, 24)):  # q,k,v,o,up,gate per layer + lm_head; down
-        q = codes(8, k)
-        w_k, s_k = bts_encode(q, "thermometer")
-        w_p, s_p = bts_encode_ref(q, "thermometer")
+    for (r, c), count in weights.items():
+        q = codes(r, c)
+        w_k, s_k = bts_encode(q, "bresenham")
+        w_p, s_p = bts_encode_ref(q, "bresenham")
         err = max(err, (w_k.long() - w_p.long()).abs().max().item(),
                   (s_k.long() - s_p.long()).abs().max().item())
-        t_k = timer(lambda: bts_encode(q, "thermometer"))
-        t_p = timer(lambda: bts_encode_ref(q, "thermometer"), reps=3)
-        k_ms, p_ms, n_bytes = k_ms + count * t_k, p_ms + count * t_p, n_bytes + count * 18 * 8 * k
-        bb, _ = bound_ms(18 * 8 * k, 0, "int8")
-        log(f"[time bts encode] activations 8 x {k} x{count} per step: kernel_ms {t_k:.4f} "
-            f"plain_ms {t_p:.4f} bound_ms {bb:.5f} (bytes)")
-    assert err == 0, ("bts_encode at decode shapes", err)
+        del w_k, s_k, w_p, s_p
+        t_k = timer(lambda: bts_encode(q, "bresenham"), reps=3)
+        t_p = plain_timer(lambda: bts_encode_ref(q, "bresenham"))
+        k_ms, p_ms, n_bytes = k_ms + count * t_k, p_ms + count * t_p, n_bytes + count * 18 * r * c
+        bb, _ = bound_ms(18 * r * c, 0, "int8")
+        log(f"[time bts encode] weight {r} x {c} (bresenham, once at prepare) x{count}: "
+            f"kernel_ms {t_k:.4f} plain_ms {t_p:.4f} bound_ms {bb:.4f} (bytes)")
+        del q
+        _free(dev)
+    assert err == 0, ("bts_encode at the weight shapes", err)
     b_ms, b_by = bound_ms(n_bytes, 0, "int8")
     out["bts_encode"] = dict(
         name="bts_encode", route="cuda",
         source="src/repro_torch/kernels/bts_encode/csrc/bts_encode.cu",
         replaces="src/repro/kernels/bts_encode/kernel.py:54", max_abs_err=float(err),
         ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    log(f"[time bts encode] all activation encodes of one sc decode step (M=8): kernel_ms "
+    log(f"[time bts encode] every weight encode of prepare (169 weights): kernel_ms "
         f"{k_ms:.4f} plain_ms {p_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) library_ms none (no "
         "PyTorch call encodes stochastic streams)")
-    for r, c in ((D, F), (V, D)):  # weight encodes at prepare: up/gate, lm_head
-        q = codes(r, c)
-        t_k = timer(lambda: bts_encode(q, "bresenham"), reps=3)
-        bb, _ = bound_ms(18 * r * c, 0, "int8")
-        log(f"[time bts encode] weight {r} x {c} (bresenham, once at prepare): kernel_ms "
-            f"{t_k:.4f} bound_ms {bb:.4f} (bytes)")
 
-    k_ms = p_ms = 0.0
+    k_ms = p_ms = packed_ms = enc_ms = 0.0
     n_bytes = n_ops = err = 0
     for (m, k, n), count in DECODE_GEMMS.items():
-        xs, sx = bts_encode(codes(m, k), "thermometer")
+        xq = codes(m, k)
         ws, sw = bts_encode(codes(n, k), "bresenham")
-        diff = (sm.stoch_matmul_packed(xs, sx, ws, sw).long()
-                - stoch_matmul_packed_ref(xs, sx, ws, sw).long())
+        got = sm.stoch_matmul_codes(xq, ws, sw, "thermometer")
+        diff = got.long() - stoch_matmul_codes_ref(xq, ws, sw, "thermometer").long()
         err = max(err, diff.abs().max().item())
-        t_k = timer(lambda: sm.stoch_matmul_packed(xs, sx, ws, sw))
-        t_p = plain_timer(lambda: stoch_matmul_packed_ref(xs, sx, ws, sw))
-        nb, ops = 17 * (m + n) * k + 4 * m * n, 4 * m * n * k
+        xs, sx = bts_encode(xq, "thermometer")
+        assert torch.equal(sm.stoch_matmul_packed(xs, sx, ws, sw), got)
+        t_k = timer(lambda: sm.stoch_matmul_codes(xq, ws, sw, "thermometer"))
+        t_e = timer(lambda: bts_encode(xq, "thermometer"))
+        t_pk = timer(lambda: sm.stoch_matmul_packed(xs, sx, ws, sw))
+        t_p = plain_timer(lambda: stoch_matmul_codes_ref(xq, ws, sw, "thermometer"))
+        nb, ops = (m + 17 * n) * k + 4 * m * n, 4 * m * n * k
         k_ms, p_ms = k_ms + count * t_k, p_ms + count * t_p
+        packed_ms, enc_ms = packed_ms + count * t_pk, enc_ms + count * t_e
         n_bytes, n_ops = n_bytes + count * nb, n_ops + count * ops
         bb, by = bound_ms(nb, ops, "popc")
-        log(f"[time stoch matmul] M={m} K={k} N={n} x{count} per step: kernel_ms {t_k:.4f} "
-            f"plain_ms {t_p:.4f} bound_ms {bb:.4f} ({by}; bytes alone "
+        log(f"[time stoch matmul] M={m} K={k} N={n} x{count} per step: codes entry kernel_ms "
+            f"{t_k:.4f}; parent's route {t_e + t_pk:.4f} (bts_encode {t_e:.4f} + packed "
+            f"{t_pk:.4f}); plain_ms {t_p:.4f} bound_ms {bb:.4f} ({by}; bytes alone "
             f"{nb / HBM_BYTES_S * 1e3:.4f})")
-        del xs, sx, ws, sw, diff
+        del xq, ws, sw, xs, sx, got, diff
+        _free(dev)
     assert err == 0, ("stoch_matmul at decode shapes", err)
     b_ms, b_by = bound_ms(n_bytes, n_ops, "popc")
-    out["stoch_matmul_packed"] = dict(
-        name="stoch_matmul_packed", route="cuda",
+    out["stoch_matmul"] = dict(
+        name="stoch_matmul", route="cuda",
+        wrapper=("stoch_matmul_packed", "stoch_matmul_codes", "stoch_matmul_codes_batched"),
         source="src/repro_torch/kernels/stoch_matmul/csrc/stoch_matmul.cu",
         replaces="src/repro/kernels/stoch_matmul/kernel.py:50", max_abs_err=float(err),
         ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    log(f"[time stoch matmul] all weight GEMMs of one sc decode step (M=8): kernel_ms "
-        f"{k_ms:.4f} plain_ms {p_ms:.4f} bound_ms {b_ms:.4f} ({b_by}; bytes alone "
+    log(f"[time stoch matmul] all weight GEMMs of one sc decode step (M=8), codes entry: "
+        f"kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} bound_ms {b_ms:.4f} ({b_by}; bytes alone "
         f"{n_bytes / HBM_BYTES_S * 1e3:.4f}) library_ms none (no PyTorch call computes an "
-        "AND-popcount product); kernel "
-        f"{n_ops / max(k_ms, 1e-9) / 1e9:.2f} T popc/s of {PEAK_OPS['popc'] / 1e12:.2f}")
+        f"AND-popcount product); kernel {n_ops / max(k_ms, 1e-9) / 1e9:.2f} T popc/s of "
+        f"{PEAK_OPS['popc'] / 1e12:.2f}; packed entry alone {packed_ms:.4f}; the parent's "
+        f"route (169 bts_encode + packed) {enc_ms + packed_ms:.4f} (encodes {enc_ms:.4f}); "
+        f"codes / packed {k_ms / packed_ms:.4f}")
     m, k, n = SC_PREFILL_GEMM
-    xs, sx = bts_encode(codes(m, k), "thermometer")
+    xq = codes(m, k)
     ws, sw = bts_encode(codes(n, k), "bresenham")
-    t_k = timer(lambda: sm.stoch_matmul_packed(xs, sx, ws, sw), reps=3)
-    bb, by = bound_ms(17 * (m + n) * k + 4 * m * n, 4 * m * n * k, "popc")
-    log(f"[time stoch matmul] prefill M={m} K={k} N={n}: kernel_ms {t_k:.4f} bound_ms "
-        f"{bb:.4f} ({by}); kernel {4 * m * n * k / max(t_k, 1e-9) / 1e9:.2f} T popc/s")
-    del xs, sx, ws, sw
+    t_k = timer(lambda: sm.stoch_matmul_codes(xq, ws, sw, "thermometer"), reps=3)
+    bb, by = bound_ms((m + 17 * n) * k + 4 * m * n, 4 * m * n * k, "popc")
+    log(f"[time stoch matmul] prefill M={m} K={k} N={n}, codes entry: kernel_ms {t_k:.4f} "
+        f"bound_ms {bb:.4f} ({by}); kernel {4 * m * n * k / max(t_k, 1e-9) / 1e9:.2f} T popc/s")
+    del xq, ws, sw
 
-    k_ms = p_ms = 0.0
-    n_bytes = ops = err = 0
-    for b, m, k, n in QKPV_DECODE:
-        x, w_t = codes(b, m, k), codes(b, n, k)
-        diff = i8.int8_gemm_batched(x, w_t).long() - int8_matmul_acc_ref(x, w_t).long()
-        err = max(err, diff.abs().max().item())
-        t_k = timer(lambda: i8.int8_gemm_batched(x, w_t))
-        t_p = timer(lambda: int8_matmul_acc_ref(x, w_t), reps=3)
-        k_ms, p_ms = k_ms + 24 * t_k, p_ms + 24 * t_p
-        n_bytes += 24 * (b * (m + n) * k + 4 * b * m * n)
-        ops += 24 * 2 * b * m * n * k
-        log(f"[time int8 gemm batched] B={b} M={m} K={k} N={n} x24 per step: kernel_ms "
-            f"{t_k:.4f} plain_ms {t_p:.4f}")
-    assert err == 0, ("int8 gemm batched at decode shapes", err)
-    b_ms, b_by = bound_ms(n_bytes, ops, "int8")
-    out["int8_gemm_batched"] = dict(
-        name="int8_gemm_batched", route="cuda",
-        source="src/repro_torch/kernels/int8_matmul/csrc/int8_matmul.cu",
-        replaces="src/repro/kernels/int8_matmul/kernel.py:38", max_abs_err=float(err),
-        ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    log(f"[time int8 gemm batched] all qk/pv products of one mixed decode step: kernel_ms "
-        f"{k_ms:.4f} plain_ms {p_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) library_ms none "
-        "(no single PyTorch call gives a batch of int8 products in int32: torch._int_mm "
-        "takes one 2-D product)")
+    for phase, shapes in (("decode", QKPV_DECODE), ("admission", QKPV_ADMISSION)):
+        k_ms = p_ms = mma_ms = 0.0
+        n_bytes = ops = err = 0
+        for b, m, k, n in shapes:
+            x, w_t = codes(b, m, k), codes(b, n, k)
+            path = i8.int8_batched_plan(m, n, k)
+            diff = i8.int8_gemm_batched(x, w_t).long() - int8_matmul_acc_ref(x, w_t).long()
+            err = max(err, diff.abs().max().item())
+            t_k = timer(lambda: i8.int8_gemm_batched(x, w_t))
+            t_p = timer(lambda: int8_matmul_acc_ref(x, w_t), reps=3)
+            t_m = t_k if path == "mma" else timer(lambda: i8._launch(x, w_t, "mma.sync"))
+            k_ms, p_ms, mma_ms = k_ms + 24 * t_k, p_ms + 24 * t_p, mma_ms + 24 * t_m
+            nb = b * (m + n) * k + 4 * b * m * n
+            n_bytes += 24 * nb
+            ops += 24 * 2 * b * m * n * k
+            bb, by = bound_ms(nb, 2 * b * m * n * k, "int8")
+            log(f"[time int8 gemm batched] {phase} B={b} M={m} K={k} N={n} x24 per pass "
+                f"({path}): kernel_ms {t_k:.4f} (mma.sync {t_m:.4f}) plain_ms {t_p:.4f} "
+                f"bound_ms {bb:.4f} ({by})")
+            del x, w_t, diff
+        assert err == 0, ("int8 gemm batched", phase, err)
+        b_ms, b_by = bound_ms(n_bytes, ops, "int8")
+        row = "int8_gemm_batched" if phase == "decode" else "int8_gemm_batched_admission"
+        _, m0, k0, n0 = shapes[0]
+        kernel = i8.int8_batched_plan(m0, n0, k0)
+        out[row] = dict(
+            name=row, route="cuda", wrapper=f"int8_gemm_batched_{kernel}",
+            source=SRC_INT8 if kernel == "stream" else SRC_INT8_MMA,
+            replaces="src/repro/kernels/int8_matmul/kernel.py:38", max_abs_err=float(err),
+            ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        log(f"[time int8 gemm batched] all qk/pv products of one mixed {phase} pass ({kernel}): "
+            f"kernel_ms {k_ms:.4f} (mma.sync at the same shapes {mma_ms:.4f}) plain_ms "
+            f"{p_ms:.4f} bound_ms {b_ms:.4f} ({b_by}, {b_ms / k_ms:.1%} of it) library_ms none "
+            "(no single PyTorch call gives a batch of int8 products in int32: torch._int_mm "
+            "takes one 2-D product)")
     return out
 
 
@@ -1120,17 +1194,21 @@ def make_sc_prompts(vocab: int, rng) -> list:
 
 # the kernels each plan's serving path must launch: qk/pv run in the paged
 # kernel when exact (its int8 branch on an int8 pool); under mixed they are
-# int8 and take the gathered view; on dense caches (-dense) prefill runs the
-# flash kernel and decode the dense decode kernel.  The int8 GEMM's
-# admissions (M > 16) take its wgmma kernel and its decode steps (8 slots)
-# the weight-streaming kernel.
+# int8 and take the gathered view, on the batched entry's mma.sync kernel at
+# admission and its stream kernel at decode; on dense caches (-dense)
+# prefill runs the flash kernel and decode the dense decode kernel.  The
+# int8 GEMM's admissions (M > 16) take its wgmma kernel and its decode
+# steps (8 slots) the weight-streaming kernel.  The sc projections run the
+# stochastic GEMM's codes entry; bts_encode runs at prepare only, once per
+# weight that has streams (serve asserts both).
 INT8_KERNELS = ("int8_gemm", "int8_gemm_wgmma", "int8_gemm_stream")
 PLAN_KERNELS = {
     "exact": ("paged_attention_decode", "paged_attention_prefill"),
     "int8": ("paged_attention_decode", "paged_attention_prefill") + INT8_KERNELS,
     "sc": ("paged_attention_decode", "paged_attention_prefill", "bts_encode",
-           "stoch_matmul_packed"),
-    "mixed": ("bts_encode", "stoch_matmul_packed", "int8_gemm_batched"),
+           "stoch_matmul_codes"),
+    "mixed": ("bts_encode", "stoch_matmul_codes", "int8_gemm_batched",
+              "int8_gemm_batched_stream", "int8_gemm_batched_mma"),
     "exact-kvq": ("paged_attention_decode", "paged_attention_prefill",
                   "paged_attention_decode_int8", "paged_attention_prefill_int8"),
     "int8-kvq": ("paged_attention_decode", "paged_attention_prefill",
@@ -1161,12 +1239,27 @@ def _serving_model(cfg, dev, plan, kv_quant="none"):
     return Model(cfg, ModelOptions(plan=plan, attn_impl="flash", kv_quant=kv_quant), device=dev)
 
 
+def _count_streams(tree) -> int:
+    """Weights with cached streams (``wsc_t``) in a prepared param tree."""
+    from repro_torch.core.ossm import WeightStreams
+
+    if isinstance(tree, WeightStreams):
+        return 1
+    if isinstance(tree, dict):
+        return sum(_count_streams(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_count_streams(v) for v in tree)
+    return 0
+
+
 def serve(cfg, params, prompts, dev, runs, gen: int, max_len: int = 512,
           kv_block_size: int = BS):
     """Phase 6: the engine for each ``(label, plan, kv_quant)`` run on the
     paged pool (``kv_block_size > 0``) or dense per-slot caches (0);
-    returns each run's launches per kernel, counted inside that serving
-    run only, and its greedy tokens ``[requests, gen]``.  On the paged
+    returns each run's launches per kernel, counted from the engine's
+    construction (``prepare``: one ``bts_encode`` per weight that gets
+    streams, and no other launch) to the end of that serving run (no
+    further ``bts_encode``), and its greedy tokens ``[requests, gen]``.  On the paged
     pool, plans that may reuse prefixes (exact, or static calibrated
     scales) must hit the prefix cache; on dense caches ``kv_stats`` and
     ``prefix_stats`` are empty.  No kernel of the other layout may launch.
@@ -1190,9 +1283,10 @@ def serve(cfg, params, prompts, dev, runs, gen: int, max_len: int = 512,
         _free(dev)
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()  # from prepare on: the weight encodes count
         engine = ServeEngine(model, params, serve_cfg, device=dev)  # fresh: no warm prefix
         _sync(dev)
-        reset_launches()
+        prepared = launch_counts()
         t0 = time.perf_counter()
         outs = engine.generate_batch(prompts, gen)
         _sync(dev)
@@ -1202,6 +1296,12 @@ def serve(cfg, params, prompts, dev, runs, gen: int, max_len: int = 512,
         assert all(((o.tokens >= 0) & (o.tokens < cfg.vocab)).all() for o in outs)
         ps, st, kv = engine.prefix_stats, engine.phase_stats, engine.kv_stats
         if dev.type == "cuda":
+            n_streams = _count_streams(engine.params)
+            assert prepared["bts_encode"] == n_streams == sum(prepared.values()), (
+                label, "prepare must launch one bts_encode per weight with streams and nothing "
+                "else", n_streams, prepared)
+            assert counts["bts_encode"] == n_streams, (label, "bts_encode launched while serving",
+                                                       counts["bts_encode"], n_streams)
             missing = [k for k in PLAN_KERNELS[label] if counts[k] == 0]
             assert not missing, (label, "kernels of the path never launched", missing, counts)
             stray = [k for k in LAYOUT_KERNELS["paged" if dense else "dense"] if counts[k]]
@@ -1282,6 +1382,7 @@ def profile_decode_chunk(cfg, params, prompts, dev, runs, kv_block_size: int = B
     and the int8 GEMM kernels and the fill/memset kernels the round ran."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.serve import ServeConfig, ServeEngine
 
     serve_cfg = ServeConfig(max_slots=8, max_len=max_len, chunk_steps=8,
@@ -1294,11 +1395,16 @@ def profile_decode_chunk(cfg, params, prompts, dev, runs, kv_block_size: int = B
             engine.submit(p, 32)
         engine.step()  # admission prefill + the first chunk, untraced
         _sync(dev)
+        reset_launches()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             engine.step()  # a pure decode chunk: 8 steps
             _sync(dev)
             host_ms = (time.perf_counter() - t0) * 1e3
+        counts = launch_counts()
+        assert counts["bts_encode"] == 0, (label, "bts_encode launched in a decode chunk", counts)
+        if dev.type == "cuda" and label in ("sc", "mixed"):
+            assert counts["stoch_matmul_codes"] > 0, (label, counts)
         events = prof.key_averages()
         rows = [(getattr(e, "self_device_time_total", 0.0), e.key, e.count) for e in events]
         # the device rows alone (kernels, memsets, copies: device_type CUDA),
@@ -1324,12 +1430,26 @@ def profile_decode_chunk(cfg, params, prompts, dev, runs, kv_block_size: int = B
         # ran: a GEMM zeroing its output would add one per GEMM against the
         # same chunk under exact (a dynamic activation scale adds one too:
         # quantize's ones_like)
-        gemm = [r for r in on_dev if "int8_gemm" in r[1]]
+        gemm = [r for r in on_dev if "int8_gemm" in r[1] and "batched" not in r[1]
+                and "true>" not in r[1]]
         fills = [r for r in on_dev if "fill" in r[1].lower() or "memset" in r[1].lower()]
         if gemm:
             detail += (f"; int8 GEMM kernels {sum(r[0] for r in gemm) / 1e3:.2f} ms over "
                        f"{sum(r[2] for r in gemm)} launches ("
                        + ", ".join(f"{r[1][:48]} x{r[2]}" for r in gemm) + ")")
+        # the stochastic plans' kernels: the encoder (none since activations
+        # are encoded in the GEMM's tile load), the stochastic GEMM, and the
+        # batched int8 qk/pv GEMM (its stream kernel, or mma.sync's batched
+        # instantiation, ``..., true>``)
+        for what, pick in (("bts_encode", lambda k: "bts_encode" in k),
+                           ("stochastic GEMM", lambda k: "stoch_matmul" in k),
+                           ("batched int8 GEMM", lambda k: "int8_gemm_batched" in k
+                            or ("int8_gemm_kernel" in k and "true>" in k))):
+            rs = [r for r in on_dev if pick(r[1])]
+            if rs or label in ("sc", "mixed"):
+                detail += (f"; {what} {sum(r[0] for r in rs) / 1e3:.2f} ms over "
+                           f"{sum(r[2] for r in rs)} launches")
+        detail += f"; counted launches {{{', '.join(f'{k}: {v}' for k, v in counts.items() if v)}}}"
         detail += (f"; fill/memset kernels: {sum(r[2] for r in fills)} launches ("
                    + (", ".join(f"{r[1][:72]} x{r[2]}" for r in fills) or "none") + ")")
         log(f"[profile {label}] one decode chunk (8 steps x 8 slots, {busy} busy): host "
@@ -1516,6 +1636,9 @@ def log_tiles() -> None:
     log(f"[tiles] int8 GEMM: wgmma kernel {int8(0)} B (3 stages of 128 x 128-byte X and Wt "
         f"slabs); stream kernel M <= 8 / M <= 16: {int8(1)} / {int8(2)} B (4 warps x 6 stages "
         "of 16 weight rows and the X rows, 128 K bytes each)")
+    batched = _build.load("int8_gemm_sm90").int8_gemm_batched_smem_bytes
+    log("[tiles] int8 batched stream kernel, one product a block: "
+        + ", ".join(f"M={m} K={k} N={n} {batched(m, n, k)} B" for _, m, k, n in QKPV_DECODE))
     for hd in HEAD_DIMS_ALL:
         tiles = "; ".join(f"{name} G 1/4/10 {decode(hd, c, 1)}/{decode(hd, c, 4)}/"
                           f"{decode(hd, c, 10)} B"
@@ -1642,13 +1765,16 @@ def main() -> None:
 
     # launches: summed over the serving runs of the row's model (the rows
     # at recurrentgemma's shapes over rg-exact and rg-int8, the others over
-    # the eight stablelm runs); launches_by_plan: each run's own
+    # the eight stablelm runs) and over the row's wrappers (the stochastic
+    # GEMM's three entries); launches_by_plan: each run's own
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_plan",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for name, rec in kernels.items():
-        wrapper = rec.get("wrapper", name)
+        wrappers = rec.get("wrapper", name)
+        wrappers = (wrappers,) if isinstance(wrappers, str) else wrappers
         runs = rg_launches if name in RG_ROWS else launches
-        rec["launches_by_plan"] = {label: c[wrapper] for label, c in runs.items()}
+        rec["launches_by_plan"] = {label: sum(c[w] for w in wrappers)
+                                   for label, c in runs.items()}
         rec["launches"] = sum(rec["launches_by_plan"].values())
     print(json.dumps({"kernels": [{k: rec[k] for k in keys} for rec in kernels.values()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

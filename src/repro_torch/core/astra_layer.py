@@ -11,8 +11,9 @@ single entry point every model GEMM goes through:
   the OSSM array ANDs, popcounts and sums them with their signs.
 
 On a CUDA tensor the products always run the hand-written kernels
-(``kernels.int8_matmul``; ``kernels.bts_encode`` and
-``kernels.stoch_matmul``) whatever ``use_pallas`` says — the reference's
+(``kernels.int8_matmul``; ``kernels.stoch_matmul``, which encodes the
+activation codes while it stages them, and ``kernels.bts_encode`` for a
+weight's streams, once) whatever ``use_pallas`` says — the reference's
 kernels and its jnp paths are bit-identical; on a CPU tensor they run the
 kernels' plain versions.
 
@@ -167,11 +168,8 @@ def astra_batched_matmul(x: torch.Tensor, w: torch.Tensor,
 
         out = (int8_gemm_batched(xq.q, w_t).to(torch.float32) * xq.scale) * wq.scale
     else:
-        from repro_torch.kernels.bts_encode import bts_encode
-        from repro_torch.kernels.stoch_matmul.ops import stoch_matmul_packed
+        from repro_torch.kernels.stoch_matmul.ops import stoch_matmul_codes_batched
 
-        xs, sx = bts_encode(xq.q, cc.x_gen)
-        ws, sw = bts_encode(w_t, cc.w_gen)
-        acc = stoch_matmul_packed(xs, sx, ws, sw)
+        acc = stoch_matmul_codes_batched(xq.q, w_t, cc.x_gen, cc.w_gen)
         out = acc.to(torch.float32) * STREAM_LEN * xq.scale * wq.scale
     return out.reshape(*lead, m, n).to(x.dtype)

@@ -10,9 +10,11 @@ launches the kernel or raises.
 * ``int8_matmul``     — int8 x int8 -> int32 GEMM on the tensor cores,
   one product or a batch of them per launch; one product runs on
   ``wgmma`` with TMA-fed tiles at admission and streams the weight at
-  decode (``csrc/int8_gemm_sm90.cu``, its own library), the batch and a K
-  that is not a multiple of 16 on ``mma.sync`` tiles
-  (replaces ``repro.kernels.int8_matmul``)
+  decode, a batch of products of at most 16 rows streams each product's
+  second operand in a block of its own (``csrc/int8_gemm_sm90.cu``, its
+  own library), a batch of larger products and a K that is not a
+  multiple of 16 run on ``mma.sync`` tiles (replaces
+  ``repro.kernels.int8_matmul``)
 * ``paged_attention`` — single-query decode over dense per-slot caches
   and through the paged pool's block table, one kernel for both layouts:
   each (slot, KV head)'s keys split across blocks (``decode_split_plan``)
@@ -26,9 +28,12 @@ launches the kernel or raises.
   (bf16 on ``wgmma`` with K/V tiles brought by TMA, float32 on FMA tiles):
   the dense layout's prefill (replaces ``repro.kernels.flash_attention``)
 * ``bts_encode``      — the B-to-S encoder: int8 codes -> packed 128-bit
-  stochastic streams and signs (replaces ``repro.kernels.bts_encode``)
+  stochastic streams and signs, for a weight's streams once at prepare
+  (replaces ``repro.kernels.bts_encode``)
 * ``stoch_matmul``    — the OSSM array: AND, popcount and signed sum of
-  packed streams (replaces ``repro.kernels.stoch_matmul``)
+  streams, each operand packed or int8 codes encoded from a table while
+  the kernel stages them, so activations need no encoder launch
+  (replaces ``repro.kernels.stoch_matmul``)
 * ``rglru_scan``      — the linear recurrence ``h_t = a_t h_{t-1} + b_t``
   of the RG-LRU prefill, one thread per channel walking the sequence
   (replaces ``repro.kernels.rglru_scan``)
@@ -39,7 +44,8 @@ run launched.  The paged-attention wrappers' launches on int8 pools (the
 kernel's dequantizing branch) are also counted apart, as
 ``paged_attention_decode_int8`` and ``paged_attention_prefill_int8``, and
 ``int8_gemm``'s launches by the kernel they took, as ``int8_gemm_wgmma``,
-``int8_gemm_stream`` and ``int8_gemm_mma``.
+``int8_gemm_stream`` and ``int8_gemm_mma``, and ``int8_gemm_batched``'s as
+``int8_gemm_batched_stream`` and ``int8_gemm_batched_mma``.
 """
 
 # counters of a wrapper's int8-pool branch -> the wrapper that keeps them
@@ -56,7 +62,9 @@ def kernel_wrappers() -> dict:
         dense_attention_decode, paged_attention_decode, paged_attention_prefill,
     )
     from repro_torch.kernels.rglru_scan.ops import rglru_scan
-    from repro_torch.kernels.stoch_matmul.ops import stoch_matmul_packed
+    from repro_torch.kernels.stoch_matmul.ops import (
+        stoch_matmul_codes, stoch_matmul_codes_batched, stoch_matmul_packed,
+    )
     return {
         "paged_attention_decode": paged_attention_decode,
         "paged_attention_prefill": paged_attention_prefill,
@@ -66,6 +74,8 @@ def kernel_wrappers() -> dict:
         "int8_gemm_batched": int8_gemm_batched,
         "bts_encode": bts_encode,
         "stoch_matmul_packed": stoch_matmul_packed,
+        "stoch_matmul_codes": stoch_matmul_codes,
+        "stoch_matmul_codes_batched": stoch_matmul_codes_batched,
         "rglru_scan": rglru_scan,
     }
 
@@ -76,9 +86,10 @@ def reset_launches() -> None:
         fn.launches = 0
     for parent in INT8_BRANCHES.values():
         wrappers[parent].int8_launches = 0
-    paths = wrappers["int8_gemm"].paths
-    for path in paths:
-        paths[path] = 0
+    for name in ("int8_gemm", "int8_gemm_batched"):
+        paths = wrappers[name].paths
+        for path in paths:
+            paths[path] = 0
 
 
 def launch_counts() -> dict:
@@ -86,5 +97,6 @@ def launch_counts() -> dict:
     counts = {name: fn.launches for name, fn in wrappers.items()}
     counts.update({name: wrappers[parent].int8_launches
                    for name, parent in INT8_BRANCHES.items()})
-    counts.update({f"int8_gemm_{path}": c for path, c in wrappers["int8_gemm"].paths.items()})
+    for name in ("int8_gemm", "int8_gemm_batched"):
+        counts.update({f"{name}_{path}": c for path, c in wrappers[name].paths.items()})
     return counts

@@ -1,21 +1,26 @@
-// int8 x int8 -> int32 GEMM of one product on Hopper (sm_90a): wgmma on
-// TMA-fed tiles for admissions, a weight-streaming kernel for decode.
+// int8 x int8 -> int32 GEMMs on Hopper (sm_90a): wgmma on TMA-fed tiles
+// for admissions, a weight-streaming kernel for decode, and a batch of
+// small products streamed one product a block.
 //
 // Replaces: src/repro/kernels/int8_matmul/kernel.py :: int8_matmul_kernel
 // (the Pallas output-stationary 128x128x128 MXU GEMM behind ASTRA's int8
-// "expectation" mode) for the single-product entry when K % 16 == 0, the
-// row pitch TMA and 16-byte copies need.  C[M,N] = X[M,K] . Wt[N,K]^T, the
-// weight pre-transposed so both operands are K-contiguous.  The batched
-// entry and every other K keep int8_matmul.cu's mma.sync kernel; ops.py's
-// int8_gemm_plan picks the kernel from the shapes alone.
+// "expectation" mode and, vmapped, its quantized qk/pv products) for the
+// single-product entry when K % 16 == 0, the row pitch TMA and 16-byte
+// copies need, and for the batched entry when M <= 16 and K % 16 == 0 (K
+// up to 4096).  C[M,N] = X[M,K] . Wt[N,K]^T, the weight pre-transposed so
+// both operands are K-contiguous.  Every other shape keeps int8_matmul.cu's
+// mma.sync kernel; ops.py's int8_gemm_plan and int8_batched_plan pick the
+// kernel from the shapes alone.
 //
 // What bounds it on an H100: at admission (M in the thousands) the 1,979
 // int8 TOPS of the tensor cores, reachable only through wgmma; at decode
 // (M <= 16 slots) the weight bytes, N*K read once against 2*M*N*K
 // operations, far below the card's ~590 int8 ops/byte ridge, so the floor
-// is N*K / 3.35 TB/s.
+// is N*K / 3.35 TB/s.  The batched decode products (one query row of each
+// slot and KV head against its 32 KB of K or V codes under the mixed plan)
+// are bound by those bytes too: 8 MB a launch, 2.5 us at HBM's rate.
 //
-// Design: two kernels behind the one entry.
+// Design: three kernels behind the two entries.
 //
 // Admission (int8_gemm_wgmma_kernel, M > 16):
 // * One block per 128 x 128 output tile, walking its K range in 128-byte
@@ -62,6 +67,30 @@
 //   operands (integer sums are exact in any order), so those 32 bytes are
 //   the A and B fragments of four k32 products.  Integer sums: the bits
 //   are the plain version's.
+//
+// Batched decode (int8_gemm_batched_stream_kernel, M <= 16, one product a
+// block): the mma.sync kernel of int8_matmul.cu padded each product's one
+// query row to a 16-row tile, walked K in serial 64-byte load -> barrier ->
+// mma steps, and split K across blocks with a zeroed output and atomics
+// when the tiles were few: 14.4 us a launch against a 2.6 us byte bound.
+// * The grid runs over the products.  A block takes a whole product: no K
+//   split, no zeroed output, no atomics.
+// * The block issues cp.async copies of all of its product's weight rows
+//   (32 KB at the decode shapes; larger products in chunks of about 48 KB,
+//   two in flight) and of its X rows at once, waits once, and computes from
+//   shared memory: every byte of the product is in flight together, and 2
+//   blocks an SM (256 products on 132 SMs) keep all 8 MB of a launch in
+//   flight.
+// * The products run on the decode kernel's swapped-operand mma.sync
+//   m16n8k32 (weight rows as the 16-row A operand, the <= 16 X rows as one
+//   or two n8 B tiles), not __dp4a: one code path for M = 1..16, and at
+//   M = 1 the time is the bytes, not the 64 mma of a qk product.  Lane
+//   (g, t) takes 16-byte chunk t of each 64-byte K step of weight rows g
+//   and g + 8 and of X row g, the A and B fragments of two k32 products
+//   (K permuted identically for both operands; integer sums are exact in
+//   any order).  Rows are padded to 16 x (4 mod 8) bytes so the eight
+//   lanes of each quarter-warp read distinct banks; chunks past K read as
+//   zeros, rows past M or N are computed and not stored.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -328,6 +357,104 @@ int8_gemm_stream_kernel(const int8_t* __restrict__ X, const int8_t* __restrict__
     }
 }
 
+// ------------------------------------------------------ batched decode
+constexpr int BT_WARPS = 4;
+constexpr int BT_THREADS = 32 * BT_WARPS;
+constexpr int BT_MAX_K = 4096;         // longest K the route takes (ops.int8_batched_plan)
+constexpr int BT_W_BUDGET = 48 << 10;  // weight bytes of one chunk of rows
+constexpr int BT_SMEM_MAX = 232448;    // an H100 block's shared memory
+
+// Shared-memory geometry of one product: row pitch (16-byte chunks, 4 mod
+// 8), weight rows per chunk (a multiple of 16), chunks and bytes.
+struct BatchedGeometry {
+  int pitch, rows, chunks, smem;
+};
+inline BatchedGeometry bt_geometry(int M, int N, int K) {
+  const int kc = K / 16;
+  const int pitch = 16 * (kc + ((4 - kc) & 7));
+  const int n16 = (N + 15) / 16 * 16;
+  const int fit = BT_W_BUDGET / pitch / 16 * 16;
+  const int want = fit > 16 ? fit : 16;
+  const int rows = n16 < want ? n16 : want;
+  const int chunks = (N + rows - 1) / rows;
+  const int x_rows = M <= 8 ? 8 : 16;
+  return {pitch, rows, chunks, (x_rows + (chunks > 1 ? 2 : 1) * rows) * pitch};
+}
+
+// MT n8 tiles of X rows: 1 for M <= 8, 2 for M <= 16
+template <int MT>
+__global__ void __launch_bounds__(BT_THREADS)
+int8_gemm_batched_stream_kernel(const int8_t* __restrict__ X, const int8_t* __restrict__ Wt,
+                                int32_t* __restrict__ C, int M, int N, int K, int pitch,
+                                int rows_per_chunk) {
+  extern __shared__ __align__(128) unsigned char bt_smem[];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const size_t prod = blockIdx.x;
+  X += prod * M * K;
+  Wt += prod * N * K;
+  C += prod * M * N;
+  const int kc = K / 16;  // 16-byte chunks a row
+  const int n_chunks = (N + rows_per_chunk - 1) / rows_per_chunk;
+  const int stage = rows_per_chunk * pitch;
+  const unsigned char* xs = bt_smem;                // 8 MT rows x pitch
+  const unsigned char* ws = bt_smem + 8 * MT * pitch;  // 1 or 2 chunks of weight rows
+  const uint32_t xs_s = smem_u32(xs), ws_s = smem_u32(ws);
+
+  // the M real X rows (columns of C^T past M are computed, never stored)
+  for (int c = tid; c < M * kc; c += BT_THREADS)
+    cp_async16(xs_s + (c / kc) * pitch + 16 * (c % kc), X + 16 * (size_t)c, true);
+  auto issue = [&](int ch) {  // chunk ch of weight rows into stage ch % 2
+    const int r0 = ch * rows_per_chunk, n_c = min(rows_per_chunk, N - r0) * kc;
+    const int8_t* src = Wt + (size_t)r0 * K;
+    const uint32_t dst = ws_s + (ch % 2) * stage;
+    for (int c = tid; c < n_c; c += BT_THREADS)
+      cp_async16(dst + (c / kc) * pitch + 16 * (c % kc), src + 16 * (size_t)c, true);
+  };
+  issue(0);
+  cp_async_commit();  // X and chunk 0
+  if (n_chunks > 1) issue(1);
+  cp_async_commit();  // chunk 1, or an empty group
+
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    cp_async_wait<1>();  // this thread's copies of chunk ch have landed
+    __syncthreads();     // and every thread's
+    const unsigned char* st = ws + (ch % 2) * stage;
+    const int r0 = ch * rows_per_chunk, rows = min(rows_per_chunk, N - r0);
+    for (int tile = warp; tile * 16 < rows; tile += BT_WARPS) {
+      const unsigned char* wa = st + (tile * 16 + g) * pitch;  // weight rows g and g + 8
+      int acc[MT][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0;
+      for (int k0 = 0; k0 < kc; k0 += 4) {  // 64-byte K steps: chunk k0 + t a lane
+        const int q = k0 + t;
+        const bool ok = q < kc;
+        const uint4 w0 = ok ? *reinterpret_cast<const uint4*>(wa + 16 * q) : zero;
+        const uint4 w1 = ok ? *reinterpret_cast<const uint4*>(wa + 8 * pitch + 16 * q) : zero;
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          const uint4 x =
+              ok ? *reinterpret_cast<const uint4*>(xs + (8 * i + g) * pitch + 16 * q) : zero;
+          mma_s8(acc[i], w0.x, w1.x, w0.y, w1.y, x.x, x.y);
+          mma_s8(acc[i], w0.z, w1.z, w0.w, w1.w, x.z, x.w);
+        }
+      }
+      // acc[i][e]: weight row r0 + 16 tile + g + 8 (e / 2), X row 8i + 2t + (e % 2)
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int m = 8 * i + 2 * t + (e & 1), n = r0 + 16 * tile + g + 8 * (e >> 1);
+          if (m < M && n < N) C[(size_t)m * N + n] = acc[i][e];
+        }
+    }
+    __syncthreads();  // the stage has been read: refill it
+    if (ch + 2 < n_chunks) issue(ch + 2);
+    cp_async_commit();
+  }
+}
+
 // Lets `kern` take up to `bytes` of dynamic shared memory on the current
 // device, asking the runtime once per device.
 template <int ID>
@@ -398,6 +525,39 @@ extern "C" int int8_gemm_stream_launch(const void* x, const void* wt, void* c, i
     kern<<<grid, ST_THREADS, st_smem_bytes<2>(), s>>>(X, W, C, M, N, K);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// x [B,M,K] int8 with M <= 16, wt [B,N,K] int8, c [B,M,N] int32, K % 16 ==
+// 0 and K <= 4096, 16-byte aligned starts: B products, one a block.
+// Returns a cudaError_t.
+extern "C" int int8_gemm_batched_stream_launch(const void* x, const void* wt, void* c, int B,
+                                               int M, int N, int K, void* stream) {
+  if (B <= 0 || M <= 0 || M > 16 || N <= 0 || K <= 0 || K % 16 != 0 || K > BT_MAX_K)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const BatchedGeometry geo = bt_geometry(M, N, K);
+  if (geo.smem > BT_SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int8_t* X = static_cast<const int8_t*>(x);
+  const int8_t* W = static_cast<const int8_t*>(wt);
+  int32_t* C = static_cast<int32_t*>(c);
+  if (M <= 8) {
+    auto* kern = int8_gemm_batched_stream_kernel<1>;
+    const int e = allow_smem<3>(reinterpret_cast<const void*>(kern), BT_SMEM_MAX);
+    if (e != 0) return e;
+    kern<<<B, BT_THREADS, geo.smem, s>>>(X, W, C, M, N, K, geo.pitch, geo.rows);
+  } else {
+    auto* kern = int8_gemm_batched_stream_kernel<2>;
+    const int e = allow_smem<4>(reinterpret_cast<const void*>(kern), BT_SMEM_MAX);
+    if (e != 0) return e;
+    kern<<<B, BT_THREADS, geo.smem, s>>>(X, W, C, M, N, K, geo.pitch, geo.rows);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The batched decode kernel's dynamic shared memory for one product of
+// [M, K] x [N, K].
+extern "C" int int8_gemm_batched_smem_bytes(int M, int N, int K) {
+  return bt_geometry(M, N, K).smem;
 }
 
 // Dynamic shared memory of each kernel's launch: 0 the admission kernel,

@@ -7,9 +7,12 @@ its own launch counter.  One product takes one of three kernels, chosen
 by :func:`int8_gemm_plan` from the shapes alone: ``"wgmma"`` (wgmma on
 TMA-fed tiles, admissions) and ``"stream"`` (the weight streamed past at
 most 16 activation rows, decode) from ``csrc/int8_gemm_sm90.cu``, and
-``"mma"`` (``csrc/int8_matmul.cu``, which the batched entry also runs)
-for a K that is not a multiple of 16.  ``int8_gemm.launches`` counts every
-launch and ``int8_gemm.paths`` each kernel's.  ``int8_matmul_t`` takes
+``"mma"`` (``csrc/int8_matmul.cu``) for a K that is not a multiple of 16.
+A batch takes one of two, chosen by :func:`int8_batched_plan`: ``"stream"``
+(each block streams one whole product past its at most 16 rows, decode;
+``csrc/int8_gemm_sm90.cu``) or ``"mma"`` (``csrc/int8_matmul.cu``,
+admissions).  ``launches`` counts every launch of an entry and ``paths``
+each kernel's.  ``int8_matmul_t`` takes
 the weight pre-transposed ``[N, K]`` as the model caches it, so both
 operands are K-contiguous.  Dequantization is ``(acc * xs) * ws`` in
 float32, the reference's order.
@@ -47,6 +50,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _BATCHED_ARGS = [_P] * 3 + [_I] * 7 + [_P]
 _WGMMA_ARGS = [_P] * 3 + [_I] * 5 + [_P]
 _STREAM_ARGS = [_P] * 3 + [_I] * 3 + [_P]
+_BATCHED_STREAM_ARGS = [_P] * 3 + [_I] * 4 + [_P]
+BATCHED_PATHS = ("stream", "mma")
+# the batched stream kernel's longest K: a product's X rows and two
+# chunks of 16 weight rows in flight stay within a block's shared memory
+_BT_MAX_K = 4096
 
 
 def _fn(lib_name: str, sym: str, argtypes):
@@ -112,6 +120,16 @@ def wgmma_plan(m: int, n: int, k: int, want: int) -> Int8GemmPlan:
     tiles_m, tiles_n = _cdiv(m, _WG_BM), _cdiv(n, _WG_BN)
     kps, splits = _build.split_k(tiles_m * tiles_n, k, _WG_BK, want)
     return Int8GemmPlan("wgmma", (tiles_m, tiles_n, splits), kps, splits)
+
+
+def int8_batched_plan(m: int, n: int, k: int) -> str:
+    """The kernel of a batch of products ``[M, K] x [N, K]``, from the
+    shapes alone: ``"stream"`` (a block a product, its second operand
+    streamed past the at most 16 rows of the first; the decode qk/pv
+    products) for M <= 16 and K a multiple of 16 up to 4096, ``"mma"``
+    (16 x 64 or 64 x 128 ``mma.sync`` tiles, K split when the tiles are
+    few; admissions) for any other shape."""
+    return "stream" if m <= 16 and k % 16 == 0 and k <= _BT_MAX_K else "mma"
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -196,20 +214,34 @@ int8_gemm.paths = dict.fromkeys(PATHS, 0)
 
 def int8_gemm_batched(x: torch.Tensor, w_t: torch.Tensor) -> torch.Tensor:
     """int8 ``x [B, M, K]`` x int8 ``w_t [B, N, K]`` -> int32 ``[B, M, N]``:
-    B independent products in one launch."""
+    B independent products in one launch of the kernel
+    :func:`int8_batched_plan` picks."""
     if (x.dim() != 3 or w_t.dim() != 3 or x.shape[0] != w_t.shape[0]
             or x.shape[2] != w_t.shape[2]):
         raise ValueError(f"int8_gemm_batched: shapes {tuple(x.shape)} x {tuple(w_t.shape)} "
                          "are not [B, M, K] x [B, N, K]")
     if x.device.type == "cpu" and w_t.device.type == "cpu":
         return int8_matmul_acc_ref(x, w_t)
-    out = _launch(x, w_t, "int8_gemm_batched")
+    (b, m, k), n = x.shape, w_t.shape[1]
+    path = int8_batched_plan(m, n, k)
+    if path == "mma":
+        out = _launch(x, w_t, "int8_gemm_batched")
+    else:
+        x, w_t = _operands(x, w_t, "int8_gemm_batched")
+        out = torch.empty((b, m, n), dtype=torch.int32, device=x.device)
+        if out.numel():
+            rc = _fn("int8_gemm_sm90", "int8_gemm_batched_stream_launch", _BATCHED_STREAM_ARGS)(
+                x.data_ptr(), w_t.data_ptr(), out.data_ptr(), b, m, n, k,
+                torch.cuda.current_stream(x.device).cuda_stream)
+            _build.check(rc, "int8_gemm_batched")
     if out.numel():
         int8_gemm_batched.launches += 1
+        int8_gemm_batched.paths[path] += 1
     return out
 
 
 int8_gemm_batched.launches = 0
+int8_gemm_batched.paths = dict.fromkeys(BATCHED_PATHS, 0)
 
 
 def int8_matmul_t(xq: QTensor, wq_t: QTensor) -> torch.Tensor:

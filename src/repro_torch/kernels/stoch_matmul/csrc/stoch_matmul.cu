@@ -1,12 +1,34 @@
-// The OSSM array: packed-stream stochastic matmul on Hopper (sm_90a).
+// The OSSM array: stochastic matmul on Hopper (sm_90a), reading each
+// operand as packed streams or as int8 codes it encodes while staging.
 //
 // Replaces: src/repro/kernels/stoch_matmul/kernel.py :: stoch_matmul_packed_kernel
 // (the Pallas kernel that ANDs 128-bit streams, popcounts them and sums the
-// signed counts over K on the TPU's vector unit).  Computes
+// signed counts over K on the TPU's vector unit) and, on the activation
+// path, src/repro/kernels/bts_encode/kernel.py :: bts_encode_kernel, whose
+// work this kernel does in its tile load.  Computes
 //   C[m, n] = sum_k SX[m, k] * SW[n, k] * popc(X[m, k] & W[n, k])
-// into int32, with X [M, K, 4] and W [N, K, 4] packed streams (4 x 32 bits,
-// both K-contiguous) and SX, SW int8 signs.  Integer sums are exact in any
+// into int32, with X [M, K, 4] and W [N, K, 4] 128-bit streams (4 x 32
+// bits, both K-contiguous) and SX, SW signs.  Integer sums are exact in any
 // order, so the result is bit-identical to the plain version.
+//
+// Each operand is a policy (Packed, Codes) of the one kernel template:
+// * Packed: words and int8 signs as bts_encode writes them, the TPU
+//   kernel's interface (stoch_matmul_packed; a weight's cached streams).
+// * Codes: int8 codes, expanded while the tile is staged.  On the serving
+//   path every generator runs at phase 0, so a code's stream is a fixed
+//   function of its magnitude: the block copies the generator's table of
+//   129 streams (magnitudes 0..128, 16 bytes each, built by the wrapper
+//   from core/bitstream.py's encode, so the two cannot differ) into shared
+//   memory once, and a code c stages as table[|c|] with sign c < 0 ? -1 :
+//   +1 (zero: the empty stream, sign +1, as encode_signed gives it).
+// Activations therefore reach the kernel as the 1 byte a code the
+// quantizer wrote, not as bts_encode's 17 bytes a code in a launch of its
+// own: the activation path launches no encoder at all.  A block starts by
+// staging the table (one 16-byte load a thread and a barrier); a codes
+// form then loads its tiles as unrolled runs, so each K step's global
+// loads are in flight together and the table lookups hide behind them.
+// At decode (M = 8) the codes form runs a step in less time than the
+// packed form (PERF.md), though it does the same popcounts.
 //
 // What bounds it on an H100: the popcounts.  Each (m, n, k) costs four
 // __popc, and the card retires 16 of them per clock per SM, against 64 per
@@ -38,32 +60,87 @@ namespace {
 constexpr int BK = 16;          // K positions per shared-memory step
 constexpr int PITCH = BK + 1;   // uint4 per shared row of words
 constexpr int SPITCH = BK + 4;  // bytes per shared row of signs (odd word stride)
+constexpr int TABLE = 129;      // streams of magnitudes 0..128 (128: code -128)
 
-template <int ROWS, int THREADS>
+// An operand read as the TPU kernel's packed streams and int8 signs.
+struct Packed {
+  static constexpr bool kCodes = false;
+  const uint4* words;   // [rows, K] streams
+  const int8_t* sign;   // [rows, K] +1 / -1
+  __device__ __forceinline__ void skip(size_t n) {
+    words += n;
+    sign += n;
+  }
+  __device__ __forceinline__ void read(size_t at, const uint4*, uint4& w, int8_t& s) const {
+    w = __ldg(words + at);
+    s = __ldg(sign + at);
+  }
+};
+
+// An operand read as int8 codes and encoded from the generator's table
+// (staged in shared memory as ``table_s``).
+struct Codes {
+  static constexpr bool kCodes = true;
+  const int8_t* q;      // [rows, K] codes
+  const uint4* table;   // [TABLE] the generator's stream of each magnitude
+  __device__ __forceinline__ void skip(size_t n) { q += n; }
+  __device__ __forceinline__ void read(size_t at, const uint4* table_s, uint4& w,
+                                       int8_t& s) const {
+    const int c = __ldg(q + at);
+    w = table_s[c < 0 ? -c : c];
+    s = c < 0 ? int8_t(-1) : int8_t(1);
+  }
+};
+
+// Rows [r0, r0 + ROWS) x K positions [k0, k0 + BK) of an operand into
+// shared memory; rows >= rows and positions >= k_end read zero words.
+// UNROLL: each thread's loads as one unrolled run, so all of a K step's
+// global loads are in flight together.
+template <int ROWS, int THREADS, bool UNROLL, class Op>
 __device__ __forceinline__ void load_tile(uint4* __restrict__ words_s, int8_t* __restrict__ sign_s,
-                                          const uint4* __restrict__ words,
-                                          const int8_t* __restrict__ sign, int r0, int rows,
+                                          const Op& op, const uint4* table_s, int r0, int rows,
                                           int k0, int k_end, int K) {
-  for (int c = threadIdx.x; c < ROWS * BK; c += THREADS) {
+  auto stage = [&](int c) {
     const int r = c / BK, kk = c % BK;
     const int gr = r0 + r, gk = k0 + kk;
-    const bool ok = gr < rows && gk < k_end;
-    const size_t at = (size_t)gr * K + gk;
-    words_s[r * PITCH + kk] = ok ? words[at] : make_uint4(0u, 0u, 0u, 0u);
-    sign_s[r * SPITCH + kk] = ok ? sign[at] : int8_t(0);
+    uint4 w = make_uint4(0u, 0u, 0u, 0u);
+    int8_t s = 0;
+    if (gr < rows && gk < k_end) op.read((size_t)gr * K + gk, table_s, w, s);
+    words_s[r * PITCH + kk] = w;
+    sign_s[r * SPITCH + kk] = s;
+  };
+  if constexpr (UNROLL) {
+    static_assert(ROWS * BK % THREADS == 0, "whole positions a thread");
+#pragma unroll
+    for (int i = 0; i < ROWS * BK / THREADS; ++i) stage(threadIdx.x + i * THREADS);
+  } else {
+    for (int c = threadIdx.x; c < ROWS * BK; c += THREADS) stage(c);
   }
 }
 
-template <int BM, int BN, int TM, int TN, bool BATCHED>
+template <int BM, int BN, int TM, int TN, bool BATCHED, class XOp, class WOp>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
-stoch_matmul_kernel(const uint4* __restrict__ X, const int8_t* __restrict__ SX,
-                    const uint4* __restrict__ W, const int8_t* __restrict__ SW,
-                    int32_t* __restrict__ C, int M, int N, int K, int kps, int splits) {
+stoch_matmul_kernel(XOp x, WOp w, int32_t* __restrict__ C, int M, int N, int K, int kps,
+                    int splits) {
   constexpr int TX = BN / TN, TY = BM / TM, THREADS = TX * TY;
+  constexpr int N_TABLES = int(XOp::kCodes) + int(WOp::kCodes);
+  // Codes forms unroll their tile loads (an X tile of codes is one byte a
+  // thread), so a K step's code, word and sign loads are in flight
+  // together behind the table lookups; the packed form keeps its loops,
+  // which unrolled (17 live 16-byte words a thread) ran slower on an H100.
+  constexpr bool UNROLL = XOp::kCodes;
   __shared__ uint4 Xs[BM * PITCH];
   __shared__ uint4 Ws[BN * PITCH];
   __shared__ int8_t SXs[BM * SPITCH];
   __shared__ int8_t SWs[BN * SPITCH];
+  __shared__ uint4 tables[N_TABLES > 0 ? N_TABLES * TABLE : 1];
+  uint4* const x_table = tables;
+  uint4* const w_table = tables + (XOp::kCodes ? TABLE : 0);
+  if constexpr (XOp::kCodes)
+    for (int i = threadIdx.x; i < TABLE; i += THREADS) x_table[i] = __ldg(x.table + i);
+  if constexpr (WOp::kCodes)
+    for (int i = threadIdx.x; i < TABLE; i += THREADS) w_table[i] = __ldg(w.table + i);
+  if constexpr (N_TABLES > 0) __syncthreads();
 
   const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
@@ -71,10 +148,8 @@ stoch_matmul_kernel(const uint4* __restrict__ X, const int8_t* __restrict__ SX,
   if constexpr (BATCHED) {  // blockIdx.z = batch element * splits + K split
     const int batch = blockIdx.z / splits;
     k_split = blockIdx.z % splits;
-    X += (size_t)batch * M * K;
-    SX += (size_t)batch * M * K;
-    W += (size_t)batch * N * K;
-    SW += (size_t)batch * N * K;
+    x.skip((size_t)batch * M * K);
+    w.skip((size_t)batch * N * K);
     C += (size_t)batch * M * N;
   }
   const int k_begin = k_split * kps;
@@ -87,8 +162,8 @@ stoch_matmul_kernel(const uint4* __restrict__ X, const int8_t* __restrict__ SX,
     for (int j = 0; j < TN; ++j) acc[i][j] = 0;
 
   for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    load_tile<BM, THREADS>(Xs, SXs, X, SX, m0, M, k0, k_end, K);
-    load_tile<BN, THREADS>(Ws, SWs, W, SW, n0, N, k0, k_end, K);
+    load_tile<BM, THREADS, UNROLL>(Xs, SXs, x, x_table, m0, M, k0, k_end, K);
+    load_tile<BN, THREADS, UNROLL>(Ws, SWs, w, w_table, n0, N, k0, k_end, K);
     __syncthreads();
 #pragma unroll 4
     for (int kk = 0; kk < BK; ++kk) {
@@ -132,33 +207,44 @@ stoch_matmul_kernel(const uint4* __restrict__ X, const int8_t* __restrict__ SX,
     }
 }
 
-}  // namespace
-
-// xs [B,M,K,4] uint32, sx [B,M,K] int8, ws [B,N,K,4] uint32, sw [B,N,K] int8,
-// c [B,M,N] int32 (zeroed by the caller when splits > 1).  cfg 0: 8 x 128
-// tiles (decode), cfg 1: 64 x 64 tiles.
-extern "C" int stoch_matmul_launch(const void* xs, const void* sx, const void* ws,
-                                   const void* sw, void* c, int B, int M, int N, int K,
-                                   int kps, int splits, int cfg, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint4* X = static_cast<const uint4*>(xs);
-  const uint4* W = static_cast<const uint4*>(ws);
-  const int8_t* SX = static_cast<const int8_t*>(sx);
-  const int8_t* SW = static_cast<const int8_t*>(sw);
-  int32_t* C = static_cast<int32_t*>(c);
+// One launch of the kernel over operands x, w (cfg 0: 8 x 128 tiles for
+// decode, cfg 1: 64 x 64 tiles; B > 1: the batched instantiation).
+template <class XOp, class WOp>
+int launch(XOp x, WOp w, int32_t* C, int B, int M, int N, int K, int kps, int splits, int cfg,
+           cudaStream_t s) {
   const dim3 grid0((N + 127) / 128, (M + 7) / 8, B * splits);
   const dim3 grid1((N + 63) / 64, (M + 63) / 64, B * splits);
   if (cfg == 0 && B == 1)
-    stoch_matmul_kernel<8, 128, 8, 1, false><<<grid0, 128, 0, s>>>(X, SX, W, SW, C, M, N, K,
-                                                                   kps, splits);
+    stoch_matmul_kernel<8, 128, 8, 1, false><<<grid0, 128, 0, s>>>(x, w, C, M, N, K, kps, splits);
   else if (cfg == 0)
-    stoch_matmul_kernel<8, 128, 8, 1, true><<<grid0, 128, 0, s>>>(X, SX, W, SW, C, M, N, K,
-                                                                  kps, splits);
+    stoch_matmul_kernel<8, 128, 8, 1, true><<<grid0, 128, 0, s>>>(x, w, C, M, N, K, kps, splits);
   else if (B == 1)
-    stoch_matmul_kernel<64, 64, 4, 4, false><<<grid1, 256, 0, s>>>(X, SX, W, SW, C, M, N, K,
-                                                                   kps, splits);
+    stoch_matmul_kernel<64, 64, 4, 4, false><<<grid1, 256, 0, s>>>(x, w, C, M, N, K, kps, splits);
   else
-    stoch_matmul_kernel<64, 64, 4, 4, true><<<grid1, 256, 0, s>>>(X, SX, W, SW, C, M, N, K,
-                                                                  kps, splits);
+    stoch_matmul_kernel<64, 64, 4, 4, true><<<grid1, 256, 0, s>>>(x, w, C, M, N, K, kps, splits);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// X [B,M,K] and W [B,N,K] operands, each packed streams (x: [.., 4] uint32
+// words, x_aux: int8 signs) or int8 codes (x: codes, x_aux: [129, 4] uint32
+// streams of magnitudes 0..128 under the operand's generator), as x_codes /
+// w_codes say; packed X with codes W is not instantiated.  c [B,M,N] int32
+// (zeroed by the caller when splits > 1).  cfg 0: 8 x 128 tiles (decode),
+// cfg 1: 64 x 64 tiles.
+extern "C" int stoch_matmul_launch(const void* x, const void* x_aux, const void* w,
+                                   const void* w_aux, void* c, int B, int M, int N, int K,
+                                   int kps, int splits, int cfg, int x_codes, int w_codes,
+                                   void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int32_t* C = static_cast<int32_t*>(c);
+  const Packed xp{static_cast<const uint4*>(x), static_cast<const int8_t*>(x_aux)};
+  const Packed wp{static_cast<const uint4*>(w), static_cast<const int8_t*>(w_aux)};
+  const Codes xc{static_cast<const int8_t*>(x), static_cast<const uint4*>(x_aux)};
+  const Codes wc{static_cast<const int8_t*>(w), static_cast<const uint4*>(w_aux)};
+  if (!x_codes && !w_codes) return launch(xp, wp, C, B, M, N, K, kps, splits, cfg, s);
+  if (x_codes && !w_codes) return launch(xc, wp, C, B, M, N, K, kps, splits, cfg, s);
+  if (x_codes && w_codes) return launch(xc, wc, C, B, M, N, K, kps, splits, cfg, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -8,8 +8,10 @@ without JAX:
   PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 
 Tolerances: int8 accumulators (one product on each of its three kernels,
-or a batch), stream words,
-signs and stochastic accumulators bit-exact; paged attention float32
+or a batch on each of its two), stream words,
+signs and stochastic accumulators (packed operands, and activation codes
+against streams or codes against codes under all 9 generator pairings)
+bit-exact; paged attention float32
 1e-5 (same math, keys streamed in chunks with rescaling), bf16 2e-2 (the
 kernel rounds p to bf16 before the PV product, like the reference
 kernel; the plain version keeps p in float32); on int8 pools float32
@@ -349,13 +351,24 @@ def test_rglru_scan_kernel_matches_plain_on_card(cuda, b, s, d):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,m,k,n", [(256, 1, 64, 512), (256, 1, 512, 64), (64, 37, 64, 130),
-                                     (3, 5, 100, 33)])
-def test_int8_batched_kernel_bit_exact_on_card(cuda, b, m, k, n):
+@pytest.mark.parametrize("b,m,k,n,path", [
+    (256, 1, 64, 512, "stream"), (256, 1, 512, 64, "stream"), (64, 37, 64, 130, "mma"),
+    (3, 5, 100, 33, "mma"), (128, 160, 64, 176, "mma"),
+    # the stream kernel's edges: M 1 / 3 / 16 (one and two n8 tiles), K
+    # 64 / 512 and one 16-byte chunk past a 64-byte step, N ragged and
+    # past a chunk of weight rows (two stages in flight)
+    (5, 1, 64, 5, "stream"), (4, 3, 512, 513, "stream"), (3, 16, 512, 512, "stream"),
+    (3, 16, 80, 5, "stream"), (2, 9, 4096, 40, "stream"), (2, 1, 100, 512, "mma")])
+def test_int8_batched_kernel_bit_exact_on_card(cuda, b, m, k, n, path):
+    """The batch on the kernel :func:`int8_batched_plan` picks: int32
+    accumulators equal the plain version's, that kernel's counter moved."""
     g = torch.Generator(device=cuda).manual_seed(1)
     x = torch.randint(-127, 128, (b, m, k), generator=g, device=cuda, dtype=torch.int8)
     w_t = torch.randint(-127, 128, (b, n, k), generator=g, device=cuda, dtype=torch.int8)
-    assert torch.equal(int8_ops.int8_gemm_batched(x, w_t), int8_matmul_acc_ref(x, w_t))
+    fn = int8_ops.int8_gemm_batched
+    before = dict(fn.paths)
+    assert torch.equal(fn(x, w_t), int8_matmul_acc_ref(x, w_t))
+    assert {p: c - before[p] for p, c in fn.paths.items() if c != before[p]} == {path: 1}
 
 
 @pytest.mark.gpu
@@ -385,4 +398,45 @@ def test_stoch_matmul_kernel_bit_exact_on_card(cuda, lead, m, k, n):
     xs, sx = _streams(cuda, lead, m, k, "thermometer", 3)
     ws, sw = _streams(cuda, lead, n, k, "bresenham", 4)
     got = sm_ops.stoch_matmul_packed(xs, sx, ws, sw)
+    assert torch.equal(got, stoch_matmul_packed_ref(xs, sx, ws, sw))
+
+
+PAIRS = [(x, w) for x in GENERATORS for w in GENERATORS]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_gen,w_gen", PAIRS)
+@pytest.mark.parametrize("m,k,n", [(8, 2048, 2048), (5, 100, 33), (70, 1000, 129), (1, 17, 5)])
+def test_stoch_codes_kernel_bit_exact_on_card(cuda, x_gen, w_gen, m, k, n):
+    """Activation codes against a weight's streams: int32 accumulators
+    equal ``bts_encode_ref`` then the packed plain version's, every code
+    -127..127 among the activations; one launch counted."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    xq = torch.randint(-127, 128, (m, k), generator=g, device=cuda, dtype=torch.int8)
+    xq.view(-1)[:min(255, m * k)] = torch.arange(-127, 128, device=cuda,
+                                                 dtype=torch.int8)[:min(255, m * k)]
+    ws, sw = _streams(cuda, (), n, k, w_gen, 6)
+    fn = sm_ops.stoch_matmul_codes
+    before = fn.launches
+    got = fn(xq, ws, sw, x_gen)
+    assert fn.launches == before + 1
+    xs, sx = bts_encode_ref(xq, x_gen)
+    assert torch.equal(got, stoch_matmul_packed_ref(xs, sx, ws, sw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_gen,w_gen", PAIRS)
+@pytest.mark.parametrize("b,m,k,n", [(256, 1, 64, 512), (3, 70, 40, 9)])
+def test_stoch_codes_batched_kernel_bit_exact_on_card(cuda, x_gen, w_gen, b, m, k, n):
+    """Codes against codes, a batch: int32 accumulators equal both
+    operands' ``bts_encode_ref`` then the packed plain version's."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    xq = torch.randint(-127, 128, (b, m, k), generator=g, device=cuda, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (b, n, k), generator=g, device=cuda, dtype=torch.int8)
+    fn = sm_ops.stoch_matmul_codes_batched
+    before = fn.launches
+    got = fn(xq, wq, x_gen, w_gen)
+    assert fn.launches == before + 1
+    xs, sx = bts_encode_ref(xq, x_gen)
+    ws, sw = bts_encode_ref(wq, w_gen)
     assert torch.equal(got, stoch_matmul_packed_ref(xs, sx, ws, sw))

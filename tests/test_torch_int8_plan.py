@@ -7,7 +7,9 @@ recurrentgemma-2b (decode at 8 slots, admissions) and at each edge (M
 once in whole kernel steps, grids within CUDA's limits, and on the
 ``wgmma`` path K split only where the output tiles are fewer than the
 SMs and, at the short admissions ``chip_smoke.py`` times, only where the
-split was the faster on an H100.  The kernels themselves are held bit
+split was the faster on an H100.  ``int8_batched_plan`` (the batched
+entry's kernel) is held the same way: the decode qk/pv products on the
+stream kernel, larger or other shapes on ``mma.sync``.  The kernels themselves are held bit
 for bit on the card
 (``tests/test_torch_gpu.py::test_int8_kernel_bit_exact_on_card``).
 """
@@ -145,3 +147,43 @@ def test_wgmma_plan_splits_cover_k(mkn):
     unsplit_ms, split_ms = SHORT[mkn]
     if abs(unsplit_ms - split_ms) > 0.05 * min(unsplit_ms, split_ms):
         assert plan == (split if split_ms < unsplit_ms else whole)
+
+
+# (B, M, K, N) of the batched entry -> its kernel: stablelm-1.6b's decode
+# qk and pv under the mixed plan (8 slots x 32 KV heads, one query row,
+# the 512-position view), ragged decode products, and the mixed plan's
+# admissions (M > 16), K % 16 != 0 and K past 4096 on mma.sync
+BATCHED = {
+    (256, 1, 64, 512): "stream", (256, 1, 512, 64): "stream", (3, 16, 96, 5): "stream",
+    (2, 3, 512, 513): "stream", (4, 16, 4096, 33): "stream", (1, 1, 16, 1): "stream",
+    (128, 160, 64, 176): "mma", (128, 160, 176, 64): "mma", (5, 17, 64, 64): "mma",
+    (3, 5, 100, 33): "mma", (256, 1, 520, 64): "mma", (256, 1, 4112, 64): "mma",
+    (2, 16, 8, 5): "mma",
+}
+
+
+@pytest.mark.parametrize("bmkn", sorted(BATCHED), ids=["x".join(map(str, c)) for c in sorted(BATCHED)])
+def test_int8_batched_plan_routes_by_shape(bmkn):
+    b, m, k, n = bmkn
+    path = ops.int8_batched_plan(m, n, k)
+    assert path == BATCHED[bmkn] and path in ops.BATCHED_PATHS
+    assert (path == "stream") == (m <= 16 and k % 16 == 0 and k <= 4096)
+
+
+def test_int8_gemm_batched_counts_paths_apart_and_runs_plain_on_cpu():
+    """On CPU tensors the batched plain version runs and no counter moves;
+    the registry reports each batched kernel's counter and clears them."""
+    from repro_torch.kernels import launch_counts, reset_launches
+
+    x = torch.ones(2, 1, 64, dtype=torch.int8)
+    w_t = torch.full((2, 5, 64), -1, dtype=torch.int8)
+    fn = ops.int8_gemm_batched
+    before = (fn.launches, dict(fn.paths))
+    assert torch.equal(fn(x, w_t), torch.full((2, 1, 5), -64, dtype=torch.int32))
+    assert (fn.launches, fn.paths) == before
+    assert set(fn.paths) == {"stream", "mma"}
+    fn.paths["stream"] = 3
+    assert launch_counts()["int8_gemm_batched_stream"] == 3
+    reset_launches()
+    assert fn.paths == dict.fromkeys(ops.BATCHED_PATHS, 0)
+    assert launch_counts()["int8_gemm_batched_mma"] == 0
