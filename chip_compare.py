@@ -12,13 +12,15 @@ Phases:
 
 * ``time_stochastic``: the checkout's own ``chip_smoke.time_stochastic``
   (the stochastic kernels and the batched int8 entry at the serving
-  shapes, each beside its bound);
+  shapes, each beside its bound; the sc admission pass where the checkout
+  times it);
 * ``profile_sc``: one decode chunk (8 steps, 8 slots) of full-width
   stablelm-1.6b under the ``sc`` and ``mixed`` plans, random weights from
   seed 0, the 4 requests of ``chip_smoke.make_sc_prompts``, under
   ``torch.profiler``: host ms, device ms, and the device ms and launches of
-  the B-to-S encoder, the stochastic GEMM and the batched int8 GEMM
-  (kernels told apart by name, the same way for both checkouts).
+  the B-to-S encoder, the stochastic GEMM (either library's kernels) and
+  the batched int8 GEMM (kernels told apart by name, the same way for both
+  checkouts).
 
 Needs one CUDA device; imports neither JAX nor the JAX package.
 """
@@ -33,7 +35,7 @@ import time
 PHASES = ("time_stochastic", "profile_sc")
 # kernel name -> the part it is reported under
 PARTS = (("bts_encode", lambda k: "bts_encode_kernel" in k),
-         ("stochastic GEMM", lambda k: "stoch_matmul_kernel" in k),
+         ("stochastic GEMM", lambda k: "stoch_matmul_kernel" in k or "stoch_gemm" in k),
          ("batched int8 GEMM", lambda k: "int8_gemm_batched" in k
           or ("int8_gemm_kernel" in k and "true>" in k)))
 

@@ -30,14 +30,19 @@ weight-streaming kernel at decode: both are held bit for bit at every
 serving shape and at each kernel's edges, each model's decode step and
 admission pass are timed summed (admission beside ``torch._int_mm``),
 short admissions time the ``wgmma`` kernel split against unsplit, and
-every int8 serving run must launch both.  The stochastic GEMM reads each
-operand as packed streams or as int8 codes it encodes while staging
-(``stoch_matmul.cu``): the packed, codes and codes x codes entries are held
-bit for bit under all 9 generator pairings, the ``sc`` and ``mixed`` runs
-must launch the codes entry and ``bts_encode`` only at prepare (one per
-weight with streams), and no profiled decode chunk may launch
-``bts_encode``.  The batched int8 qk/pv products of at most 16 rows run on
-a kernel that streams each product in a block of its own
+every int8 serving run must launch both.  The stochastic GEMM's serving
+path reads both operands as int8 codes, expands each to the sign planes
+of its stream while staging it and sums the signed popcounts on the
+binary tensor cores (``stoch_gemm_sm90.cu``: ``mma.sync`` at decode,
+``wgmma`` at admission); a probe phase first measures the rates that
+route rests on (``[probe]``: ``mma.sync`` and ``wgmma`` b1 products,
+shared-memory table lookups).  It and the CUDA-core kernel's packed and
+codes entries (``stoch_matmul.cu``) are held bit for bit under all 9
+generator pairings and timed beside each other; the ``sc`` and ``mixed``
+runs must launch both binary kernels and no ``bts_encode``, prepare
+included, and log their weight cache's bytes (int8 codes).  The batched
+int8 qk/pv products of at most 16 rows run on a kernel that streams each
+product in a block of its own
 (``int8_gemm_sm90.cu``), timed beside ``mma.sync``, which keeps the
 ``mixed`` admissions.  Every paged admission runs the
 causal prefill kernels of ``paged_prefill.cu`` (``wgmma`` tiles gathered
@@ -76,7 +81,8 @@ HBM_BYTES_S = 3.35e12  # H100 SXM: HBM3 bandwidth
 # counts, 16 per clock per SM (CUDA C++ Programming Guide, arithmetic
 # instruction throughput, compute capability 9.0) x 132 SMs x 1980 MHz boost
 # "fp32": float32 FMA outside the tensor cores (67 TFLOP/s), the int8
-# KV pool's attention, which computes on dequantized float32 K/V
+# KV pool's attention, which computes on dequantized float32 K/V.  The
+# binary tensor cores' rates are measured (probe_routes): none is published
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "popc": 16 * 132 * 1.98e9, "fp32": 67e12}
 D, F, V = 2048, 5632, 100352  # stablelm-1.6b d_model, d_ff, vocab
 BS, HD = 16, 64  # KV block size, head dim
@@ -94,8 +100,10 @@ INT8_EDGES = [(1, D, D), (16, D, D), (17, D, D), (8, D, 129), (8, 2064, D), (16,
 SRC_INT8 = "src/repro_torch/kernels/int8_matmul/csrc/int8_gemm_sm90.cu"
 SRC_INT8_MMA = "src/repro_torch/kernels/int8_matmul/csrc/int8_matmul.cu"
 DECODE_FILLS = [130, 170, 230, 290, 330, 370, 400, 410]  # kv_len of 8 slots mid-run
-# the sc plan runs every weight GEMM of DECODE_GEMMS through bts_encode +
-# stoch_matmul; its admission prefill packs 4 requests of up to 160 tokens
+# the sc plan runs every weight GEMM of DECODE_GEMMS through the stochastic
+# GEMM; its admission prefill packs 4 requests of up to 160 tokens into 640
+# rows, the lm_head included (the prefill's logits cover every position)
+SC_PREFILL_GEMMS = {(640, D, D): 24 * 4, (640, D, F): 24 * 2, (640, F, D): 24, (640, D, V): 1}
 SC_PREFILL_GEMM = (640, D, F)
 # (B, M, K, N) of the batched int8 qk and pv products of one decode layer
 # under mixed: 8 slots x 32 KV heads, one query row, the 32-block view
@@ -158,10 +166,12 @@ def n_sm(dev) -> int:
     return _build.sm_count(dev.index or 0) if dev.type == "cuda" else 132
 
 
-def bound_ms(n_bytes: float, ops: float, kind: str):
+def bound_ms(n_bytes: float, ops: float, kind):
     """The least time the card could take: max(bytes / HBM rate, ops /
-    peak rate of the operand type), and which of the two it is."""
-    t_b, t_o = n_bytes / HBM_BYTES_S, ops / PEAK_OPS[kind]
+    peak rate of the operand type, ``kind`` naming it in ``PEAK_OPS`` or
+    giving it per second), and which of the two it is."""
+    peak = PEAK_OPS[kind] if isinstance(kind, str) else kind
+    t_b, t_o = n_bytes / HBM_BYTES_S, ops / peak
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
@@ -485,6 +495,92 @@ def time_int8_gemms(dev, g, name: str, decode: dict, prefill: dict, timer=time_m
     return rows
 
 
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+
+
+def _event_ms(fn) -> float:
+    """Device time of one call of ``fn`` between CUDA events."""
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b)
+
+
+def probe_routes(dev, card: str, target_ms: float = 20.0) -> dict:
+    """Phase 1b: the rates the stochastic GEMM's candidate routes rest on
+    (``stoch_probe.cu``), each as one launch of about ``target_ms`` over 4
+    blocks an SM: ``mma.sync`` m16n8k256 b1 ``.and.popc`` and ``wgmma``
+    m64n128k256 b1 in bit-MACs per second, random byte lookups into the
+    16,641-byte pair table
+    and random 16-byte lookups into a 128 KB table in lookups per second.
+    Each is turned into signed products per second: 512 bit-MACs a
+    product of sign planes (384 for ``2 * same - popc(X & W)``), one byte
+    lookup a product, 8 products a 16-byte lookup of a per-position table
+    of eight rows' signed products.  Returns the rates by name."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    lib = _build.load("stoch_probe")
+    fn = lib.stoch_probe_launch
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    blocks, threads = 4 * n_sm(dev), 256
+    lookups, chains = lib.stoch_probe_lookups(), lib.stoch_probe_chains()
+    g = torch.Generator(device=dev).manual_seed(7)
+    idx = torch.randint(0, 2**31 - 1, (blocks * threads * lookups,), generator=g, device=dev,
+                        dtype=torch.int32)
+    table = torch.randint(0, 129, (129 * 129 + 15,), generator=g, device=dev,
+                          dtype=torch.int32).to(torch.uint8)
+    table_v4 = torch.randint(-2**31, 2**31 - 1, (8192 * 4,), generator=g, device=dev,
+                             dtype=torch.int32)
+    out = torch.empty(blocks * threads, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def timed(launch, work_per_iter: float, iters: int = 64) -> float:
+        """Work per second of ``launch(iters)``, sized to about target_ms."""
+        launch(iters)
+        t = _event_ms(lambda: launch(iters))
+        iters = max(iters, int(iters * target_ms / max(t, 1e-3)))
+        return work_per_iter * iters / (_event_ms(lambda: launch(iters)) * 1e-3)
+
+    def probe(kind, tbl):
+        return lambda iters: _build.check(fn(kind, tbl.data_ptr(), idx.data_ptr(),
+                                             out.data_ptr(), blocks, threads, iters, stream),
+                                          f"stoch_probe {kind}")
+
+    warps = blocks * threads // 32
+    rates = {"mma_b1": timed(probe(0, table), warps * chains * 16 * 8 * 256),
+             "lds_u8": timed(probe(1, table), blocks * threads * lookups),
+             "lds_v4": timed(probe(2, table_v4), blocks * threads * lookups)}
+    wout = torch.empty(blocks * 128, dtype=torch.int32, device=dev)
+    rates["wgmma_b1"] = timed(
+        lambda iters: _build.check(fn(3, table.data_ptr(), idx.data_ptr(), wout.data_ptr(),
+                                      blocks, 128, iters, stream), "stoch_probe 3"),
+        blocks * 64 * 128 * 256)
+    log(f"[probe] {card}; {blocks} blocks x {threads} threads")
+    log(f"[probe] mma.sync m16n8k256 b1 .and.popc {rates['mma_b1'] / 1e12:.2f} T bit-MAC/s = "
+        f"{rates['mma_b1'] / 512 / 1e12:.4f} T products/s of sign planes (512 bit-MACs each) / "
+        f"{rates['mma_b1'] / 384 / 1e12:.4f} (384: 2 * same - popc(X & W))")
+    log(f"[probe] wgmma m64n128k256 b1 .and.popc {rates['wgmma_b1'] / 1e12:.2f} T bit-MAC/s "
+        f"= {rates['wgmma_b1'] / 512 / 1e12:.4f} T products/s of sign planes (512) / "
+        f"{rates['wgmma_b1'] / 384 / 1e12:.4f} (384)")
+    log(f"[probe] shared-memory pair table (16,641 B), random byte lookups, 32 lanes on "
+        f"independent indices: {rates['lds_u8'] / 1e12:.4f} T lookups/s = T products/s")
+    log(f"[probe] 128 KB shared table, random 16-byte lookups: {rates['lds_v4'] / 1e12:.4f} T "
+        f"lookups/s = {8 * rates['lds_v4'] / 1e12:.4f} T products/s at 8 signed products a "
+        "lookup")
+    del idx, table, table_v4, out, wout
+    return rates
+
+
 def _codes(g, dev, *shape) -> torch.Tensor:
     """Random int8 codes in [-127, 127], as quantize gives them."""
     return torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
@@ -494,17 +590,21 @@ def check_stochastic(dev, g) -> None:
     """The stochastic kernels and the batched int8 entry against their plain
     versions on the card, bit for bit.  ``bts_encode`` under every
     generator over every code -127..127 and at ragged, activation and full
-    weight shapes.  The stochastic GEMM on each of its operand forms
-    against one plain result (``bts_encode_ref`` of both operands' codes,
-    then ``stoch_matmul_packed_ref``): the packed entry, the codes entry
-    (activation codes against the weight's streams) and the codes x codes
-    batched entry, under all 9 generator pairings at ragged M/N/K, every
-    code -127..127 among the activations, and a batch; at the decode shapes
-    (M = 8 against every weight, the lm_head included) and the sc prefill
-    shape one pairing each, in turn.  The batched int8 GEMM at the decode
-    qk/pv shapes and ragged ones on its stream kernel, and at the mixed
-    admission's and other shapes on ``mma.sync``, the kernel's counter
-    asserted each time."""
+    weight shapes.  The stochastic GEMM on each of its entries against one
+    plain result (``bts_encode_ref`` of both operands' codes, then
+    ``stoch_matmul_packed_ref``): on ``stoch_matmul.cu`` the packed entry
+    and the codes entry (activation codes against the weight's streams),
+    on ``stoch_gemm_sm90.cu`` the codes x codes entry and its batched
+    entry, under all 9 generator pairings at ragged M/N/K (both of its
+    kernels: M of 1-16 on ``stream``, 17 and more on ``wgmma``, K off the
+    16-byte and 4-byte paths, a K split), every code -127..127 among the
+    activations, every code -128..127 on both sides, and a batch; at the
+    decode shapes (M = 8 against every weight, the lm_head included), the
+    sc admission shape and the batched decode qk/pv shapes one pairing
+    each, in turn; the kernel each took asserted.  The batched int8 GEMM
+    at the decode qk/pv shapes and ragged ones on its stream kernel, and
+    at the mixed admission's and other shapes on ``mma.sync``, the
+    kernel's counter asserted each time."""
     from repro_torch.core.bitstream import GENERATORS
     from repro_torch.kernels.bts_encode import bts_encode
     from repro_torch.kernels.bts_encode.ref import bts_encode_ref
@@ -528,31 +628,45 @@ def check_stochastic(dev, g) -> None:
             "equal the plain version bit for bit")
     pairs = [(x, w) for x in GENERATORS for w in GENERATORS]
     ragged = [((), 5, 100, 33), ((), 70, 1000, 129), ((), 1, 17, 5), ((), 9, 2048, 200),
-              ((), 2, 255, 40), ((4,), 3, 64, 40)]
+              ((), 2, 255, 40), ((4,), 3, 64, 40), ((), 16, 130, 47), ((), 17, 64, 16),
+              ((), 200, 2056, 300), ((3,), 40, 100, 20), ((), 3, 256, 33), ((), 40, 256, 9)]
     cases = [(lead, m, k, n, p) for lead, m, k, n in ragged for p in pairs]
     cases += [((), m, k, n, pairs[i % len(pairs)])
               for i, (m, k, n) in enumerate(list(DECODE_GEMMS) + [SC_PREFILL_GEMM])]
     cases += [((b,), m, k, n, pairs[i]) for i, (b, m, k, n) in enumerate(QKPV_DECODE)]
-    fns = (sm.stoch_matmul_packed, sm.stoch_matmul_codes, sm.stoch_matmul_codes_batched)
+    fns = (sm.stoch_matmul_packed, sm.stoch_matmul_codes, sm.stoch_matmul_codes_batched,
+           sm.stoch_gemm_codes)
     for lead, m, k, n, (x_gen, w_gen) in cases:
         xq, wq = codes(*lead, m, k), codes(*lead, n, k)
-        if k == 255:  # every code, in both orders
+        if k == 255:  # every code quantize gives, in both orders
             xq[0] = torch.arange(-127, 128, dtype=torch.int8, device=dev)
             xq[1] = xq[0].flip(0)
+        if k == 256:  # every int8 code, -128 included, on both sides
+            xq[0] = wq[0] = torch.arange(-128, 128, device=dev).to(torch.int8)
+            xq[1] = wq[1] = xq[0].flip(0)
         xs, sx = bts_encode_ref(xq, x_gen)
         ws, sw = bts_encode_ref(wq, w_gen)
         want = stoch_matmul_packed_ref(xs, sx, ws, sw)
         before = [f.launches for f in fns]
+        kernel = sm.stoch_gemm_plan(m, n, k, n_sm(dev), lead[0] if lead else 1)[0]
+        paths = {f: dict(f.paths) for f in fns[2:]}
         forms = ["packed"]
         assert torch.equal(sm.stoch_matmul_packed(xs, sx, ws, sw), want), (lead, m, k, n)
         if not lead:
             assert torch.equal(sm.stoch_matmul_codes(xq, ws, sw, x_gen), want), (m, k, n)
-            forms.append("codes")
+            assert torch.equal(sm.stoch_gemm_codes(xq, wq, x_gen, w_gen), want), (
+                m, k, n, x_gen, w_gen, kernel)
+            forms += ["codes", f"codes x codes ({kernel})"]
         xb, wb = (xq, wq) if lead else (xq[None], wq[None])
         got = sm.stoch_matmul_codes_batched(xb, wb, x_gen, w_gen)
         assert torch.equal(got if lead else got[0], want), (lead, m, k, n, x_gen, w_gen)
-        forms.append("codes x codes")
-        assert [f.launches - b for f, b in zip(fns, before)] == [1, int(not lead), 1]
+        forms.append(f"batched codes x codes ({kernel})")
+        assert [f.launches - b for f, b in zip(fns, before)] == [1, int(not lead), 1,
+                                                                 int(not lead)]
+        for f, old in paths.items():
+            moved = {p: c - old[p] for p, c in f.paths.items() if c != old[p]}
+            assert moved == ({kernel: 1} if f.launches > before[fns.index(f)] else {}), (
+                f.__name__, moved, kernel)
         log(f"[stoch matmul] {'B=%d ' % lead[0] if lead else ''}M={m} K={k} N={n} "
             f"({x_gen} x {w_gen}): {', '.join(forms)} int32 accumulators equal the plain "
             "version bit for bit")
@@ -574,30 +688,44 @@ def check_stochastic(dev, g) -> None:
         "each on the kernel int8_batched_plan picks")
 
 
-def time_stochastic(dev, g, timer=time_ms, plain_timer=wall_ms) -> dict:
+def time_stochastic(dev, g, timer=time_ms, plain_timer=wall_ms, rates=None) -> dict:
     """The stochastic kernels and the batched int8 entry at the serving
-    path's shapes beside their bounds.  One ``sc`` decode step (M = 8,
-    every weight GEMM of ``DECODE_GEMMS``): the codes entry (the serving
-    path since activations stopped going through ``bts_encode``), beside
-    the parent's route (an activation encode and the packed entry) and the
-    packed entry alone; the weight encodes of ``prepare`` (``bts_encode``'s
-    only launches on the serving path).  The batched int8 qk/pv products of
-    one ``mixed`` decode step (24 layers x qk, pv) on the stream kernel
-    beside ``mma.sync`` at the same shapes, and of one ``mixed`` admission
-    pass on ``mma.sync``."""
+    path's shapes beside their bounds.  The weight encodes ``bts_encode``
+    would run for ``stoch_matmul_codes`` (169 weights; the serving path
+    launches none).  One ``sc`` decode step (M = 8, every weight GEMM of
+    ``DECODE_GEMMS``) on the binary tensor-core kernel
+    (``stoch_gemm_codes``, the serving path), beside the CUDA-core kernel's
+    codes entry (the parent's serving path) and packed entry; one ``sc``
+    admission pass (``SC_PREFILL_GEMMS``, M = 640) on the binary kernel
+    beside the codes entry.  The binary rows' bounds take the products, 384
+    bit-MACs each, over the highest binary rate that ``probe_routes``
+    measured (``wgmma``'s; ``rates``, probed here when not given): NVIDIA
+    publishes no single-bit tensor-core rate.
+    The batched int8 qk/pv products of one ``mixed`` decode step (24
+    layers x qk, pv) on the stream kernel beside ``mma.sync`` at the same
+    shapes, and of one ``mixed`` admission pass on ``mma.sync``."""
     from repro_torch.kernels.bts_encode import bts_encode
     from repro_torch.kernels.bts_encode.ref import bts_encode_ref
     from repro_torch.kernels.int8_matmul import ops as i8
     from repro_torch.kernels.int8_matmul.ref import int8_matmul_acc_ref
     from repro_torch.kernels.stoch_matmul import ops as sm
-    from repro_torch.kernels.stoch_matmul.ref import stoch_matmul_codes_ref
+    from repro_torch.kernels.stoch_matmul.ref import (
+        stoch_gemm_codes_ref, stoch_matmul_codes_ref, stoch_matmul_packed_ref,
+    )
 
     def codes(*shape):
         return _codes(g, dev, *shape)
 
+    if rates is None:
+        rates = probe_routes(dev, card_line())
+    # the least time of a signed product on the card, whichever kernel runs
+    # it: the fewest bit-MACs the function needs (384: 2 same - popc(X & W))
+    # at the highest binary rate measured (wgmma; it takes n8 with swapped
+    # operands, so M = 8 can use it too)
+    b1 = rates["wgmma_b1"] / 384
     out = {}
-    # the weight encodes of prepare: every weight [N, K] of a stablelm layer
-    # (q, k, v, o; up, gate; down) and the lm_head, once each
+    # the weight encodes: every weight [N, K] of a stablelm layer (q, k, v,
+    # o; up, gate; down) and the lm_head, once each
     weights = {(D, D): 24 * 4, (F, D): 24 * 2, (D, F): 24, (V, D): 1}
     k_ms = p_ms = 0.0
     n_bytes = err = 0
@@ -612,8 +740,8 @@ def time_stochastic(dev, g, timer=time_ms, plain_timer=wall_ms) -> dict:
         t_p = plain_timer(lambda: bts_encode_ref(q, "bresenham"))
         k_ms, p_ms, n_bytes = k_ms + count * t_k, p_ms + count * t_p, n_bytes + count * 18 * r * c
         bb, _ = bound_ms(18 * r * c, 0, "int8")
-        log(f"[time bts encode] weight {r} x {c} (bresenham, once at prepare) x{count}: "
-            f"kernel_ms {t_k:.4f} plain_ms {t_p:.4f} bound_ms {bb:.4f} (bytes)")
+        log(f"[time bts encode] weight {r} x {c} (bresenham) x{count}: kernel_ms {t_k:.4f} "
+            f"plain_ms {t_p:.4f} bound_ms {bb:.4f} (bytes)")
         del q
         _free(dev)
     assert err == 0, ("bts_encode at the weight shapes", err)
@@ -623,58 +751,105 @@ def time_stochastic(dev, g, timer=time_ms, plain_timer=wall_ms) -> dict:
         source="src/repro_torch/kernels/bts_encode/csrc/bts_encode.cu",
         replaces="src/repro/kernels/bts_encode/kernel.py:54", max_abs_err=float(err),
         ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    log(f"[time bts encode] every weight encode of prepare (169 weights): kernel_ms "
+    log(f"[time bts encode] every weight's streams (169 weights): kernel_ms "
         f"{k_ms:.4f} plain_ms {p_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) library_ms none (no "
         "PyTorch call encodes stochastic streams)")
 
-    k_ms = p_ms = packed_ms = enc_ms = 0.0
-    n_bytes = n_ops = err = 0
+    replaces = "src/repro/kernels/stoch_matmul/kernel.py:50"
+    src_b1 = "src/repro_torch/kernels/stoch_matmul/csrc/stoch_gemm_sm90.cu"
+    src_cc = "src/repro_torch/kernels/stoch_matmul/csrc/stoch_matmul.cu"
+    # per entry: [kernel ms, plain ms, bytes, ops] summed over the step
+    step = {e: [0.0, 0.0, 0, 0] for e in ("b1", "codes", "packed")}
+    err = 0
     for (m, k, n), count in DECODE_GEMMS.items():
-        xq = codes(m, k)
-        ws, sw = bts_encode(codes(n, k), "bresenham")
-        got = sm.stoch_matmul_codes(xq, ws, sw, "thermometer")
-        diff = got.long() - stoch_matmul_codes_ref(xq, ws, sw, "thermometer").long()
-        err = max(err, diff.abs().max().item())
+        xq, wq = codes(m, k), codes(n, k)
+        assert sm.stoch_gemm_plan(m, n, k, n_sm(dev))[0] == "stream", (m, k, n)
+        got = sm.stoch_gemm_codes(xq, wq, "thermometer", "bresenham")
+        err = max(err, (got.long() - stoch_gemm_codes_ref(xq, wq).long()).abs().max().item())
+        ws, sw = bts_encode(wq, "bresenham")
         xs, sx = bts_encode(xq, "thermometer")
+        assert torch.equal(sm.stoch_matmul_codes(xq, ws, sw, "thermometer"), got)
         assert torch.equal(sm.stoch_matmul_packed(xs, sx, ws, sw), got)
-        t_k = timer(lambda: sm.stoch_matmul_codes(xq, ws, sw, "thermometer"))
-        t_e = timer(lambda: bts_encode(xq, "thermometer"))
-        t_pk = timer(lambda: sm.stoch_matmul_packed(xs, sx, ws, sw))
-        t_p = plain_timer(lambda: stoch_matmul_codes_ref(xq, ws, sw, "thermometer"))
-        nb, ops = (m + 17 * n) * k + 4 * m * n, 4 * m * n * k
-        k_ms, p_ms = k_ms + count * t_k, p_ms + count * t_p
-        packed_ms, enc_ms = packed_ms + count * t_pk, enc_ms + count * t_e
-        n_bytes, n_ops = n_bytes + count * nb, n_ops + count * ops
-        bb, by = bound_ms(nb, ops, "popc")
-        log(f"[time stoch matmul] M={m} K={k} N={n} x{count} per step: codes entry kernel_ms "
-            f"{t_k:.4f}; parent's route {t_e + t_pk:.4f} (bts_encode {t_e:.4f} + packed "
-            f"{t_pk:.4f}); plain_ms {t_p:.4f} bound_ms {bb:.4f} ({by}; bytes alone "
-            f"{nb / HBM_BYTES_S * 1e3:.4f})")
-        del xq, ws, sw, xs, sx, got, diff
+        runs = {
+            "b1": (lambda: sm.stoch_gemm_codes(xq, wq, "thermometer", "bresenham"),
+                   lambda: stoch_gemm_codes_ref(xq, wq), (m + n) * k + 4 * m * n, m * n * k),
+            "codes": (lambda: sm.stoch_matmul_codes(xq, ws, sw, "thermometer"),
+                      lambda: stoch_matmul_codes_ref(xq, ws, sw, "thermometer"),
+                      (m + 17 * n) * k + 4 * m * n, 4 * m * n * k),
+            "packed": (lambda: sm.stoch_matmul_packed(xs, sx, ws, sw),
+                       lambda: stoch_matmul_packed_ref(xs, sx, ws, sw),
+                       17 * (m + n) * k + 4 * m * n, 4 * m * n * k)}
+        times = {}
+        for e, (fn, plain, nb, ops) in runs.items():
+            times[e] = timer(fn)
+            acc = step[e]
+            acc[0] += count * times[e]
+            acc[1] += count * plain_timer(plain)
+            acc[2] += count * nb
+            acc[3] += count * ops
+        bb, by = bound_ms((m + n) * k + 4 * m * n, m * n * k, b1)
+        log(f"[time stoch matmul] M={m} K={k} N={n} x{count} per step: binary kernel_ms "
+            f"{times['b1']:.4f} bound_ms {bb:.4f} ({by}); codes entry {times['codes']:.4f}; "
+            f"packed entry {times['packed']:.4f}")
+        del xq, wq, ws, sw, xs, sx, got
         _free(dev)
-    assert err == 0, ("stoch_matmul at decode shapes", err)
-    b_ms, b_by = bound_ms(n_bytes, n_ops, "popc")
-    out["stoch_matmul"] = dict(
-        name="stoch_matmul", route="cuda",
-        wrapper=("stoch_matmul_packed", "stoch_matmul_codes", "stoch_matmul_codes_batched"),
-        source="src/repro_torch/kernels/stoch_matmul/csrc/stoch_matmul.cu",
-        replaces="src/repro/kernels/stoch_matmul/kernel.py:50", max_abs_err=float(err),
-        ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    log(f"[time stoch matmul] all weight GEMMs of one sc decode step (M=8), codes entry: "
-        f"kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} bound_ms {b_ms:.4f} ({b_by}; bytes alone "
-        f"{n_bytes / HBM_BYTES_S * 1e3:.4f}) library_ms none (no PyTorch call computes an "
-        f"AND-popcount product); kernel {n_ops / max(k_ms, 1e-9) / 1e9:.2f} T popc/s of "
-        f"{PEAK_OPS['popc'] / 1e12:.2f}; packed entry alone {packed_ms:.4f}; the parent's "
-        f"route (169 bts_encode + packed) {enc_ms + packed_ms:.4f} (encodes {enc_ms:.4f}); "
-        f"codes / packed {k_ms / packed_ms:.4f}")
-    m, k, n = SC_PREFILL_GEMM
-    xq = codes(m, k)
-    ws, sw = bts_encode(codes(n, k), "bresenham")
-    t_k = timer(lambda: sm.stoch_matmul_codes(xq, ws, sw, "thermometer"), reps=3)
-    bb, by = bound_ms((m + 17 * n) * k + 4 * m * n, 4 * m * n * k, "popc")
-    log(f"[time stoch matmul] prefill M={m} K={k} N={n}, codes entry: kernel_ms {t_k:.4f} "
-        f"bound_ms {bb:.4f} ({by}); kernel {4 * m * n * k / max(t_k, 1e-9) / 1e9:.2f} T popc/s")
-    del xq, ws, sw
+    assert err == 0, ("stoch_gemm_codes at decode shapes", err)
+    rows = (("stoch_matmul", "b1", src_b1, ("stoch_gemm_codes_stream",
+                                           "stoch_matmul_codes_batched_stream"), b1,
+             "products at the measured wgmma b1 rate, 384 bit-MACs each"),
+            ("stoch_matmul_codes", "codes", src_cc, "stoch_matmul_codes", PEAK_OPS["popc"],
+             "popcounts"),
+            ("stoch_matmul_packed", "packed", src_cc, "stoch_matmul_packed", PEAK_OPS["popc"],
+             "popcounts"))
+    for row, e, src, wrapper, peak, what in rows:
+        k_ms, p_ms, nb, ops = step[e]
+        b_ms, b_by = bound_ms(nb, ops, peak)
+        out[row] = dict(name=row, route="cuda", wrapper=wrapper, source=src, replaces=replaces,
+                        max_abs_err=float(err), ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                        bound_by=b_by, library_ms=None)
+        log(f"[time stoch matmul] all weight GEMMs of one sc decode step (M=8), {row}: "
+            f"kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} bound_ms {b_ms:.4f} ({b_by}, "
+            f"{b_ms / k_ms:.1%} of it; bytes alone {nb / HBM_BYTES_S * 1e3:.4f}, "
+            f"{what} {ops / peak * 1e3:.4f}) library_ms none (no PyTorch call computes an "
+            "AND-popcount product)")
+    log(f"[time stoch matmul] decode step: binary / codes entry "
+        f"{step['b1'][0] / step['codes'][0]:.4f}, binary / packed "
+        f"{step['b1'][0] / step['packed'][0]:.4f}")
+
+    # the sc admission pass: every weight GEMM at the 4 packed prompts' 640 rows
+    k_ms = p_ms = c_ms = 0.0
+    nb = ops = err = 0
+    for (m, k, n), count in SC_PREFILL_GEMMS.items():
+        xq, wq = codes(m, k), codes(n, k)
+        assert sm.stoch_gemm_plan(m, n, k, n_sm(dev))[0] == "wgmma", (m, k, n)
+        got = sm.stoch_gemm_codes(xq, wq, "thermometer", "bresenham")
+        err = max(err, (got.long() - stoch_gemm_codes_ref(xq, wq).long()).abs().max().item())
+        t_k = timer(lambda: sm.stoch_gemm_codes(xq, wq, "thermometer", "bresenham"), reps=3)
+        t_p = plain_timer(lambda: stoch_gemm_codes_ref(xq, wq))
+        ws, sw = bts_encode(wq, "bresenham")
+        assert torch.equal(sm.stoch_matmul_codes(xq, ws, sw, "thermometer"), got)
+        t_c = timer(lambda: sm.stoch_matmul_codes(xq, ws, sw, "thermometer"), reps=1)
+        k_ms, p_ms, c_ms = k_ms + count * t_k, p_ms + count * t_p, c_ms + count * t_c
+        nb += count * ((m + n) * k + 4 * m * n)
+        ops += count * m * n * k
+        bb, by = bound_ms((m + n) * k + 4 * m * n, m * n * k, b1)
+        log(f"[time stoch matmul] admission M={m} K={k} N={n} x{count} per pass: binary "
+            f"kernel_ms {t_k:.4f} plain_ms {t_p:.4f} bound_ms {bb:.4f} ({by}); codes entry "
+            f"{t_c:.4f}; binary {m * n * k / max(t_k, 1e-9) / 1e9:.2f} T products/s")
+        del xq, wq, ws, sw, got
+        _free(dev)
+    assert err == 0, ("stoch_gemm_codes at the sc admission shapes", err)
+    b_ms, b_by = bound_ms(nb, ops, b1)
+    out["stoch_matmul_admission"] = dict(
+        name="stoch_matmul_admission", route="cuda",
+        wrapper=("stoch_gemm_codes_wgmma", "stoch_matmul_codes_batched_wgmma"), source=src_b1,
+        replaces=replaces, max_abs_err=float(err), ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None)
+    log(f"[time stoch matmul] all weight GEMMs of one sc admission pass (M=640): binary "
+        f"kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} bound_ms {b_ms:.4f} ({b_by}: products at "
+        f"the measured wgmma b1 rate, 384 bit-MACs each; {b_ms / k_ms:.1%} of it) library_ms "
+        f"none; codes entry "
+        f"{c_ms:.4f} (binary / codes {k_ms / c_ms:.4f})")
 
     for phase, shapes in (("decode", QKPV_DECODE), ("admission", QKPV_ADMISSION)):
         k_ms = p_ms = mma_ms = 0.0
@@ -1199,16 +1374,17 @@ def make_sc_prompts(vocab: int, rng) -> list:
 # prefill runs the flash kernel and decode the dense decode kernel.  The
 # int8 GEMM's admissions (M > 16) take its wgmma kernel and its decode
 # steps (8 slots) the weight-streaming kernel.  The sc projections run the
-# stochastic GEMM's codes entry; bts_encode runs at prepare only, once per
-# weight that has streams (serve asserts both).
+# binary stochastic GEMM (stoch_gemm_codes: wgmma at admission, the
+# mma.sync stream kernel at decode) on the weights' cached codes; no
+# serving run launches bts_encode, prepare included (serve asserts both).
 INT8_KERNELS = ("int8_gemm", "int8_gemm_wgmma", "int8_gemm_stream")
 PLAN_KERNELS = {
     "exact": ("paged_attention_decode", "paged_attention_prefill"),
     "int8": ("paged_attention_decode", "paged_attention_prefill") + INT8_KERNELS,
-    "sc": ("paged_attention_decode", "paged_attention_prefill", "bts_encode",
-           "stoch_matmul_codes"),
-    "mixed": ("bts_encode", "stoch_matmul_codes", "int8_gemm_batched",
-              "int8_gemm_batched_stream", "int8_gemm_batched_mma"),
+    "sc": ("paged_attention_decode", "paged_attention_prefill", "stoch_gemm_codes",
+           "stoch_gemm_codes_stream", "stoch_gemm_codes_wgmma"),
+    "mixed": ("stoch_gemm_codes", "stoch_gemm_codes_stream", "stoch_gemm_codes_wgmma",
+              "int8_gemm_batched", "int8_gemm_batched_stream", "int8_gemm_batched_mma"),
     "exact-kvq": ("paged_attention_decode", "paged_attention_prefill",
                   "paged_attention_decode_int8", "paged_attention_prefill_int8"),
     "int8-kvq": ("paged_attention_decode", "paged_attention_prefill",
@@ -1239,17 +1415,17 @@ def _serving_model(cfg, dev, plan, kv_quant="none"):
     return Model(cfg, ModelOptions(plan=plan, attn_impl="flash", kv_quant=kv_quant), device=dev)
 
 
-def _count_streams(tree) -> int:
-    """Weights with cached streams (``wsc_t``) in a prepared param tree."""
-    from repro_torch.core.ossm import WeightStreams
+def _sc_weights(tree) -> list:
+    """The weights' cached sc codes (``wsc_t``) in a prepared param tree."""
+    from repro_torch.core.ossm import WeightCodes
 
-    if isinstance(tree, WeightStreams):
-        return 1
+    if isinstance(tree, WeightCodes):
+        return [tree]
     if isinstance(tree, dict):
-        return sum(_count_streams(v) for v in tree.values())
+        return [w for v in tree.values() for w in _sc_weights(v)]
     if isinstance(tree, (list, tuple)):
-        return sum(_count_streams(v) for v in tree)
-    return 0
+        return [w for v in tree for w in _sc_weights(v)]
+    return []
 
 
 def serve(cfg, params, prompts, dev, runs, gen: int, max_len: int = 512,
@@ -1257,13 +1433,13 @@ def serve(cfg, params, prompts, dev, runs, gen: int, max_len: int = 512,
     """Phase 6: the engine for each ``(label, plan, kv_quant)`` run on the
     paged pool (``kv_block_size > 0``) or dense per-slot caches (0);
     returns each run's launches per kernel, counted from the engine's
-    construction (``prepare``: one ``bts_encode`` per weight that gets
-    streams, and no other launch) to the end of that serving run (no
-    further ``bts_encode``), and its greedy tokens ``[requests, gen]``.  On the paged
+    construction (``prepare`` launches nothing: the sc weights are cached as
+    int8 codes, whose bytes the log gives) to the end of that serving run
+    (no ``bts_encode`` at all), and its greedy tokens ``[requests, gen]``.  On the paged
     pool, plans that may reuse prefixes (exact, or static calibrated
     scales) must hit the prefix cache; on dense caches ``kv_stats`` and
     ``prefix_stats`` are empty.  No kernel of the other layout may launch.
-    One run's prepared weight caches (int8 codes, streams) are freed
+    One run's prepared weight caches (int8 codes, cast copies) are freed
     before the next run's are made."""
     from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.launch.serve import dense_state_summary
@@ -1295,13 +1471,15 @@ def serve(cfg, params, prompts, dev, runs, gen: int, max_len: int = 512,
         assert [o.gen_len for o in outs] == [gen] * len(prompts), [o.gen_len for o in outs]
         assert all(((o.tokens >= 0) & (o.tokens < cfg.vocab)).all() for o in outs)
         ps, st, kv = engine.prefix_stats, engine.phase_stats, engine.kv_stats
+        sc_w = _sc_weights(engine.params)
+        assert all(w.q.dtype == torch.int8 for w in sc_w), label
+        sc_line = (f"; sc weight cache {len(sc_w)} weights as int8 codes, "
+                   f"{sum(w.q.numel() + 4 * w.scale.numel() for w in sc_w) / 1e9:.4f} GB"
+                   if sc_w else "")
         if dev.type == "cuda":
-            n_streams = _count_streams(engine.params)
-            assert prepared["bts_encode"] == n_streams == sum(prepared.values()), (
-                label, "prepare must launch one bts_encode per weight with streams and nothing "
-                "else", n_streams, prepared)
-            assert counts["bts_encode"] == n_streams, (label, "bts_encode launched while serving",
-                                                       counts["bts_encode"], n_streams)
+            assert sum(prepared.values()) == 0, (label, "prepare launched a kernel", prepared)
+            assert counts["bts_encode"] == 0, (label, "bts_encode launched while serving",
+                                               counts["bts_encode"])
             missing = [k for k in PLAN_KERNELS[label] if counts[k] == 0]
             assert not missing, (label, "kernels of the path never launched", missing, counts)
             stray = [k for k in LAYOUT_KERNELS["paged" if dense else "dense"] if counts[k]]
@@ -1336,7 +1514,7 @@ def serve(cfg, params, prompts, dev, runs, gen: int, max_len: int = 512,
             f"tokens in {st['decode_s']:.3f} s), prefill "
             f"{st['prefill_tokens'] / st['prefill_s']:.1f} tok/s, mean TTFT {ttft:.1f} ms, "
             f"end to end {len(prompts) * gen / wall:.1f} tok/s in {wall:.2f} s; {kv_line}; "
-            f"launches {counts}; peak memory {peak:.1f} GiB")
+            f"launches {counts}; peak memory {peak:.1f} GiB{sc_line}")
         by_plan[label] = counts
         tokens[label] = np.stack([o.tokens for o in outs])
         del engine
@@ -1404,7 +1582,7 @@ def profile_decode_chunk(cfg, params, prompts, dev, runs, kv_block_size: int = B
         counts = launch_counts()
         assert counts["bts_encode"] == 0, (label, "bts_encode launched in a decode chunk", counts)
         if dev.type == "cuda" and label in ("sc", "mixed"):
-            assert counts["stoch_matmul_codes"] > 0, (label, counts)
+            assert counts["stoch_gemm_codes_stream"] > 0, (label, counts)
         events = prof.key_averages()
         rows = [(getattr(e, "self_device_time_total", 0.0), e.key, e.count) for e in events]
         # the device rows alone (kernels, memsets, copies: device_type CUDA),
@@ -1437,12 +1615,13 @@ def profile_decode_chunk(cfg, params, prompts, dev, runs, kv_block_size: int = B
             detail += (f"; int8 GEMM kernels {sum(r[0] for r in gemm) / 1e3:.2f} ms over "
                        f"{sum(r[2] for r in gemm)} launches ("
                        + ", ".join(f"{r[1][:48]} x{r[2]}" for r in gemm) + ")")
-        # the stochastic plans' kernels: the encoder (none since activations
-        # are encoded in the GEMM's tile load), the stochastic GEMM, and the
+        # the stochastic plans' kernels: the encoder (none: both operands
+        # are codes), the stochastic GEMM (either library), and the
         # batched int8 qk/pv GEMM (its stream kernel, or mma.sync's batched
         # instantiation, ``..., true>``)
         for what, pick in (("bts_encode", lambda k: "bts_encode" in k),
-                           ("stochastic GEMM", lambda k: "stoch_matmul" in k),
+                           ("stochastic GEMM", lambda k: "stoch_matmul" in k
+                            or "stoch_gemm" in k),
                            ("batched int8 GEMM", lambda k: "int8_gemm_batched" in k
                             or ("int8_gemm_kernel" in k and "true>" in k))):
             rs = [r for r in on_dev if pick(r[1])]
@@ -1636,6 +1815,10 @@ def log_tiles() -> None:
     log(f"[tiles] int8 GEMM: wgmma kernel {int8(0)} B (3 stages of 128 x 128-byte X and Wt "
         f"slabs); stream kernel M <= 8 / M <= 16: {int8(1)} / {int8(2)} B (4 warps x 6 stages "
         "of 16 weight rows and the X rows, 128 K bytes each)")
+    b1 = _build.load("stoch_gemm_sm90").stoch_gemm_smem_bytes
+    log(f"[tiles] binary stochastic GEMM: wgmma kernel {b1()} B (2 stages of the W tile as "
+        "sign planes and as streams, 128 rows x 8 codes x 48 bytes, and the two stream tables "
+        "in 8 copies)")
     batched = _build.load("int8_gemm_sm90").int8_gemm_batched_smem_bytes
     log("[tiles] int8 batched stream kernel, one product a block: "
         + ", ".join(f"M={m} K={k} N={n} {batched(m, n, k)} B" for _, m, k, n in QKPV_DECODE))
@@ -1682,9 +1865,7 @@ def main() -> None:
     dev = torch.device("cuda", 0)
 
     # phase 1: the device and the build
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
+    smi = card_line()
     log(smi)
     log(f"[device] {torch.cuda.get_device_name(0)} | torch {torch.__version__} | "
         f"CUDA {torch.version.cuda} | count {torch.cuda.device_count()}")
@@ -1706,6 +1887,7 @@ def main() -> None:
                 log(f"[ptxas {name}] {line.strip()}")
 
     log_tiles()
+    rates = probe_routes(dev, smi)
     g = torch.Generator(device=dev).manual_seed(1234)
     check_kernels(dev, g)
     check_int8_pool(dev, g)
@@ -1715,7 +1897,7 @@ def main() -> None:
     check_rglru(dev, g)
     check_stochastic(dev, g)
     kernels = {**time_kernels(dev, g), **time_int8_pool(dev, g), **time_dense(dev, g),
-               **time_stochastic(dev, g), **time_rglru(dev, g),
+               **time_stochastic(dev, g, rates=rates), **time_rglru(dev, g),
                **time_wide_attention(dev, g),
                **time_int8_gemms(dev, g, "int8_gemm_rg", RG_DECODE_GEMMS, RG_PREFILL_GEMMS)}
 
@@ -1753,7 +1935,7 @@ def main() -> None:
     launches.update(serve(cfg, params, sc_prompts, dev, plain_runs("sc", "mixed"), gen=16)[0])
     profile_decode_chunk(cfg, params, sc_prompts, dev, plain_runs("sc", "mixed"))
     del params
-    _free(dev)  # the sc weight streams go before recurrentgemma's weights come
+    _free(dev)  # the sc weight caches go before recurrentgemma's weights come
     rg = get_arch("recurrentgemma-2b")
     assert (rg.n_layers, rg.d_model, rg.n_heads, rg.n_kv_heads, rg.head_dim, rg.d_rnn,
             rg.window, rg.vocab, rg.dtype) == (26, RG_D, RG_H, 1, RG_HD, RG_D, RG_WINDOW,
@@ -1765,8 +1947,9 @@ def main() -> None:
 
     # launches: summed over the serving runs of the row's model (the rows
     # at recurrentgemma's shapes over rg-exact and rg-int8, the others over
-    # the eight stablelm runs) and over the row's wrappers (the stochastic
-    # GEMM's three entries); launches_by_plan: each run's own
+    # the eight stablelm runs) and over the row's wrappers (the binary
+    # stochastic GEMM's two entries, counted by kernel); launches_by_plan:
+    # each run's own
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_plan",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for name, rec in kernels.items():

@@ -11,11 +11,11 @@ single entry point every model GEMM goes through:
   the OSSM array ANDs, popcounts and sums them with their signs.
 
 On a CUDA tensor the products always run the hand-written kernels
-(``kernels.int8_matmul``; ``kernels.stoch_matmul``, which encodes the
-activation codes while it stages them, and ``kernels.bts_encode`` for a
-weight's streams, once) whatever ``use_pallas`` says — the reference's
-kernels and its jnp paths are bit-identical; on a CPU tensor they run the
-kernels' plain versions.
+(``kernels.int8_matmul``; ``kernels.stoch_matmul``, which reads both
+operands as int8 codes and expands each to its stream's sign planes while
+it stages them, so no stream is ever stored) whatever ``use_pallas`` says
+— the reference's kernels and its jnp paths are bit-identical; on a CPU
+tensor they run the kernels' plain versions.
 
 ``cc`` is a plain :class:`ComputeConfig` or a :class:`BoundSite` (a named
 GEMM site bound to an :class:`~repro_torch.core.plan.ExecutionPlan`).
@@ -25,8 +25,9 @@ qk/pv products leave the caller's exact fast path for
 :func:`astra_batched_matmul`'s exact matmul, as in the reference.
 Weights may come with caches computed once at load instead of every call:
 int8 codes (``wq_t``: codes ``[N, K]`` and scales ``[1, N]``, exactly
-``quantize(w, axis=0)`` transposed), their streams (``wsc_t``, a
-:class:`~repro_torch.core.ossm.WeightStreams`) and a cast copy (``wc``).
+``quantize(w, axis=0)`` transposed), the same codes tagged with the
+generator of their streams (``wsc_t``, a
+:class:`~repro_torch.core.ossm.WeightCodes`) and a cast copy (``wc``).
 """
 from __future__ import annotations
 
@@ -36,7 +37,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from repro_torch.core.bitstream import STREAM_LEN
-from repro_torch.core.ossm import WeightStreams
+from repro_torch.core.ossm import WeightCodes
 from repro_torch.core.quant import QTensor, quantize
 
 MODES = ("exact", "int8", "sc")
@@ -101,21 +102,17 @@ def quantize_weight_t(w: torch.Tensor) -> QTensor:
     return QTensor(wq.q.t().contiguous(), wq.scale)
 
 
-def encode_weight_t(w: torch.Tensor, w_gen: str) -> WeightStreams:
-    """The streams of ``quantize(w [K, N], axis=0)``'s codes under
-    ``w_gen``, K-contiguous (``[N, K, 4]`` words, ``[N, K]`` signs), with
-    the scales ``[1, N]`` — what the ``sc`` mode encodes from ``w``."""
-    from repro_torch.kernels.bts_encode import bts_encode
-
+def sc_weight_t(w: torch.Tensor, w_gen: str) -> WeightCodes:
+    """``quantize_weight_t(w)``'s codes ``[N, K]`` and scales ``[1, N]``,
+    tagged with ``w_gen``: what the ``sc`` mode reads of ``w``."""
     wq_t = quantize_weight_t(w)
-    words, sign = bts_encode(wq_t.q, w_gen)
-    return WeightStreams(words, sign, wq_t.scale, w_gen)
+    return WeightCodes(wq_t.q, wq_t.scale, w_gen)
 
 
 def astra_matmul(x: torch.Tensor, w: torch.Tensor,
                  cc: Union[ComputeConfig, BoundSite] = EXACT, *,
                  wq_t: Optional[QTensor] = None,
-                 wsc_t: Optional[WeightStreams] = None,
+                 wsc_t: Optional[WeightCodes] = None,
                  wc: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``[..., K] @ [K, N]`` under the site's execution mode."""
     _maybe_observe(cc, x)
@@ -134,7 +131,7 @@ def astra_matmul(x: torch.Tensor, w: torch.Tensor,
         from repro_torch.kernels.stoch_matmul.ops import stoch_matmul
 
         if wsc_t is None or wsc_t.gen != cc.w_gen:
-            wsc_t = encode_weight_t(w, cc.w_gen)
+            wsc_t = sc_weight_t(w, cc.w_gen)
         out = stoch_matmul(xq, wsc_t, cc.x_gen)
     return out.reshape(*lead, w.shape[-1]).to(x.dtype)
 

@@ -8,7 +8,8 @@ popcount(X & W), and XOR(sign_x, sign_w) steers the charge onto the
 positive or negative rail.  With thermometer x bresenham pairing the
 charge is round(m_x * m_w / 128); with LFSR pairing it is the classic
 stochastic estimate.  These are the bit-exact functional models; the
-serving path runs ``kernels.bts_encode`` and ``kernels.stoch_matmul``.
+serving path runs ``kernels.stoch_matmul`` on int8 codes, whose streams
+come from a table of each magnitude's stream.
 """
 from __future__ import annotations
 
@@ -25,15 +26,16 @@ X_GEN = "thermometer"
 W_GEN = "bresenham"
 
 
-class WeightStreams(NamedTuple):
-    """A weight ``[K, N]`` as the OSSM array reads it, encoded once: the
-    streams and signs of ``quantize(w, axis=0)``'s codes, transposed so K
-    is contiguous, beside the per-output-channel scales."""
+class WeightCodes(NamedTuple):
+    """A weight ``[K, N]`` as the OSSM array reads it, quantized once:
+    ``quantize(w, axis=0)``'s codes transposed so K is contiguous, beside
+    the per-output-channel scales and the generator whose streams the codes
+    stand for (at phase 0 a code's stream is its magnitude's row of the
+    generator's table, so the codes are all the kernel needs)."""
 
-    words: torch.Tensor  # [N, K, 4] int32 (uint32 bit patterns)
-    sign: torch.Tensor  # [N, K] int8 in {+1, -1}
+    q: torch.Tensor  # [N, K] int8
     scale: torch.Tensor  # [1, N] float32
-    gen: str  # the generator that made ``words``
+    gen: str  # the weight streams' generator
 
 
 def ossm_multiply(qx: torch.Tensor, qw: torch.Tensor, x_gen: str = X_GEN,

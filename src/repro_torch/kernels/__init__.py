@@ -28,11 +28,17 @@ launches the kernel or raises.
   (bf16 on ``wgmma`` with K/V tiles brought by TMA, float32 on FMA tiles):
   the dense layout's prefill (replaces ``repro.kernels.flash_attention``)
 * ``bts_encode``      — the B-to-S encoder: int8 codes -> packed 128-bit
-  stochastic streams and signs, for a weight's streams once at prepare
+  stochastic streams and signs, the packed operands of
+  ``stoch_matmul_packed`` / ``stoch_matmul_codes``; the serving path
+  launches it nowhere, since the stochastic GEMM reads codes
   (replaces ``repro.kernels.bts_encode``)
 * ``stoch_matmul``    — the OSSM array: AND, popcount and signed sum of
-  streams, each operand packed or int8 codes encoded from a table while
-  the kernel stages them, so activations need no encoder launch
+  streams.  On the serving path both operands are int8 codes, each
+  expanded to sign planes of its stream from a table while it is staged,
+  the signed popcounts summed by the binary tensor cores (``mma.sync``
+  at decode, ``wgmma`` at admission; ``csrc/stoch_gemm_sm90.cu``, its own
+  library); the reference's packed interface and codes against packed
+  weight streams run a CUDA-core kernel (``csrc/stoch_matmul.cu``)
   (replaces ``repro.kernels.stoch_matmul``)
 * ``rglru_scan``      — the linear recurrence ``h_t = a_t h_{t-1} + b_t``
   of the RG-LRU prefill, one thread per channel walking the sequence
@@ -44,10 +50,15 @@ run launched.  The paged-attention wrappers' launches on int8 pools (the
 kernel's dequantizing branch) are also counted apart, as
 ``paged_attention_decode_int8`` and ``paged_attention_prefill_int8``, and
 ``int8_gemm``'s launches by the kernel they took, as ``int8_gemm_wgmma``,
-``int8_gemm_stream`` and ``int8_gemm_mma``, and ``int8_gemm_batched``'s as
-``int8_gemm_batched_stream`` and ``int8_gemm_batched_mma``.
+``int8_gemm_stream`` and ``int8_gemm_mma``, ``int8_gemm_batched``'s as
+``int8_gemm_batched_stream`` and ``int8_gemm_batched_mma``, and those of
+the binary stochastic GEMM's entries as ``stoch_gemm_codes_stream`` /
+``_wgmma`` and ``stoch_matmul_codes_batched_stream`` / ``_wgmma``.
 """
 
+# wrappers that also count their launches by kernel (``paths``)
+PATH_COUNTED = ("int8_gemm", "int8_gemm_batched", "stoch_gemm_codes",
+                "stoch_matmul_codes_batched")
 # counters of a wrapper's int8-pool branch -> the wrapper that keeps them
 INT8_BRANCHES = {"paged_attention_decode_int8": "paged_attention_decode",
                  "paged_attention_prefill_int8": "paged_attention_prefill"}
@@ -63,7 +74,7 @@ def kernel_wrappers() -> dict:
     )
     from repro_torch.kernels.rglru_scan.ops import rglru_scan
     from repro_torch.kernels.stoch_matmul.ops import (
-        stoch_matmul_codes, stoch_matmul_codes_batched, stoch_matmul_packed,
+        stoch_gemm_codes, stoch_matmul_codes, stoch_matmul_codes_batched, stoch_matmul_packed,
     )
     return {
         "paged_attention_decode": paged_attention_decode,
@@ -76,6 +87,7 @@ def kernel_wrappers() -> dict:
         "stoch_matmul_packed": stoch_matmul_packed,
         "stoch_matmul_codes": stoch_matmul_codes,
         "stoch_matmul_codes_batched": stoch_matmul_codes_batched,
+        "stoch_gemm_codes": stoch_gemm_codes,
         "rglru_scan": rglru_scan,
     }
 
@@ -86,7 +98,7 @@ def reset_launches() -> None:
         fn.launches = 0
     for parent in INT8_BRANCHES.values():
         wrappers[parent].int8_launches = 0
-    for name in ("int8_gemm", "int8_gemm_batched"):
+    for name in PATH_COUNTED:
         paths = wrappers[name].paths
         for path in paths:
             paths[path] = 0
@@ -97,6 +109,6 @@ def launch_counts() -> dict:
     counts = {name: fn.launches for name, fn in wrappers.items()}
     counts.update({name: wrappers[parent].int8_launches
                    for name, parent in INT8_BRANCHES.items()})
-    for name in ("int8_gemm", "int8_gemm_batched"):
+    for name in PATH_COUNTED:
         counts.update({f"{name}_{path}": c for path, c in wrappers[name].paths.items()})
     return counts

@@ -5,8 +5,8 @@ Each kernel package keeps its sources under ``csrc/``.  At first use the
 sources are compiled for Hopper (``sm_90a``) into a shared library with a
 plain C interface, cached under ``build/torch_kernels/`` in the checkout
 (listed in ``.gitignore``) and keyed by a hash of the flags, the sources
-and every header they include (``common/hopper.cuh`` is shared by four
-libraries), so an edited source or header rebuilds and an unchanged one
+and every header they include (``common/hopper.cuh`` is shared by five
+libraries and the rate probe), so an edited source or header rebuilds and an unchanged one
 loads at once.  Nothing is compiled at import time: the CPU tests import
 every module and never reach a build.
 
@@ -46,7 +46,13 @@ LIBRARIES: Dict[str, Tuple[str, ...]] = {
     "flash_attention": ("flash_attention/csrc/flash_attention.cu",),
     "bts_encode": ("bts_encode/csrc/bts_encode.cu",),
     "stoch_matmul": ("stoch_matmul/csrc/stoch_matmul.cu",),
+    "stoch_gemm_sm90": ("stoch_matmul/csrc/stoch_gemm_sm90.cu",),
     "rglru_scan": ("rglru_scan/csrc/rglru_scan.cu",),
+}
+# rate probes that replace no kernel (chip_smoke.py's probe phase), built
+# on demand and never by build_all
+PROBES: Dict[str, Tuple[str, ...]] = {
+    "stoch_probe": ("stoch_matmul/csrc/stoch_probe.cu",),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -65,6 +71,10 @@ def _nvcc() -> str:
     return found
 
 
+def _sources(name: str) -> Tuple[str, ...]:
+    return LIBRARIES[name] if name in LIBRARIES else PROBES[name]
+
+
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
@@ -73,7 +83,7 @@ def headers(name: str) -> List[Path]:
     (``#include "..."``, resolved against the including file's directory),
     and the headers those include, in the order first met."""
     found: List[Path] = []
-    todo = [_PKG / s for s in LIBRARIES[name]]
+    todo = [_PKG / s for s in _sources(name)]
     while todo:
         f = todo.pop(0)
         for inc in _INCLUDE.findall(f.read_text(encoding="utf-8")):
@@ -87,7 +97,7 @@ def headers(name: str) -> List[Path]:
 def _target(name: str) -> Tuple[Path, List[Path]]:
     """The cached library's path, keyed by the flags and the bytes of the
     sources and of every header they include, and the sources."""
-    srcs = [_PKG / s for s in LIBRARIES[name]]
+    srcs = [_PKG / s for s in _sources(name)]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for f in srcs + headers(name):
         h.update(f.read_bytes())

@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the hand-written kernels:
 // mbarriers, TMA tile loads, the wgmma shared-memory descriptor of a
 // 128-byte swizzled tile, wgmma fences and the host-side encoding of TMA
-// maps (flash_attention.cu, int8_gemm_sm90.cu, paged_prefill.cu), 16-byte
+// maps (flash_attention.cu, int8_gemm_sm90.cu, paged_prefill.cu; the
+// descriptor, fences and proxy fence also stoch_gemm_sm90.cu and
+// stoch_probe.cu), 16-byte
 // cp.async copies (int8_gemm_sm90.cu, decode.cu, paged_prefill.cu),
 // their mbarrier arrive and the proxy fence that hands their bytes to
 // wgmma (paged_prefill.cu), and the attention kernels' bf16 m64n64k16
@@ -9,7 +11,7 @@
 // decode.cu: exp2).
 //
 // Every operand tile these kernels hand to wgmma is 128 bytes wide along
-// its contiguous dimension (64 bf16 or 128 int8 values) and lies at a
+// its contiguous dimension (64 bf16, 128 int8 or 1024 b1 values) and lies at a
 // 1024-byte aligned base in TMA's 128-byte swizzle, so one descriptor
 // form serves them all (smem_desc).  _build.py hashes this header into
 // the build key of every library whose sources include it.

@@ -1,43 +1,39 @@
-// The OSSM array: stochastic matmul on Hopper (sm_90a), reading each
-// operand as packed streams or as int8 codes it encodes while staging.
+// The OSSM array on CUDA cores (sm_90a): stochastic matmul reading the
+// activations as packed streams or as int8 codes it encodes while staging,
+// against a weight's packed streams.
 //
 // Replaces: src/repro/kernels/stoch_matmul/kernel.py :: stoch_matmul_packed_kernel
 // (the Pallas kernel that ANDs 128-bit streams, popcounts them and sums the
-// signed counts over K on the TPU's vector unit) and, on the activation
-// path, src/repro/kernels/bts_encode/kernel.py :: bts_encode_kernel, whose
-// work this kernel does in its tile load.  Computes
+// signed counts over K on the TPU's vector unit) at its packed interface.
+// Computes
 //   C[m, n] = sum_k SX[m, k] * SW[n, k] * popc(X[m, k] & W[n, k])
 // into int32, with X [M, K, 4] and W [N, K, 4] 128-bit streams (4 x 32
 // bits, both K-contiguous) and SX, SW signs.  Integer sums are exact in any
-// order, so the result is bit-identical to the plain version.
+// order, so the result is bit-identical to the plain version.  The serving
+// path (codes against codes, weights cached as codes) runs
+// stoch_gemm_sm90.cu on the binary tensor cores instead; this kernel serves
+// stoch_matmul_packed (the TPU kernel's interface) and stoch_matmul_codes
+// (activation codes against packed weight streams).
 //
-// Each operand is a policy (Packed, Codes) of the one kernel template:
-// * Packed: words and int8 signs as bts_encode writes them, the TPU
-//   kernel's interface (stoch_matmul_packed; a weight's cached streams).
-// * Codes: int8 codes, expanded while the tile is staged.  On the serving
-//   path every generator runs at phase 0, so a code's stream is a fixed
-//   function of its magnitude: the block copies the generator's table of
-//   129 streams (magnitudes 0..128, 16 bytes each, built by the wrapper
-//   from core/bitstream.py's encode, so the two cannot differ) into shared
-//   memory once, and a code c stages as table[|c|] with sign c < 0 ? -1 :
-//   +1 (zero: the empty stream, sign +1, as encode_signed gives it).
-// Activations therefore reach the kernel as the 1 byte a code the
-// quantizer wrote, not as bts_encode's 17 bytes a code in a launch of its
-// own: the activation path launches no encoder at all.  A block starts by
-// staging the table (one 16-byte load a thread and a barrier); a codes
-// form then loads its tiles as unrolled runs, so each K step's global
-// loads are in flight together and the table lookups hide behind them.
-// At decode (M = 8) the codes form runs a step in less time than the
-// packed form (PERF.md), though it does the same popcounts.
+// Each X operand is a policy (Packed, Codes) of the one kernel template:
+// * Packed: words and int8 signs as bts_encode writes them.
+// * Codes: int8 codes, expanded while the tile is staged.  At phase 0 a
+//   code's stream is a fixed function of its magnitude: the block copies
+//   the generator's table of 129 streams (magnitudes 0..128, 16 bytes
+//   each, built by the wrapper from core/bitstream.py's encode, so the two
+//   cannot differ) into shared memory once, and a code c stages as
+//   table[|c|] with sign c < 0 ? -1 : +1 (zero: the empty stream, sign +1,
+//   as encode_signed gives it).  A codes form loads its tiles as unrolled
+//   runs, so each K step's global loads are in flight together and the
+//   table lookups hide behind them.
 //
 // What bounds it on an H100: the popcounts.  Each (m, n, k) costs four
 // __popc, and the card retires 16 of them per clock per SM, against 64 per
 // clock for the AND, the adds and the sign multiply; at decode (M = 8 slots)
 // a step runs 8 x 1.44e9 x 4 = 4.6e10 of them, about 11 ms on 132 SMs,
 // above the 7.3 ms it takes to stream the 24.5 GB of weight streams and
-// signs once.  Binary tensor cores (mma .b1 .and.popc) would lift the
-// operation bound to the byte bound; this kernel is the plain CUDA-core
-// design.
+// signs once.  stoch_gemm_sm90.cu takes the same products to the binary
+// tensor cores (mma.sync / wgmma .b1 .and.popc), from codes alone.
 //
 // Design: a block owns a BM x BN output tile and walks its K range BK
 // positions at a time through shared memory (coalesced 16-byte loads of
@@ -50,8 +46,7 @@
 // M/N/K read zero words, which add nothing whatever their sign.
 // gridDim.z runs over splits of K whose int32 partial sums meet by
 // atomicAdd, when the output tiles cannot fill the SMs, and in a separate
-// instantiation over a batch of independent products as well (dynamic
-// qk/pv sites under sc).
+// instantiation over a batch of independent products as well.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -77,7 +72,7 @@ struct Packed {
   }
 };
 
-// An operand read as int8 codes and encoded from the generator's table
+// An X operand read as int8 codes and encoded from the generator's table
 // (staged in shared memory as ``table_s``).
 struct Codes {
   static constexpr bool kCodes = true;
@@ -118,12 +113,11 @@ __device__ __forceinline__ void load_tile(uint4* __restrict__ words_s, int8_t* _
   }
 }
 
-template <int BM, int BN, int TM, int TN, bool BATCHED, class XOp, class WOp>
+template <int BM, int BN, int TM, int TN, bool BATCHED, class XOp>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
-stoch_matmul_kernel(XOp x, WOp w, int32_t* __restrict__ C, int M, int N, int K, int kps,
+stoch_matmul_kernel(XOp x, Packed w, int32_t* __restrict__ C, int M, int N, int K, int kps,
                     int splits) {
   constexpr int TX = BN / TN, TY = BM / TM, THREADS = TX * TY;
-  constexpr int N_TABLES = int(XOp::kCodes) + int(WOp::kCodes);
   // Codes forms unroll their tile loads (an X tile of codes is one byte a
   // thread), so a K step's code, word and sign loads are in flight
   // together behind the table lookups; the packed form keeps its loops,
@@ -133,14 +127,11 @@ stoch_matmul_kernel(XOp x, WOp w, int32_t* __restrict__ C, int M, int N, int K, 
   __shared__ uint4 Ws[BN * PITCH];
   __shared__ int8_t SXs[BM * SPITCH];
   __shared__ int8_t SWs[BN * SPITCH];
-  __shared__ uint4 tables[N_TABLES > 0 ? N_TABLES * TABLE : 1];
-  uint4* const x_table = tables;
-  uint4* const w_table = tables + (XOp::kCodes ? TABLE : 0);
-  if constexpr (XOp::kCodes)
+  __shared__ uint4 x_table[XOp::kCodes ? TABLE : 1];
+  if constexpr (XOp::kCodes) {
     for (int i = threadIdx.x; i < TABLE; i += THREADS) x_table[i] = __ldg(x.table + i);
-  if constexpr (WOp::kCodes)
-    for (int i = threadIdx.x; i < TABLE; i += THREADS) w_table[i] = __ldg(w.table + i);
-  if constexpr (N_TABLES > 0) __syncthreads();
+    __syncthreads();
+  }
 
   const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
@@ -163,7 +154,7 @@ stoch_matmul_kernel(XOp x, WOp w, int32_t* __restrict__ C, int M, int N, int K, 
 
   for (int k0 = k_begin; k0 < k_end; k0 += BK) {
     load_tile<BM, THREADS, UNROLL>(Xs, SXs, x, x_table, m0, M, k0, k_end, K);
-    load_tile<BN, THREADS, UNROLL>(Ws, SWs, w, w_table, n0, N, k0, k_end, K);
+    load_tile<BN, THREADS, UNROLL>(Ws, SWs, w, nullptr, n0, N, k0, k_end, K);
     __syncthreads();
 #pragma unroll 4
     for (int kk = 0; kk < BK; ++kk) {
@@ -209,8 +200,8 @@ stoch_matmul_kernel(XOp x, WOp w, int32_t* __restrict__ C, int M, int N, int K, 
 
 // One launch of the kernel over operands x, w (cfg 0: 8 x 128 tiles for
 // decode, cfg 1: 64 x 64 tiles; B > 1: the batched instantiation).
-template <class XOp, class WOp>
-int launch(XOp x, WOp w, int32_t* C, int B, int M, int N, int K, int kps, int splits, int cfg,
+template <class XOp>
+int launch(XOp x, Packed w, int32_t* C, int B, int M, int N, int K, int kps, int splits, int cfg,
            cudaStream_t s) {
   const dim3 grid0((N + 127) / 128, (M + 7) / 8, B * splits);
   const dim3 grid1((N + 63) / 64, (M + 63) / 64, B * splits);
@@ -228,11 +219,11 @@ int launch(XOp x, WOp w, int32_t* C, int B, int M, int N, int K, int kps, int sp
 }  // namespace
 
 // X [B,M,K] and W [B,N,K] operands, each packed streams (x: [.., 4] uint32
-// words, x_aux: int8 signs) or int8 codes (x: codes, x_aux: [129, 4] uint32
-// streams of magnitudes 0..128 under the operand's generator), as x_codes /
-// w_codes say; packed X with codes W is not instantiated.  c [B,M,N] int32
-// (zeroed by the caller when splits > 1).  cfg 0: 8 x 128 tiles (decode),
-// cfg 1: 64 x 64 tiles.
+// words, x_aux: int8 signs) or, for X, int8 codes (x: codes, x_aux: [129,
+// 4] uint32 streams of magnitudes 0..128 under the operand's generator), as
+// x_codes says; w_codes must be 0 (codes against codes run
+// stoch_gemm_sm90.cu).  c [B,M,N] int32 (zeroed by the caller when splits >
+// 1).  cfg 0: 8 x 128 tiles (decode), cfg 1: 64 x 64 tiles.
 extern "C" int stoch_matmul_launch(const void* x, const void* x_aux, const void* w,
                                    const void* w_aux, void* c, int B, int M, int N, int K,
                                    int kps, int splits, int cfg, int x_codes, int w_codes,
@@ -242,9 +233,7 @@ extern "C" int stoch_matmul_launch(const void* x, const void* x_aux, const void*
   const Packed xp{static_cast<const uint4*>(x), static_cast<const int8_t*>(x_aux)};
   const Packed wp{static_cast<const uint4*>(w), static_cast<const int8_t*>(w_aux)};
   const Codes xc{static_cast<const int8_t*>(x), static_cast<const uint4*>(x_aux)};
-  const Codes wc{static_cast<const int8_t*>(w), static_cast<const uint4*>(w_aux)};
-  if (!x_codes && !w_codes) return launch(xp, wp, C, B, M, N, K, kps, splits, cfg, s);
-  if (x_codes && !w_codes) return launch(xc, wp, C, B, M, N, K, kps, splits, cfg, s);
-  if (x_codes && w_codes) return launch(xc, wc, C, B, M, N, K, kps, splits, cfg, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (w_codes) return static_cast<int>(cudaErrorInvalidValue);
+  if (!x_codes) return launch(xp, wp, C, B, M, N, K, kps, splits, cfg, s);
+  return launch(xc, wp, C, B, M, N, K, kps, splits, cfg, s);
 }

@@ -1,26 +1,33 @@
-"""Public wrappers of the stochastic-matmul kernel: checks, launch, counters.
+"""Public wrappers of the stochastic-matmul kernels: checks, launch, counters.
 
-Port of ``repro.kernels.stoch_matmul.ops``.  One kernel
-(``csrc/stoch_matmul.cu``) reads each operand either as packed streams
-and int8 signs or as int8 codes that it encodes while staging its tiles,
-from a table of every magnitude's stream (:func:`stream_table`).  Three
-entries launch it, each with its own launch counter:
+Port of ``repro.kernels.stoch_matmul.ops``.  Two CUDA libraries compute
+``sum_k sx * sw * popcount(X & W)`` into int32, each operand's stream
+coming from a table of every magnitude's stream (:func:`stream_table`)
+where it is given as int8 codes:
 
-* ``stoch_matmul_packed``: packed streams and signs of both operands, the
-  reference kernel's interface;
-* ``stoch_matmul_codes``: int8 activation codes against a weight's cached
-  streams (``astra_matmul``'s ``sc`` branch), so no activation is encoded
-  by a launch of its own;
-* ``stoch_matmul_codes_batched``: codes against codes, a batch of
-  independent products (``astra_batched_matmul``'s ``sc`` branch).
+* ``csrc/stoch_gemm_sm90.cu``, codes against codes on the binary tensor
+  cores (``mma.sync`` for at most 16 rows, ``wgmma`` above; the kernel per
+  shape from :func:`stoch_gemm_plan`), behind two entries:
+  ``stoch_gemm_codes`` (one product: ``stoch_matmul``, i.e.
+  ``astra_matmul``'s ``sc`` branch against a weight's cached codes) and
+  ``stoch_matmul_codes_batched`` (a batch of independent products:
+  ``astra_batched_matmul``'s ``sc`` branch).  Each counts its launches,
+  and by kernel in ``paths``.
+* ``csrc/stoch_matmul.cu``, the CUDA-core kernel template that reads each
+  operand as packed streams or as codes it encodes while staging, behind
+  ``stoch_matmul_packed`` (packed streams and signs of both operands, the
+  reference kernel's interface) and ``stoch_matmul_codes`` (int8
+  activation codes against a weight's packed streams).  Neither is on the
+  serving path.
 
-All three take K-contiguous operands and give int32 accumulators; the
-reference pads to block multiples, the kernel masks ragged edges itself.
-``stoch_matmul`` takes quantized activations and a weight's cached
-streams (``core.ossm.WeightStreams``) and dequantizes as ``((acc * 128) *
-xs) * ws``, the reference's order.  On CPU tensors the entries run their
-plain versions (``ref.py``: the codes entries encode with
-``bts_encode_ref`` first); on CUDA tensors they launch the kernel or raise.
+All entries take K-contiguous operands and give int32 accumulators; the
+reference pads to block multiples, the kernels mask ragged edges
+themselves.  ``stoch_matmul`` takes quantized activations and a weight's
+cached codes (``core.ossm.WeightCodes``) and dequantizes as ``((acc * 128)
+* xs) * ws``, the reference's order.  On CPU tensors the entries run their
+plain versions (``ref.py``: sign planes and ``same - opp`` for the codes x
+codes entries; ``bts_encode_ref`` then the packed product for the codes x
+streams entry); on CUDA tensors they launch their kernel or raise.
 """
 from __future__ import annotations
 
@@ -29,14 +36,14 @@ import ctypes
 import torch
 
 from repro_torch.core.bitstream import N_WORDS, STREAM_LEN, encode
-from repro_torch.core.ossm import W_GEN, X_GEN, WeightStreams
+from repro_torch.core.ossm import W_GEN, X_GEN, WeightCodes
 from repro_torch.core.quant import QTensor
 from repro_torch.kernels import _build
 from repro_torch.kernels.stoch_matmul.ref import (
-    stoch_matmul_codes_batched_ref, stoch_matmul_codes_ref, stoch_matmul_packed_ref,
+    stoch_gemm_codes_ref, stoch_matmul_codes_ref, stoch_matmul_packed_ref,
 )
 
-_BK = 16  # the kernel's K step; split-K chunks are multiples of it
+_BK = 16  # stoch_matmul.cu's K step; split-K chunks are multiples of it
 # (BM, BN) of the kernel's two tile configurations, indexed by ``cfg``
 _TILES = {0: (8, 128), 1: (64, 64)}
 # magnitudes a code can have: quantize's codes reach 127, and an int8
@@ -45,10 +52,25 @@ TABLE_LEN = 129
 _tables = {}  # (device, generator) -> the generator's stream table on it
 
 
+# stoch_gemm_sm90.cu: K codes a decode warp takes at a time, codes a
+# wgmma stage holds (split-K chunks are multiples of them), the rows a
+# decode block owns, the wgmma kernel's output tile
+_ST_CHUNK, _WG_CODES, _ST_ROWS, _WG_TILE = 64, 8, 32, 128
+GEMM_KERNELS = ("stream", "wgmma")  # stoch_gemm_launch's kernel 0, 1
+
+
 def _lib():
     fn = _build.load("stoch_matmul").stoch_matmul_launch
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _gemm_lib():
+    fn = _build.load("stoch_gemm_sm90").stoch_gemm_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -66,10 +88,36 @@ def stream_table(generator: str, device="cpu") -> torch.Tensor:
     return _tables[key]
 
 
+def _wave_splits(tiles: int, k: int, step: int, n_sm: int, most: int = 8):
+    """(K codes per split, splits) for ``tiles`` output tiles of a kernel
+    that runs one block an SM: the count s of splits (1 to ``most``, each
+    at least two steps of K) with the least ``ceil(tiles * s / n_sm) / s``
+    (waves of blocks times each block's share of K), each split costing 2%
+    more for its atomics; ties go to fewer splits."""
+    top = max(1, min(most, k // (2 * step)))
+    s = min(range(1, top + 1), key=lambda s: (-(-tiles * s // n_sm) / s * (1 + 0.02 * (s - 1)), s))
+    kps = -(-(-(-k // s)) // step) * step
+    return kps, -(-k // kps)
+
+
+def stoch_gemm_plan(m: int, n: int, k: int, n_sm: int, batch: int = 1):
+    """(kernel, K codes per split, number of splits) of ``stoch_gemm_sm90``
+    for ``batch`` products of ``[m, k] x [n, k]``: the ``stream`` kernel
+    (``mma.sync``, row blocks of 32 weight rows, one block an SM) for ``m
+    <= 16``, the ``wgmma`` kernel (128 x 128 tiles, one block an SM) above;
+    K is split into the count that wastes the fewest SMs in the last wave."""
+    if m <= 16:
+        blocks = batch * -(-n // _ST_ROWS)
+        return ("stream", *_wave_splits(blocks, k, _ST_CHUNK, n_sm))
+    tiles = batch * -(-m // _WG_TILE) * -(-n // _WG_TILE)
+    return ("wgmma", *_wave_splits(tiles, k, _WG_CODES, n_sm))
+
+
 def split_plan(m: int, n: int, k: int, n_sm: int, batch: int = 1):
-    """(tile config, K positions per split, number of splits).  M <= 8
-    (decode) takes the 8-row tile; K is split when the output tiles of all
-    ``batch`` products cannot give every SM four blocks."""
+    """``stoch_matmul.cu``'s (tile config, K positions per split, number of
+    splits).  M <= 8 (decode) takes the 8-row tile; K is split when the
+    output tiles of all ``batch`` products cannot give every SM four
+    blocks."""
     cfg = 0 if m <= 8 else 1
     bm, bn = _TILES[cfg]
     return (cfg, *_build.split_k(batch * -(-m // bm) * -(-n // bn), k, _BK, 4 * n_sm))
@@ -87,10 +135,11 @@ def _check_device(tensors, what: str) -> bool:
     return False
 
 
-def _launch(what: str, x, x_aux, w, w_aux, lead, m: int, n: int, k: int, x_codes: bool,
-            w_codes: bool) -> torch.Tensor:
-    """One launch over operands checked by the caller: ``x [(B,) M, K(, 4)]``
-    and ``w [(B,) N, K(, 4)]`` with their signs or stream tables."""
+def _launch(what: str, x, x_aux, w, w_aux, lead, m: int, n: int, k: int,
+            x_codes: bool) -> torch.Tensor:
+    """One launch of ``stoch_matmul.cu`` over operands checked by the
+    caller: ``x [(B,) M, K(, 4)]`` (packed, or codes with their stream
+    table) and packed ``w [(B,) N, K, 4]`` with their signs."""
     # the kernel reads 16-byte words: contiguous, 16-byte aligned starts
     x, x_aux, w, w_aux = (_build.aligned(t) for t in (x, x_aux, w, w_aux))
     b = lead[0] if lead else 1
@@ -102,7 +151,7 @@ def _launch(what: str, x, x_aux, w, w_aux, lead, m: int, n: int, k: int, x_codes
     if out.numel() == 0:
         return out
     rc = _lib()(x.data_ptr(), x_aux.data_ptr(), w.data_ptr(), w_aux.data_ptr(), out.data_ptr(),
-                b, m, n, k, kps, splits, cfg, int(x_codes), int(w_codes),
+                b, m, n, k, kps, splits, cfg, int(x_codes), 0,
                 torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, what)
     return out
@@ -127,7 +176,7 @@ def stoch_matmul_packed(xs: torch.Tensor, sx: torch.Tensor, ws: torch.Tensor,
                          "are not [(B,) M, K, 4], [(B,) M, K], [(B,) N, K, 4], [(B,) N, K]")
     m, k = sx.shape[-2:]
     out = _launch("stoch_matmul_packed", xs, sx, ws, sw, sx.shape[:-2], m, sw.shape[-2], k,
-                  False, False)
+                  False)
     if out.numel():
         stoch_matmul_packed.launches += 1
     return out
@@ -154,7 +203,7 @@ def stoch_matmul_codes(xq: torch.Tensor, ws: torch.Tensor, sw: torch.Tensor,
                          "are not [M, K], [N, K, 4], [N, K]")
     (m, k), n = xq.shape, sw.shape[0]
     out = _launch("stoch_matmul_codes", xq, stream_table(x_gen, xq.device), ws, sw, (), m, n,
-                  k, True, False)
+                  k, True)
     if out.numel():
         stoch_matmul_codes.launches += 1
     return out
@@ -163,14 +212,68 @@ def stoch_matmul_codes(xq: torch.Tensor, ws: torch.Tensor, sw: torch.Tensor,
 stoch_matmul_codes.launches = 0
 
 
+def _gemm_launch(what: str, xq, wq_t, lead, x_gen: str, w_gen: str):
+    """One launch of ``stoch_gemm_sm90`` over codes checked by the caller,
+    ``xq [(B,) M, K]`` against ``wq_t [(B,) N, K]``; the output and the
+    kernel it took."""
+    xq, wq_t = _build.aligned(xq), _build.aligned(wq_t)
+    (m, k), n = xq.shape[-2:], wq_t.shape[-2]
+    b = lead[0] if lead else 1
+    n_sm = _build.sm_count(xq.device.index)
+    kernel, kps, splits = stoch_gemm_plan(m, n, k, n_sm, b)
+    if b * splits > 65535:  # gridDim.z
+        raise ValueError(f"{what}: batch {b} x {splits} K splits exceeds the grid")
+    out = (torch.zeros if splits > 1 else torch.empty)((*lead, m, n), dtype=torch.int32,
+                                                       device=xq.device)
+    if out.numel() == 0:
+        return out, kernel
+    dev = xq.device
+    # the stream kernel's blocks (one an SM) walk its row blocks in turn
+    width = min(-(-n // _ST_ROWS), max(1, n_sm // (b * splits)))
+    rc = _gemm_lib()(xq.data_ptr(), stream_table(x_gen, dev).data_ptr(), wq_t.data_ptr(),
+                     stream_table(w_gen, dev).data_ptr(), out.data_ptr(), b, m, n, k, kps,
+                     splits, GEMM_KERNELS.index(kernel), width,
+                     torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, what)
+    return out, kernel
+
+
+def _count(fn, out: torch.Tensor, kernel: str) -> None:
+    if out.numel():
+        fn.launches += 1
+        fn.paths[kernel] += 1
+
+
+def stoch_gemm_codes(xq: torch.Tensor, wq_t: torch.Tensor, x_gen: str = X_GEN,
+                     w_gen: str = W_GEN) -> torch.Tensor:
+    """int8 activation codes ``xq [M, K]`` against int8 weight codes ``wq_t
+    [N, K]`` -> int32 ``[M, N]``: each operand's streams from its
+    generator's table, summed with their signs on the binary tensor cores."""
+    tensors = (xq, wq_t)
+    if _check_device(tensors, "stoch_gemm_codes"):
+        return stoch_gemm_codes_ref(xq, wq_t, x_gen, w_gen)
+    if xq.dtype != torch.int8 or wq_t.dtype != torch.int8:
+        raise TypeError(f"stoch_gemm_codes takes int8 codes, got {xq.dtype} and {wq_t.dtype}")
+    if xq.dim() != 2 or wq_t.dim() != 2 or xq.shape[1] != wq_t.shape[1]:
+        raise ValueError(f"stoch_gemm_codes: shapes {tuple(xq.shape)} x {tuple(wq_t.shape)} "
+                         "are not [M, K] x [N, K]")
+    out, kernel = _gemm_launch("stoch_gemm_codes", xq, wq_t, (), x_gen, w_gen)
+    _count(stoch_gemm_codes, out, kernel)
+    return out
+
+
+stoch_gemm_codes.launches = 0
+stoch_gemm_codes.paths = dict.fromkeys(GEMM_KERNELS, 0)
+
+
 def stoch_matmul_codes_batched(xq: torch.Tensor, wq_t: torch.Tensor, x_gen: str = X_GEN,
                                w_gen: str = W_GEN) -> torch.Tensor:
     """int8 codes ``xq [B, M, K]`` against int8 codes ``wq_t [B, N, K]`` ->
-    int32 ``[B, M, N]``: B independent products in one launch, each
-    operand encoded (``x_gen``, ``w_gen``) while the kernel stages it."""
+    int32 ``[B, M, N]``: B independent products in one launch of the
+    binary tensor-core kernel."""
     tensors = (xq, wq_t)
     if _check_device(tensors, "stoch_matmul_codes_batched"):
-        return stoch_matmul_codes_batched_ref(xq, wq_t, x_gen, w_gen)
+        return stoch_gemm_codes_ref(xq, wq_t, x_gen, w_gen)
     if xq.dtype != torch.int8 or wq_t.dtype != torch.int8:
         raise TypeError("stoch_matmul_codes_batched takes int8 codes, got "
                         f"{xq.dtype} and {wq_t.dtype}")
@@ -178,20 +281,19 @@ def stoch_matmul_codes_batched(xq: torch.Tensor, wq_t: torch.Tensor, x_gen: str 
             or xq.shape[2] != wq_t.shape[2]):
         raise ValueError(f"stoch_matmul_codes_batched: shapes {tuple(xq.shape)} x "
                          f"{tuple(wq_t.shape)} are not [B, M, K] x [B, N, K]")
-    b, m, k = xq.shape
-    out = _launch("stoch_matmul_codes_batched", xq, stream_table(x_gen, xq.device), wq_t,
-                  stream_table(w_gen, xq.device), (b,), m, wq_t.shape[1], k, True, True)
-    if out.numel():
-        stoch_matmul_codes_batched.launches += 1
+    out, kernel = _gemm_launch("stoch_matmul_codes_batched", xq, wq_t, (xq.shape[0],), x_gen,
+                               w_gen)
+    _count(stoch_matmul_codes_batched, out, kernel)
     return out
 
 
 stoch_matmul_codes_batched.launches = 0
+stoch_matmul_codes_batched.paths = dict.fromkeys(GEMM_KERNELS, 0)
 
 
-def stoch_matmul(xq: QTensor, w: WeightStreams, x_gen: str = X_GEN) -> torch.Tensor:
+def stoch_matmul(xq: QTensor, w: WeightCodes, x_gen: str = X_GEN) -> torch.Tensor:
     """Quantized ``xq [M, K]`` through the OSSM array against a weight's
-    cached streams (``[N, K]``, scale ``[1, N]``) -> dequantized float32
-    ``[M, N]``."""
-    acc = stoch_matmul_codes(xq.q, w.words, w.sign, x_gen)
+    cached codes (``[N, K]``, scale ``[1, N]``, streams under ``w.gen``) ->
+    dequantized float32 ``[M, N]``."""
+    acc = stoch_gemm_codes(xq.q, w.q, x_gen, w.gen)
     return acc.to(torch.float32) * STREAM_LEN * xq.scale * w.scale

@@ -5,7 +5,7 @@ goes through :func:`dense` -> ``core.astra_matmul`` so the execution plan
 decides its mode per site.  A dense parameter dict holds the float32
 master ``w`` (``[d_in, d_out]``) and optional ``b``; ``prepare`` in
 ``models.transformer`` may add ``wq_t`` (cached int8 codes), ``wsc_t``
-(cached streams) and ``wc`` (a cast copy in the model dtype), which
+(the same codes tagged with the generator of their streams) and ``wc`` (a cast copy in the model dtype), which
 :func:`dense` passes along.
 """
 from __future__ import annotations

@@ -27,7 +27,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.astra_layer import ComputeConfig, encode_weight_t, quantize_weight_t
+from repro_torch.core.astra_layer import ComputeConfig, quantize_weight_t, sc_weight_t
 from repro_torch.core.plan import ExecutionPlan, SiteBinding
 from repro_torch.device import torch_dtype
 from repro_torch.models import attention as attn
@@ -141,8 +141,9 @@ def prepare_params(params: Dict[str, Any], cfg: ArchConfig,
                    plan: ExecutionPlan) -> Dict[str, Any]:
     """Params with per-weight caches for ``plan``: int8 codes (``wq_t``) for
     sites that resolve to int8 — exactly the codes ``quantize(w, axis=0)``
-    gives each call — their streams under the site's ``w_gen`` (``wsc_t``,
-    encoded once by ``bts_encode``) for sites that resolve to sc, and a
+    gives each call — the same codes tagged with the site's ``w_gen``
+    (``wsc_t``; the stochastic kernel expands them to streams as it stages
+    them, so no stream is stored) for sites that resolve to sc, and a
     model-dtype copy (``wc``) for exact sites of a bf16 model.  Leaves are
     shared with ``params``; nothing is mutated."""
     dt = torch_dtype(cfg.dtype)
@@ -154,7 +155,7 @@ def prepare_params(params: Dict[str, Any], cfg: ArchConfig,
         if cc.mode == "int8":
             extra["wq_t"] = quantize_weight_t(w)
         elif cc.mode == "sc":
-            extra["wsc_t"] = encode_weight_t(w, cc.w_gen)
+            extra["wsc_t"] = sc_weight_t(w, cc.w_gen)
         elif dt != torch.float32:
             extra["wc"] = w.to(dt)
         return extra

@@ -9,9 +9,9 @@ without JAX:
 
 Tolerances: int8 accumulators (one product on each of its three kernels,
 or a batch on each of its two), stream words,
-signs and stochastic accumulators (packed operands, and activation codes
-against streams or codes against codes under all 9 generator pairings)
-bit-exact; paged attention float32
+signs and stochastic accumulators (packed operands, activation codes
+against streams, and codes against codes on the binary tensor-core
+kernels, both of them, under all 9 generator pairings) bit-exact; paged attention float32
 1e-5 (same math, keys streamed in chunks with rescaling), bf16 2e-2 (the
 kernel rounds p to bf16 before the PV product, like the reference
 kernel; the plain version keeps p in float32); on int8 pools float32
@@ -424,9 +424,51 @@ def test_stoch_codes_kernel_bit_exact_on_card(cuda, x_gen, w_gen, m, k, n):
     assert torch.equal(got, stoch_matmul_packed_ref(xs, sx, ws, sw))
 
 
+def _all_codes(cuda, rows, k, seed):
+    """Random int8 codes, rows 0 and 1 every code -128..127 (in turn)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randint(-127, 128, (rows, k), generator=g, device=cuda, dtype=torch.int8)
+    every = torch.arange(-128, 128, device=cuda).to(torch.int8).repeat(-(-k // 256))[:k]
+    q[0] = every
+    if rows > 1:
+        q[1] = every.flip(0)
+    return q
+
+
+# (M, K, N, kernel): ragged edges of both binary kernels (one row; 16 rows;
+# K off the 16-code and 4-code paths; N off an n8 group and a tile; the
+# smallest wgmma M; a K split) under every pairing, then the serving shapes
+# (decode at 8 slots, the sc admission's 640 rows) under one pairing each
+GEMM_EDGES = [(1, 17, 5, "stream"), (16, 130, 47, "stream"), (8, 256, 33, "stream"),
+              (17, 64, 16, "wgmma"), (200, 2056, 300, "wgmma"), (40, 255, 9, "wgmma")]
+GEMM_SERVING = [(8, 2048, 2048, "stream"), (8, 5632, 2048, "stream"), (8, 2048, 5632, "stream"),
+                (640, 2048, 5632, "wgmma"), (640, 5632, 2048, "wgmma")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n,kernel,x_gen,w_gen",
+                         [(*e, *p) for e in GEMM_EDGES for p in PAIRS]
+                         + [(*e, *PAIRS[i]) for i, e in enumerate(GEMM_SERVING)])
+def test_stoch_gemm_codes_kernel_bit_exact_on_card(cuda, m, k, n, kernel, x_gen, w_gen):
+    """Codes against codes on the binary tensor cores: int32 accumulators
+    equal both operands' ``bts_encode_ref`` then the packed plain
+    version's, every int8 code on both sides; the kernel the plan picks is
+    the one counted."""
+    xq, wq = _all_codes(cuda, m, k, 11), _all_codes(cuda, n, k, 12)
+    fn = sm_ops.stoch_gemm_codes
+    assert sm_ops.stoch_gemm_plan(m, n, k, torch.cuda.get_device_properties(
+        cuda).multi_processor_count)[0] == kernel
+    before = dict(fn.paths)
+    got = fn(xq, wq, x_gen, w_gen)
+    assert {p: c - before[p] for p, c in fn.paths.items() if c != before[p]} == {kernel: 1}
+    xs, sx = bts_encode_ref(xq, x_gen)
+    ws, sw = bts_encode_ref(wq, w_gen)
+    assert torch.equal(got, stoch_matmul_packed_ref(xs, sx, ws, sw))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("x_gen,w_gen", PAIRS)
-@pytest.mark.parametrize("b,m,k,n", [(256, 1, 64, 512), (3, 70, 40, 9)])
+@pytest.mark.parametrize("b,m,k,n", [(256, 1, 64, 512), (3, 70, 40, 9), (128, 160, 64, 176)])
 def test_stoch_codes_batched_kernel_bit_exact_on_card(cuda, x_gen, w_gen, b, m, k, n):
     """Codes against codes, a batch: int32 accumulators equal both
     operands' ``bts_encode_ref`` then the packed plain version's."""

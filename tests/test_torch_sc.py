@@ -13,8 +13,8 @@ the reference, bit for bit, on the CPU.
 * ``astra_matmul`` under ``sc`` (every pairing, cached streams or not,
   static activation scale) and ``astra_batched_matmul`` under ``int8`` and
   ``sc``: identical float32 outputs.
-* ``prepare_params`` caches each ``sc`` weight's streams once, exactly what
-  the call would encode.
+* ``prepare_params`` caches each ``sc`` weight's codes once (tagged with
+  the site's ``w_gen``), exactly what the call would quantize.
 
 The CUDA kernels are held against the same plain versions on the card by
 ``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
@@ -44,7 +44,7 @@ from repro.kernels.stoch_matmul.ref import encode_operands as jax_encode_operand
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core import bitstream, ossm  # noqa: E402
 from repro_torch.core.astra_layer import (  # noqa: E402
-    ComputeConfig, astra_batched_matmul, astra_matmul, encode_weight_t,
+    ComputeConfig, astra_batched_matmul, astra_matmul, sc_weight_t,
 )
 from repro_torch.core.quant import QTensor, quantize  # noqa: E402
 from repro_torch.kernels import launch_counts  # noqa: E402
@@ -203,7 +203,7 @@ def test_stoch_matmul_dequantized_matches_reference_kernel(rng, x_gen, w_gen):
     jxq, jwq = jax_quantize(jnp.asarray(x)), jax_quantize(jnp.asarray(w), axis=0)
     want = np.asarray(jax_stoch_matmul(jxq, jwq, x_gen, w_gen, interpret=True))
     got = sm_ops.stoch_matmul(quantize(torch.from_numpy(x)),
-                              encode_weight_t(torch.from_numpy(w), w_gen), x_gen)
+                              sc_weight_t(torch.from_numpy(w), w_gen), x_gen)
     np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -216,8 +216,8 @@ def test_astra_matmul_sc_bit_identical(rng, x_gen, w_gen, act_scale):
         "sc", x_gen=x_gen, w_gen=w_gen, act_scale=act_scale)))
     tx, tw = torch.from_numpy(x), torch.from_numpy(w)
     cc = ComputeConfig("sc", x_gen=x_gen, w_gen=w_gen, act_scale=act_scale)
-    stale = encode_weight_t(tw, next(g for g in GENS if g != w_gen))  # another generator's
-    for cache in (None, encode_weight_t(tw, w_gen), stale):
+    stale = sc_weight_t(tw, next(g for g in GENS if g != w_gen))  # another generator's
+    for cache in (None, sc_weight_t(tw, w_gen), stale):
         got = astra_matmul(tx, tw, cc, wsc_t=cache)
         assert got.dtype == torch.float32 and got.shape == (2, 5, 40)
         np.testing.assert_array_equal(got.numpy(), want)
@@ -257,8 +257,9 @@ def test_astra_batched_matmul_bit_identical(rng, mode, shapes):
 @pytest.mark.parametrize("plan", ["sc", "mixed", '{"*_proj": {"mode": "sc", "w_gen": "lfsr"}, '
                                   '"default": "int8"}'])
 def test_prepare_caches_streams_once(plan):
-    """``prepare`` stores, for every sc site, the streams that the call
-    would encode under the site's ``w_gen``; other sites get no streams."""
+    """``prepare`` stores, for every sc site, the codes that the call would
+    quantize, tagged with the site's ``w_gen`` (the generator of their
+    streams); other sites get none."""
     cfg = get_arch("stablelm-1.6b").reduced(dtype="float32")
     model = Model(cfg, ModelOptions(plan=plan), device="cpu")
     params = model.init(0)
@@ -274,9 +275,9 @@ def test_prepare_caches_streams_once(plan):
             assert ("wsc_t" in p) == (cc.mode == "sc"), site
             if cc.mode == "sc":
                 seen += 1
-                want = encode_weight_t(p["w"], cc.w_gen)
-                assert p["wsc_t"].gen == cc.w_gen
-                for a, b in zip(p["wsc_t"][:3], want[:3]):
+                want = sc_weight_t(p["w"], cc.w_gen)
+                assert p["wsc_t"].gen == cc.w_gen and p["wsc_t"].q.dtype == torch.int8
+                for a, b in zip(p["wsc_t"][:2], want[:2]):
                     assert torch.equal(a, b)
         assert all("wsc_t" not in d for d in params["layers"][li]["core"].values())
     assert seen > 0

@@ -1,17 +1,20 @@
 """The stochastic GEMM's codes entries against the reference, bit for bit,
 on the CPU.
 
-The kernel (``repro_torch/kernels/stoch_matmul/csrc/stoch_matmul.cu``)
-reads int8 codes and stages each as ``table[|c|]`` with sign ``c < 0 ?
--1 : +1``, from :func:`stream_table`: so the tables, and that staging rule
-over every code quantize gives, are held here against the reference's
-``encode`` / ``encode_signed``.  The entries themselves run their plain
-versions on a CPU tensor (``bts_encode_ref`` then
-``stoch_matmul_packed_ref``), held against the reference's
-``stoch_matmul`` (the Pallas kernel in interpret mode) at ragged shapes
-under several generator pairings, with no launch counted.  The kernel is
-held against the same plain versions on the card by
-``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
+Both kernels (``csrc/stoch_matmul.cu``'s codes form and the binary
+tensor-core kernel of ``csrc/stoch_gemm_sm90.cu``) read int8 codes and
+stage each as ``table[|c|]`` with sign ``c < 0 ? -1 : +1``, from
+:func:`stream_table`: so the tables, and that staging rule over every
+code quantize gives, are held here against the reference's ``encode`` /
+``encode_signed``.  The entries themselves run their plain versions on a
+CPU tensor (codes against streams: ``bts_encode_ref`` then
+``stoch_matmul_packed_ref``; codes against codes: the sign-plane product
+``stoch_gemm_codes_ref``), held against the reference's ``stoch_matmul``
+(the Pallas kernel in interpret mode) at ragged shapes under several
+generator pairings, with no launch counted.  The kernels are held against
+the same plain versions on the card by ``tests/test_torch_gpu.py`` and
+``chip_smoke.py``; ``tests/test_torch_sc_pairs.py`` holds the sign-plane
+arithmetic itself.
 """
 import pytest
 
@@ -25,7 +28,7 @@ from repro.core.quant import QTensor as JaxQTensor  # noqa: E402
 from repro.kernels.stoch_matmul.ops import stoch_matmul as jax_stoch_matmul  # noqa: E402
 from repro_torch.core.bitstream import GENERATORS  # noqa: E402
 from repro_torch.core.bitstream import popcount as bitstream_popcount  # noqa: E402
-from repro_torch.core.ossm import WeightStreams  # noqa: E402
+from repro_torch.core.ossm import WeightCodes  # noqa: E402
 from repro_torch.core.quant import QTensor  # noqa: E402
 from repro_torch.kernels import launch_counts  # noqa: E402
 from repro_torch.kernels.bts_encode.ref import bts_encode_ref  # noqa: E402
@@ -85,8 +88,8 @@ CODES_CASES = [((1, 17, 5), ("thermometer", "bresenham")), ((9, 40, 33), ("lfsr"
 @pytest.mark.parametrize("mkn,gens", CODES_CASES, ids=[f"{m}x{k}x{n}-{x}-{w}"
                                                        for (m, k, n), (x, w) in CODES_CASES])
 def test_codes_entry_equals_reference_stoch_matmul(rng, mkn, gens):
-    """Activation codes against a weight's streams (``astra_matmul``'s sc
-    branch), and the dequantizing ``stoch_matmul`` over it."""
+    """Activation codes against a weight's streams, and the dequantizing
+    ``stoch_matmul`` (``astra_matmul``'s sc branch) over the weight's codes."""
     (m, k, n), (x_gen, w_gen) = mkn, gens
     xq = rng.integers(-127, 128, (m, k)).astype(np.int8)
     wq = rng.integers(-127, 128, (k, n)).astype(np.int8)
@@ -98,8 +101,8 @@ def test_codes_entry_equals_reference_stoch_matmul(rng, mkn, gens):
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
     deq = sm_ops.stoch_matmul(QTensor(torch.from_numpy(xq), torch.tensor(X_SCALE)),
-                              WeightStreams(words, sign, torch.full((1, n), W_SCALE), w_gen),
-                              x_gen)
+                              WeightCodes(torch.from_numpy(wq.T.copy()),
+                                          torch.full((1, n), W_SCALE), w_gen), x_gen)
     np.testing.assert_array_equal(deq.numpy(), want.astype(np.float32))
     assert launch_counts() == before  # the plain versions ran
 
@@ -130,6 +133,8 @@ def test_codes_entries_refuse_other_devices():
         sm_ops.stoch_matmul_codes(q, words, sign)
     with pytest.raises(ValueError, match="CUDA"):
         sm_ops.stoch_matmul_codes_batched(q[None], q[None])
+    with pytest.raises(ValueError, match="CUDA"):
+        sm_ops.stoch_gemm_codes(q, q)
     with pytest.raises(ValueError, match="CUDA"):  # codes on the CPU, streams elsewhere
         sm_ops.stoch_matmul_codes(torch.zeros(3, 4, dtype=torch.int8), words, sign)
 
