@@ -42,9 +42,12 @@ generator pairings and timed beside each other; the ``sc`` and ``mixed``
 runs must launch both binary kernels and no ``bts_encode``, prepare
 included, and log their weight cache's bytes (int8 codes).  The batched
 int8 qk/pv products of at most 16 rows run on a kernel that streams each
-product in a block of its own
-(``int8_gemm_sm90.cu``), timed beside ``mma.sync``, which keeps the
-``mixed`` admissions.  Every paged admission runs the
+product in a block of its own, those of more than 16 rows (the ``mixed``
+admissions) on one that takes a tile of 32 rows by the whole N a block
+(both ``int8_gemm_sm90.cu``), each timed beside ``mma.sync`` at the same
+shapes, which no ``mixed`` run may launch.  ``rglru_scan`` scans chunks
+of the sequence in parallel (timed at one admission and a full window,
+and inside a profiled ``rg-exact`` admission).  Every paged admission runs the
 causal prefill kernels of ``paged_prefill.cu`` (``wgmma`` tiles gathered
 through the block table for a bf16 pool, float32 FMA tiles for float32
 and int8 pools): checked on every pool, head dim and block sizes 8, 12,
@@ -64,6 +67,7 @@ the sources of this checkout; imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import gc
 import json
@@ -602,9 +606,10 @@ def check_stochastic(dev, g) -> None:
     decode shapes (M = 8 against every weight, the lm_head included), the
     sc admission shape and the batched decode qk/pv shapes one pairing
     each, in turn; the kernel each took asserted.  The batched int8 GEMM
-    at the decode qk/pv shapes and ragged ones on its stream kernel, and
-    at the mixed admission's and other shapes on ``mma.sync``, the
-    kernel's counter asserted each time."""
+    at the decode qk/pv shapes and ragged ones on its stream kernel, at
+    the mixed admission's shapes and ragged ones past 16 rows on its tiles
+    kernel, and with K % 16 != 0 or past 4096 on ``mma.sync``, -128 among
+    each case's codes, the kernel's counter asserted each time."""
     from repro_torch.core.bitstream import GENERATORS
     from repro_torch.kernels.bts_encode import bts_encode
     from repro_torch.kernels.bts_encode.ref import bts_encode_ref
@@ -674,11 +679,17 @@ def check_stochastic(dev, g) -> None:
     batched = [(b, m, k, n, "stream") for b, m, k, n in QKPV_DECODE]
     batched += [(4, m, k, n, "stream" if k % 16 == 0 else "mma")
                 for m in (1, 3, 16) for k in (64, 100, 512) for n in (5, 512, 513)]
-    batched += [(b, m, k, n, "mma") for b, m, k, n in QKPV_ADMISSION]
+    batched += [(b, m, k, n, "tiles") for b, m, k, n in QKPV_ADMISSION]
+    # the tiles kernel's edges: one row past an m16 pair, N of one column
+    # and N % 4 != 0 (4-byte stores), N cut into two and three tiles, K at
+    # the limit of 4096 in stages, past it (mma.sync), and a long M
+    batched += [(4, 17, 64, 1, "tiles"), (3, 45, 96, 33, "tiles"), (2, 33, 4096, 257, "tiles"),
+                (2, 300, 64, 513, "tiles"), (2, 40, 4112, 64, "mma"), (1, 1531, 128, 384, "tiles")]
     batched += [(3, 5, 100, 33, "mma"), (2, 9, 4096, 40, "stream")]
     fn = i8.int8_gemm_batched
     for b, m, k, n, path in batched:
         x, w_t = codes(b, m, k), codes(b, n, k)
+        x[0, 0], w_t[0, 0] = -128, -128  # every int8 code, -128 included
         before = dict(fn.paths)
         assert torch.equal(fn(x, w_t), int8_matmul_acc_ref(x, w_t)), (b, m, k, n)
         moved = {p: c - before[p] for p, c in fn.paths.items() if c != before[p]}
@@ -702,8 +713,9 @@ def time_stochastic(dev, g, timer=time_ms, plain_timer=wall_ms, rates=None) -> d
     measured (``wgmma``'s; ``rates``, probed here when not given): NVIDIA
     publishes no single-bit tensor-core rate.
     The batched int8 qk/pv products of one ``mixed`` decode step (24
-    layers x qk, pv) on the stream kernel beside ``mma.sync`` at the same
-    shapes, and of one ``mixed`` admission pass on ``mma.sync``."""
+    layers x qk, pv) on the stream kernel and of one ``mixed`` admission
+    pass on the tiles kernel, each beside ``mma.sync`` at the same
+    shapes, qk and pv each beside its own bound."""
     from repro_torch.kernels.bts_encode import bts_encode
     from repro_torch.kernels.bts_encode.ref import bts_encode_ref
     from repro_torch.kernels.int8_matmul import ops as i8
@@ -869,7 +881,7 @@ def time_stochastic(dev, g, timer=time_ms, plain_timer=wall_ms, rates=None) -> d
             bb, by = bound_ms(nb, 2 * b * m * n * k, "int8")
             log(f"[time int8 gemm batched] {phase} B={b} M={m} K={k} N={n} x24 per pass "
                 f"({path}): kernel_ms {t_k:.4f} (mma.sync {t_m:.4f}) plain_ms {t_p:.4f} "
-                f"bound_ms {bb:.4f} ({by})")
+                f"bound_ms {bb:.4f} ({by}, {bb / t_k:.1%} of it)")
             del x, w_t, diff
         assert err == 0, ("int8 gemm batched", phase, err)
         b_ms, b_by = bound_ms(n_bytes, ops, "int8")
@@ -878,7 +890,7 @@ def time_stochastic(dev, g, timer=time_ms, plain_timer=wall_ms, rates=None) -> d
         kernel = i8.int8_batched_plan(m0, n0, k0)
         out[row] = dict(
             name=row, route="cuda", wrapper=f"int8_gemm_batched_{kernel}",
-            source=SRC_INT8 if kernel == "stream" else SRC_INT8_MMA,
+            source=SRC_INT8_MMA if kernel == "mma" else SRC_INT8,
             replaces="src/repro/kernels/int8_matmul/kernel.py:38", max_abs_err=float(err),
             ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
         log(f"[time int8 gemm batched] all qk/pv products of one mixed {phase} pass ({kernel}): "
@@ -1179,7 +1191,8 @@ def time_dense(dev, g, timer=time_ms) -> dict:
 # recurrentgemma-2b: rglru_scan at d_rnn 2560 over one 8-prompt admission
 # of 256 tokens and over a full 2048-position window, and a reduced ragged
 # shape; float32 within RG_TOL = rtol = atol (the reference kernel test's:
-# the kernel's FMA rounds a * h + b once where the loop rounds twice)
+# the kernel folds carries across chunks and its FMA rounds a * h + b once,
+# where the loop runs in order and rounds twice)
 RG_D, RG_HD, RG_H, RG_WINDOW, RG_F, RG_V = 2560, 256, 10, 2048, 7680, 256000
 # (M, K, N) of its int8 GEMMs: one decode step at 8 slots (18 rglru layers
 # x in_proj d -> 2 d_rnn, gates a and x and out_proj at d x d; 8 local
@@ -1194,8 +1207,8 @@ RG_SHAPES = [(3, 37, 130), (8, 256, RG_D), (8, 2048, RG_D)]
 RG_TOL = 2e-5
 RG_DECODE_FILLS = [260, 264, 268, 272, 276, 280, 284, 288]  # kv_len of 8 slots mid-run
 # kernel rows timed at recurrentgemma's shapes: their launches are the rg runs'
-RG_ROWS = ("rglru_scan", "flash_attention_hd256", "dense_attention_decode_hd256",
-           "int8_gemm_rg", "int8_gemm_rg_admission")
+RG_ROWS = ("rglru_scan", "rglru_scan_window", "flash_attention_hd256",
+           "dense_attention_decode_hd256", "int8_gemm_rg", "int8_gemm_rg_admission")
 
 
 def check_rglru(dev, g) -> None:
@@ -1218,10 +1231,12 @@ def check_rglru(dev, g) -> None:
 
 
 def time_rglru(dev, g, timer=time_ms, plain_timer=wall_ms) -> dict:
-    """The scan at one admission's shape ``[8, 256, 2560]`` beside its
-    bound (3 x 4 bytes per element over the HBM rate) and the plain loop
-    (on the host's clock: one small launch per step); the full-window shape
-    is timed too, for the log."""
+    """The scan at one admission's shape ``[8, 256, 2560]`` (the row
+    ``rglru_scan``) and at a full window ``[8, 2048, 2560]``
+    (``rglru_scan_window``) beside its bound (3 x 4 bytes per element over
+    the HBM rate) and the plain loop (on the host's clock: one small launch
+    per step).  Each row's launches are the serving runs' launches at its
+    sequence length (``rglru_scan_s<S>``)."""
     from repro_torch.kernels.rglru_scan import ops as rg
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 
@@ -1236,14 +1251,15 @@ def time_rglru(dev, g, timer=time_ms, plain_timer=wall_ms) -> dict:
         b_ms, b_by = bound_ms(3 * a.numel() * 4, 2 * a.numel(), "fp32")
         log(f"[time rglru_scan] B={b} S={s} D={d} float32: max|kernel-plain| {err:.2e}; "
             f"kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} (host clock) bound_ms {b_ms:.4f} "
-            f"({b_by}) library_ms none (no single PyTorch call computes a linear "
-            f"recurrence); kernel {3 * a.numel() * 4 / max(k_ms, 1e-9) / 1e9:.2f} TB/s")
-        if (b, s, d) == RG_SHAPES[1]:  # one admission: the row of the kernel table
-            out["rglru_scan"] = dict(
-                name="rglru_scan", route="cuda",
-                source="src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
-                replaces="src/repro/kernels/rglru_scan/kernel.py:46", max_abs_err=err,
-                ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            f"({b_by}, {b_ms / k_ms:.1%} of it) library_ms none (no single PyTorch call "
+            f"computes a linear recurrence); kernel {3 * a.numel() * 4 / max(k_ms, 1e-9) / 1e9:.2f}"
+            " TB/s")
+        row = "rglru_scan" if (b, s, d) == RG_SHAPES[1] else "rglru_scan_window"
+        out[row] = dict(
+            name=row, route="cuda", wrapper=f"rglru_scan_s{s}",
+            source="src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
+            replaces="src/repro/kernels/rglru_scan/kernel.py:46", max_abs_err=err,
+            ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
     return out
 
 
@@ -1369,7 +1385,7 @@ def make_sc_prompts(vocab: int, rng) -> list:
 
 # the kernels each plan's serving path must launch: qk/pv run in the paged
 # kernel when exact (its int8 branch on an int8 pool); under mixed they are
-# int8 and take the gathered view, on the batched entry's mma.sync kernel at
+# int8 and take the gathered view, on the batched entry's tiles kernel at
 # admission and its stream kernel at decode; on dense caches (-dense)
 # prefill runs the flash kernel and decode the dense decode kernel.  The
 # int8 GEMM's admissions (M > 16) take its wgmma kernel and its decode
@@ -1384,7 +1400,7 @@ PLAN_KERNELS = {
     "sc": ("paged_attention_decode", "paged_attention_prefill", "stoch_gemm_codes",
            "stoch_gemm_codes_stream", "stoch_gemm_codes_wgmma"),
     "mixed": ("stoch_gemm_codes", "stoch_gemm_codes_stream", "stoch_gemm_codes_wgmma",
-              "int8_gemm_batched", "int8_gemm_batched_stream", "int8_gemm_batched_mma"),
+              "int8_gemm_batched", "int8_gemm_batched_stream", "int8_gemm_batched_tiles"),
     "exact-kvq": ("paged_attention_decode", "paged_attention_prefill",
                   "paged_attention_decode_int8", "paged_attention_prefill_int8"),
     "int8-kvq": ("paged_attention_decode", "paged_attention_prefill",
@@ -1394,6 +1410,9 @@ PLAN_KERNELS = {
     "rg-exact": ("flash_attention", "dense_attention_decode", "rglru_scan"),
     "rg-int8": ("flash_attention", "dense_attention_decode", "rglru_scan") + INT8_KERNELS,
 }
+# kernels a plan's serving path must not launch: mixed's qk/pv (K % 16 ==
+# 0, K <= 4096 at every length it serves) never reach mma.sync
+PLAN_ABSENT = {"mixed": ("int8_gemm_batched_mma",)}
 # kernels of one KV layout, which a serving run on the other must not launch
 LAYOUT_KERNELS = {
     "paged": ("paged_attention_decode", "paged_attention_prefill",
@@ -1482,6 +1501,8 @@ def serve(cfg, params, prompts, dev, runs, gen: int, max_len: int = 512,
                                                counts["bts_encode"])
             missing = [k for k in PLAN_KERNELS[label] if counts[k] == 0]
             assert not missing, (label, "kernels of the path never launched", missing, counts)
+            absent = [k for k in PLAN_ABSENT.get(label, ()) if counts[k]]
+            assert not absent, (label, "kernels off the path launched", absent, counts)
             stray = [k for k in LAYOUT_KERNELS["paged" if dense else "dense"] if counts[k]]
             assert not stray, (label, "kernels of the other KV layout launched", stray, counts)
         if dense:
@@ -1551,13 +1572,19 @@ def calibrate(cfg, params, prompts, dev):
 
 
 def profile_decode_chunk(cfg, params, prompts, dev, runs, kv_block_size: int = BS,
-                         max_len: int = 512) -> None:
+                         max_len: int = 512, scan_ms=None) -> None:
     """Where a decode chunk's time goes: one engine round of 8 decode steps
     (8 slots, up to 8 of them busy) under ``torch.profiler`` — host time of
     the round against the device time of the kernels it ran (their sum over
     the round; the rest of the round the device is idle), the decode
     kernels' share of that device time (split and merge, dense or paged),
-    and the int8 GEMM kernels and the fill/memset kernels the round ran."""
+    and the int8 GEMM kernels and the fill/memset kernels the round ran.
+    With ``scan_ms`` (``rglru_scan``'s isolated time, which ``time_ms``
+    takes with L2 flushed), the first run's admission round (the
+    full-sequence prefill of 8 prompts and the first chunk) is profiled
+    too, for the scan's device time inside it, where a and b (21 MB each
+    at recurrentgemma's admission) come from the layer's gates just
+    before."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import launch_counts, reset_launches
@@ -1571,7 +1598,23 @@ def profile_decode_chunk(cfg, params, prompts, dev, runs, kv_block_size: int = B
                              device=dev)
         for p in prompts[:8]:
             engine.submit(p, 32)
-        engine.step()  # admission prefill + the first chunk, untraced
+        if scan_ms is not None and label == runs[0][0]:
+            # kernels only: recording the round's host ops as well cost the
+            # run about 12 s on an H100's host
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                engine.step()  # admission prefill + the first chunk
+                _sync(dev)
+            scan = [(e.self_device_time_total, e.count) for e in prof.key_averages()
+                    if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+                    and "rglru_scan" in e.key]
+            n = sum(c for _, c in scan)
+            assert n == cfg.layer_kinds.count("rglru"), (label, n)
+            ms = sum(t for t, _ in scan) / 1e3
+            log(f"[profile {label} admission] 8 x {len(prompts[0])} tokens, one engine round: "
+                f"rglru_scan {ms:.4f} ms over {n} launches, {ms / n:.4f} ms a launch against "
+                f"{scan_ms:.4f} isolated (L2 flushed)")
+        else:
+            engine.step()  # admission prefill + the first chunk, untraced
         _sync(dev)
         reset_launches()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1717,7 +1760,7 @@ def small_card_vs_cpu(dev) -> None:
         assert agree == 1.0 if plan == "exact" or bs == 0 else agree >= 0.9, (label, agree)
 
 
-def serve_rg(cfg, dev) -> dict:
+def serve_rg(cfg, dev, scan_ms: float) -> dict:
     """Full-width recurrentgemma-2b (bf16, random weights from seed 0) on
     dense per-slot caches under ``exact`` and ``int8`` (``rg-exact``,
     ``rg-int8``): 8 prompts of 256 tokens (one full-sequence admission,
@@ -1726,7 +1769,8 @@ def serve_rg(cfg, dev) -> dict:
     max_len 2048 (the window: rings of 2048 positions).  Asserts every
     request's tokens, finite logits of a prefill and of every decode step
     (the engine raises on a non-finite one), each plan's kernels launched
-    and no paged kernel.  Returns each run's launches."""
+    and no paged kernel; profiles ``rglru_scan`` inside an admission
+    (``scan_ms``: its isolated time).  Returns each run's launches."""
     from repro_torch.models.model import Model
 
     n_rglru = cfg.layer_kinds.count("rglru")
@@ -1759,13 +1803,16 @@ def serve_rg(cfg, dev) -> dict:
     runs = [("rg-exact", "exact", "none"), ("rg-int8", "int8", "none")]
     launches, tokens = serve(cfg, params, prompts, dev, runs, gen=32, max_len=cfg.window,
                              kv_block_size=0)
+    admission = f"rglru_scan_s{RG_SHAPES[1][1]}"
     for label, counts in launches.items():
-        # one full-sequence admission (the 8 equal prompts); the scan takes none
-        assert counts["rglru_scan"] == n_rglru, (label, counts["rglru_scan"])
+        # one full-sequence admission (the 8 equal prompts of 256 tokens);
+        # the masked scan takes none
+        assert counts["rglru_scan"] == counts.get(admission, 0) == n_rglru, (label, counts)
     agree = (tokens["rg-int8"] == tokens["rg-exact"]).mean()
     log(f"[agreement rg-int8] greedy tokens equal to rg-exact: {agree:.1%} (reported, not "
         "gated: random weights at bf16)")
-    profile_decode_chunk(cfg, params, prompts, dev, runs, kv_block_size=0, max_len=cfg.window)
+    profile_decode_chunk(cfg, params, prompts, dev, runs, kv_block_size=0, max_len=cfg.window,
+                         scan_ms=scan_ms)
     del params
     _free(dev)
     return launches
@@ -1822,6 +1869,21 @@ def log_tiles() -> None:
     batched = _build.load("int8_gemm_sm90").int8_gemm_batched_smem_bytes
     log("[tiles] int8 batched stream kernel, one product a block: "
         + ", ".join(f"M={m} K={k} N={n} {batched(m, n, k)} B" for _, m, k, n in QKPV_DECODE))
+    # the tiles kernel's geometry as its launch computes it
+    geo_fn = _build.load("int8_gemm_sm90").int8_gemm_batched_tiles_geometry
+    geo_fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    parts = []
+    for b, m, k, n in QKPV_ADMISSION + [(2, 33, 4096, 257), (2, 300, 64, 513)]:
+        geo = (ctypes.c_int * 6)()  # bn, tiles_n, K pieces a stage, pitch, out pitch, smem
+        geo_fn(m, n, k, geo)
+        bn, tiles_n, kc, _, _, smem = geo
+        parts.append(f"M={m} K={k} N={n} {smem} B ({b * -(-m // 32) * tiles_n} blocks of 32 x "
+                     f"{bn}, {16 * kc} K bytes a stage)")
+    log("[tiles] int8 batched tiles kernel, the output staged over the operand rows: "
+        + ", ".join(parts))
+    scan = _build.load("rglru_scan").rglru_scan_smem_bytes()
+    log(f"[tiles] rglru_scan: {scan} B static a block (3 stages of 32 steps x 32 channels of "
+        "a and b, and the 8 warps' end values)")
     for hd in HEAD_DIMS_ALL:
         tiles = "; ".join(f"{name} G 1/4/10 {decode(hd, c, 1)}/{decode(hd, c, 4)}/"
                           f"{decode(hd, c, 10)} B"
@@ -1865,6 +1927,11 @@ def main() -> None:
     dev = torch.device("cuda", 0)
 
     # phase 1: the device and the build
+    start = time.perf_counter()
+
+    def elapsed(phase: str) -> None:  # where the run's time limit goes
+        log(f"[elapsed] {phase}: {time.perf_counter() - start:.1f} s since the start")
+
     smi = card_line()
     log(smi)
     log(f"[device] {torch.cuda.get_device_name(0)} | torch {torch.__version__} | "
@@ -1896,10 +1963,12 @@ def main() -> None:
     check_wide_attention(dev, g)
     check_rglru(dev, g)
     check_stochastic(dev, g)
+    elapsed("build, probe and kernel checks")
     kernels = {**time_kernels(dev, g), **time_int8_pool(dev, g), **time_dense(dev, g),
                **time_stochastic(dev, g, rates=rates), **time_rglru(dev, g),
                **time_wide_attention(dev, g),
                **time_int8_gemms(dev, g, "int8_gemm_rg", RG_DECODE_GEMMS, RG_PREFILL_GEMMS)}
+    elapsed("kernel timings")
 
     cfg = get_arch("stablelm-1.6b")
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff, cfg.vocab,
@@ -1936,14 +2005,17 @@ def main() -> None:
     profile_decode_chunk(cfg, params, sc_prompts, dev, plain_runs("sc", "mixed"))
     del params
     _free(dev)  # the sc weight caches go before recurrentgemma's weights come
+    elapsed("stablelm-1.6b serving")
     rg = get_arch("recurrentgemma-2b")
     assert (rg.n_layers, rg.d_model, rg.n_heads, rg.n_kv_heads, rg.head_dim, rg.d_rnn,
             rg.window, rg.vocab, rg.dtype) == (26, RG_D, RG_H, 1, RG_HD, RG_D, RG_WINDOW,
                                                256000, "bfloat16")
     assert rg.layer_kinds.count("rglru") == 18 and rg.layer_kinds.count("local") == 8
-    rg_launches = serve_rg(rg, dev)
+    rg_launches = serve_rg(rg, dev, kernels["rglru_scan"]["ms"])
+    elapsed("recurrentgemma-2b serving")
     small_card_vs_cpu(dev)
     small_rg_card_vs_cpu(dev)
+    elapsed("card against CPU")
 
     # launches: summed over the serving runs of the row's model (the rows
     # at recurrentgemma's shapes over rg-exact and rg-int8, the others over
@@ -1952,11 +2024,14 @@ def main() -> None:
     # each run's own
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_plan",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    def count(c, w):  # a length's key exists once a run launched the scan at it
+        return c.get(w, 0) if w.startswith("rglru_scan_s") else c[w]
+
     for name, rec in kernels.items():
         wrappers = rec.get("wrapper", name)
         wrappers = (wrappers,) if isinstance(wrappers, str) else wrappers
         runs = rg_launches if name in RG_ROWS else launches
-        rec["launches_by_plan"] = {label: sum(c[w] for w in wrappers)
+        rec["launches_by_plan"] = {label: sum(count(c, w) for w in wrappers)
                                    for label, c in runs.items()}
         rec["launches"] = sum(rec["launches_by_plan"].values())
     print(json.dumps({"kernels": [{k: rec[k] for k in keys} for rec in kernels.values()]}))

@@ -11,10 +11,11 @@ launches the kernel or raises.
   one product or a batch of them per launch; one product runs on
   ``wgmma`` with TMA-fed tiles at admission and streams the weight at
   decode, a batch of products of at most 16 rows streams each product's
-  second operand in a block of its own (``csrc/int8_gemm_sm90.cu``, its
-  own library), a batch of larger products and a K that is not a
-  multiple of 16 run on ``mma.sync`` tiles (replaces
-  ``repro.kernels.int8_matmul``)
+  second operand in a block of its own and a batch of larger products
+  runs a block a tile of 32 rows by up to 256 columns
+  (``csrc/int8_gemm_sm90.cu``, its own library); a K that is not a
+  multiple of 16 (or, batched, past 4096) runs on ``mma.sync`` tiles
+  (replaces ``repro.kernels.int8_matmul``)
 * ``paged_attention`` — single-query decode over dense per-slot caches
   and through the paged pool's block table, one kernel for both layouts:
   each (slot, KV head)'s keys split across blocks (``decode_split_plan``)
@@ -41,7 +42,9 @@ launches the kernel or raises.
   weight streams run a CUDA-core kernel (``csrc/stoch_matmul.cu``)
   (replaces ``repro.kernels.stoch_matmul``)
 * ``rglru_scan``      — the linear recurrence ``h_t = a_t h_{t-1} + b_t``
-  of the RG-LRU prefill, one thread per channel walking the sequence
+  of the RG-LRU prefill, parallel over the sequence too: chunks staged by
+  ``cp.async``, each warp's run of steps scanned in registers, the runs'
+  carries folded through shared memory, one pass over the bytes
   (replaces ``repro.kernels.rglru_scan``)
 
 ``kernel_wrappers``, ``reset_launches`` and ``launch_counts`` read and
@@ -51,9 +54,12 @@ kernel's dequantizing branch) are also counted apart, as
 ``paged_attention_decode_int8`` and ``paged_attention_prefill_int8``, and
 ``int8_gemm``'s launches by the kernel they took, as ``int8_gemm_wgmma``,
 ``int8_gemm_stream`` and ``int8_gemm_mma``, ``int8_gemm_batched``'s as
-``int8_gemm_batched_stream`` and ``int8_gemm_batched_mma``, and those of
+``int8_gemm_batched_stream``, ``int8_gemm_batched_tiles`` and
+``int8_gemm_batched_mma``, and those of
 the binary stochastic GEMM's entries as ``stoch_gemm_codes_stream`` /
-``_wgmma`` and ``stoch_matmul_codes_batched_stream`` / ``_wgmma``.
+``_wgmma`` and ``stoch_matmul_codes_batched_stream`` / ``_wgmma``, and
+``rglru_scan``'s by the sequence length they took, as ``rglru_scan_s<S>``
+(a key for each length launched since the last reset).
 """
 
 # wrappers that also count their launches by kernel (``paths``)
@@ -102,6 +108,7 @@ def reset_launches() -> None:
         paths = wrappers[name].paths
         for path in paths:
             paths[path] = 0
+    wrappers["rglru_scan"].lengths.clear()
 
 
 def launch_counts() -> dict:
@@ -111,4 +118,5 @@ def launch_counts() -> dict:
                    for name, parent in INT8_BRANCHES.items()})
     for name in PATH_COUNTED:
         counts.update({f"{name}_{path}": c for path, c in wrappers[name].paths.items()})
+    counts.update({f"rglru_scan_s{s}": c for s, c in wrappers["rglru_scan"].lengths.items()})
     return counts

@@ -5,7 +5,7 @@ Each kernel package keeps its sources under ``csrc/``.  At first use the
 sources are compiled for Hopper (``sm_90a``) into a shared library with a
 plain C interface, cached under ``build/torch_kernels/`` in the checkout
 (listed in ``.gitignore``) and keyed by a hash of the flags, the sources
-and every header they include (``common/hopper.cuh`` is shared by five
+and every header they include (``common/hopper.cuh`` is shared by six
 libraries and the rate probe), so an edited source or header rebuilds and an unchanged one
 loads at once.  Nothing is compiled at import time: the CPU tests import
 every module and never reach a build.

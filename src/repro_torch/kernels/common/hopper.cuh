@@ -4,7 +4,8 @@
 // maps (flash_attention.cu, int8_gemm_sm90.cu, paged_prefill.cu; the
 // descriptor, fences and proxy fence also stoch_gemm_sm90.cu and
 // stoch_probe.cu), 16-byte
-// cp.async copies (int8_gemm_sm90.cu, decode.cu, paged_prefill.cu),
+// cp.async copies (int8_gemm_sm90.cu, decode.cu, paged_prefill.cu,
+// rglru_scan.cu),
 // their mbarrier arrive and the proxy fence that hands their bytes to
 // wgmma (paged_prefill.cu), and the attention kernels' bf16 m64n64k16
 // products, exp2 and bf16 packing (flash_attention.cu, paged_prefill.cu,

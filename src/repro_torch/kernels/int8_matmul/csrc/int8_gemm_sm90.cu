@@ -1,14 +1,15 @@
 // int8 x int8 -> int32 GEMMs on Hopper (sm_90a): wgmma on TMA-fed tiles
-// for admissions, a weight-streaming kernel for decode, and a batch of
-// small products streamed one product a block.
+// for admissions, a weight-streaming kernel for decode, a batch of small
+// products streamed one product a block, and a batch of larger products a
+// tile a block.
 //
 // Replaces: src/repro/kernels/int8_matmul/kernel.py :: int8_matmul_kernel
 // (the Pallas output-stationary 128x128x128 MXU GEMM behind ASTRA's int8
 // "expectation" mode and, vmapped, its quantized qk/pv products) for the
 // single-product entry when K % 16 == 0, the row pitch TMA and 16-byte
-// copies need, and for the batched entry when M <= 16 and K % 16 == 0 (K
-// up to 4096).  C[M,N] = X[M,K] . Wt[N,K]^T, the weight pre-transposed so
-// both operands are K-contiguous.  Every other shape keeps int8_matmul.cu's
+// copies need, and for the batched entry when K % 16 == 0 (K up to
+// 4096).  C[M,N] = X[M,K] . Wt[N,K]^T, the weight pre-transposed so both
+// operands are K-contiguous.  Every other shape keeps int8_matmul.cu's
 // mma.sync kernel; ops.py's int8_gemm_plan and int8_batched_plan pick the
 // kernel from the shapes alone.
 //
@@ -18,9 +19,13 @@
 // operations, far below the card's ~590 int8 ops/byte ridge, so the floor
 // is N*K / 3.35 TB/s.  The batched decode products (one query row of each
 // slot and KV head against its 32 KB of K or V codes under the mixed plan)
-// are bound by those bytes too: 8 MB a launch, 2.5 us at HBM's rate.
+// are bound by those bytes too: 8 MB a launch, 2.5 us at HBM's rate.  So
+// are the batched admission products (160 query rows of each slot and KV
+// head against 176 positions): qk moves 17.2 MB a launch, 14.4 MB of it
+// the int32 output, pv 10.3 MB, 5.1 and 3.1 us, against 0.2 us of int8
+// operations.
 //
-// Design: three kernels behind the two entries.
+// Design: four kernels behind the two entries.
 //
 // Admission (int8_gemm_wgmma_kernel, M > 16):
 // * One block per 128 x 128 output tile, walking its K range in 128-byte
@@ -91,6 +96,30 @@
 //   any order).  Rows are padded to 16 x (4 mod 8) bytes so the eight
 //   lanes of each quarter-warp read distinct banks; chunks past K read as
 //   zeros, rows past M or N are computed and not stored.
+//
+// Batched admission (int8_gemm_batched_tiles_kernel, M > 16): int8_matmul.cu's
+// mma.sync kernel ran these on 64 x 128 tiles (57% and 42% of their work
+// useful at qk's 160 x 176 and pv's 160 x 64), loaded and synced for each
+// 64-byte K step with nothing in flight during the math, and wrote 8 bytes
+// a thread from its fragments: 0.0187 ms a launch, 22% of the byte bound.
+// * A block a tile of 32 rows (two m16 tiles) by the product's whole N,
+//   or by N cut into the fewest tiles of at most 256 columns, each a
+//   multiple of 8: no mma on padded n8 tiles (N 176 is 22 of them).  At the
+//   serving shapes 640 blocks a launch, 4-5 an SM, all resident at once.
+// * The block issues cp.async copies of its X rows and all of its Wt rows,
+//   the whole K (stages of the most pieces that fit 64 KB when K is long),
+//   waits once, and computes from shared memory: every byte of the tile in
+//   flight together, and other blocks' loads cover one block's math.
+// * The four warps split the n8 tiles (warp w takes w, w + 4, ...); the
+//   fragments are the batched decode kernel's (lane (g, t) reads 16-byte
+//   piece t of each 64-byte K step, two k32 products; K permuted alike in
+//   both operands), A from X rows g and g + 8 of each m16 tile.
+// * The epilogue stages the int32 tile in shared memory over the operand
+//   rows (pitch 8 mod 32 int32: the int2 fragment stores of a half-warp
+//   hit distinct banks) and writes whole output rows, 704 or 256
+//   contiguous bytes at the serving shapes, in 16-byte stores (4-byte ones
+//   when N % 4 != 0).  No K split, no zeroed output, no atomics: the bits
+//   are the plain version's.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -455,6 +484,141 @@ int8_gemm_batched_stream_kernel(const int8_t* __restrict__ X, const int8_t* __re
   }
 }
 
+// ------------------------------------------------------ batched admission
+constexpr int BA_WARPS = 4;
+constexpr int BA_THREADS = 32 * BA_WARPS;
+constexpr int BA_BM = 32;                  // X rows of a tile: two m16 tiles
+constexpr int BA_MAX_BN = 256;             // output columns of a tile: 32 n8 tiles, 8 a warp
+constexpr int BA_MAX_K = 4096;             // longest K the route takes (ops.int8_batched_plan)
+constexpr int BA_STAGE_BUDGET = 64 << 10;  // bytes of the X and Wt rows of one K stage
+constexpr int BA_SMEM_MAX = 64 << 10;      // the most any geometry asks for
+
+// A tile's geometry: its columns (a multiple of 8) and the tiles across N;
+// 16-byte pieces of K a stage (all of K when the tile's X and Wt rows fit
+// the budget, else the most that are 4 mod 8, whole 64-byte steps) and the
+// row pitch in pieces (4 mod 8: the 8 lanes of a quarter-warp read distinct
+// banks); the staged output's row pitch in int32 (8 mod 32: the int2
+// fragment stores of a half-warp hit distinct banks); shared memory bytes,
+// the output staged over the operand rows.
+struct AdmissionGeometry {
+  int bn, tiles_n, kc, pitch, out_pitch, smem;
+};
+inline AdmissionGeometry ba_geometry(int M, int N, int K) {
+  const int tiles_n = (N + BA_MAX_BN - 1) / BA_MAX_BN;
+  const int bn = ((N + tiles_n - 1) / tiles_n + 7) / 8 * 8;
+  const int rows = BA_BM + bn;
+  int kc = K / 16;
+  int pitch = kc + ((4 - kc) & 7);
+  if (rows * 16 * pitch > BA_STAGE_BUDGET) {
+    kc = (BA_STAGE_BUDGET / (rows * 16) - 4) / 8 * 8 + 4;
+    pitch = kc;
+  }
+  const int out_pitch = bn + (40 - bn % 32) % 32;
+  const int operands = rows * 16 * pitch, staged = BA_BM * out_pitch * 4;
+  return {bn, tiles_n, kc, pitch, out_pitch, operands > staged ? operands : staged};
+}
+
+// NTW: n8 tiles a warp, at most (the tile's bn / 8 over 4 warps, rounded up)
+template <int NTW>
+__global__ void __launch_bounds__(BA_THREADS)
+int8_gemm_batched_tiles_kernel(const int8_t* __restrict__ X, const int8_t* __restrict__ Wt,
+                               int32_t* __restrict__ C, int M, int N, int K, int tiles_m,
+                               AdmissionGeometry geo) {
+  extern __shared__ __align__(128) unsigned char ba_smem[];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int tn = blockIdx.x % geo.tiles_n, tm = (blockIdx.x / geo.tiles_n) % tiles_m;
+  const size_t prod = blockIdx.x / geo.tiles_n / tiles_m;
+  const int m0 = tm * BA_BM, n0 = tn * geo.bn;
+  const int rows_m = min(BA_BM, M - m0), rows_n = min(geo.bn, N - n0);
+  X += (prod * M + m0) * K;
+  Wt += (prod * N + n0) * K;
+  C += (prod * M + m0) * N + n0;
+  const int nt = geo.bn / 8, kc_all = K / 16, pitch = 16 * geo.pitch;
+  const unsigned char* xs = ba_smem;                 // BA_BM rows of X
+  const unsigned char* ws = ba_smem + BA_BM * pitch;  // bn rows of Wt
+  const uint32_t xs_s = smem_u32(xs);
+
+  int acc[2][NTW][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < NTW; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0;
+
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  for (int k0 = 0; k0 < kc_all; k0 += geo.kc) {
+    // every copy of the stage in flight before the first mma: X rows then
+    // Wt rows, rows past M or N zero-filled
+    const int kn = min(geo.kc, kc_all - k0);
+    for (int c = tid; c < (BA_BM + geo.bn) * kn; c += BA_THREADS) {
+      const int r = c / kn, q = c % kn;
+      const bool is_x = r < BA_BM;
+      const int rr = is_x ? r : r - BA_BM;
+      const bool ok = rr < (is_x ? rows_m : rows_n);
+      const int8_t* src = (is_x ? X : Wt) + (ok ? (size_t)rr * K + 16 * (k0 + q) : 0);
+      cp_async16(xs_s + r * pitch + 16 * q, src, ok);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    for (int q0 = 0; q0 < kn; q0 += 4) {  // 64-byte K steps: piece q0 + t a lane
+      const int q = q0 + t;
+      const bool ok = q < kn;
+      uint4 a[2][2];  // [m16 tile][row g, g + 8]
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          a[i][h] = ok ? *reinterpret_cast<const uint4*>(xs + (16 * i + 8 * h + g) * pitch + 16 * q)
+                       : zero;
+#pragma unroll
+      for (int jj = 0; jj < NTW; ++jj) {
+        const int j = warp + BA_WARPS * jj;
+        if (j < nt) {
+          const uint4 b = ok ? *reinterpret_cast<const uint4*>(ws + (8 * j + g) * pitch + 16 * q)
+                             : zero;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            mma_s8(acc[i][jj], a[i][0].x, a[i][1].x, a[i][0].y, a[i][1].y, b.x, b.y);
+            mma_s8(acc[i][jj], a[i][0].z, a[i][1].z, a[i][0].w, a[i][1].w, b.z, b.w);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the stage has been read: refill it, or stage the output over it
+  }
+
+  // acc[i][jj][e]: row 16 i + g + 8 (e / 2), column 8 (warp + 4 jj) + 2 t + e % 2
+  int32_t* out = reinterpret_cast<int32_t*>(ba_smem);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int jj = 0; jj < NTW; ++jj) {
+      const int j = warp + BA_WARPS * jj;
+      if (j < nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<int2*>(out + (16 * i + g + 8 * h) * geo.out_pitch + 8 * j + 2 * t) =
+              make_int2(acc[i][jj][2 * h], acc[i][jj][2 * h + 1]);
+    }
+  __syncthreads();
+  // whole output rows, 16 bytes a store when N % 4 == 0 (then rows_n, n0
+  // and every row start are multiples of 4 int32)
+  if ((N & 3) == 0) {
+    const int per_row = rows_n / 4;
+    for (int c = tid; c < rows_m * per_row; c += BA_THREADS) {
+      const int r = c / per_row, p = c % per_row;
+      *reinterpret_cast<int4*>(C + (size_t)r * N + 4 * p) =
+          *reinterpret_cast<const int4*>(out + r * geo.out_pitch + 4 * p);
+    }
+  } else {
+    for (int c = tid; c < rows_m * rows_n; c += BA_THREADS) {
+      const int r = c / rows_n, col = c % rows_n;
+      C[(size_t)r * N + col] = out[r * geo.out_pitch + col];
+    }
+  }
+}
+
 // Lets `kern` take up to `bytes` of dynamic shared memory on the current
 // device, asking the runtime once per device.
 template <int ID>
@@ -552,6 +716,57 @@ extern "C" int int8_gemm_batched_stream_launch(const void* x, const void* wt, vo
     kern<<<B, BT_THREADS, geo.smem, s>>>(X, W, C, M, N, K, geo.pitch, geo.rows);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int NTW>
+int ba_launch(const int8_t* X, const int8_t* W, int32_t* C, int blocks, int M, int N, int K,
+              int tiles_m, const AdmissionGeometry& geo, cudaStream_t s) {
+  auto* kern = int8_gemm_batched_tiles_kernel<NTW>;
+  const int e = allow_smem<4 + NTW>(reinterpret_cast<const void*>(kern), BA_SMEM_MAX);
+  if (e != 0) return e;
+  kern<<<blocks, BA_THREADS, geo.smem, s>>>(X, W, C, M, N, K, tiles_m, geo);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x [B,M,K] int8, wt [B,N,K] int8, c [B,M,N] int32, K % 16 == 0 and K <=
+// 4096, 16-byte aligned starts: B products in tiles of 32 rows by up to 256
+// columns, one a block.  Returns a cudaError_t.
+extern "C" int int8_gemm_batched_tiles_launch(const void* x, const void* wt, void* c, int B,
+                                              int M, int N, int K, void* stream) {
+  if (B <= 0 || M <= 0 || N <= 0 || K <= 0 || K % 16 != 0 || K > BA_MAX_K)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const AdmissionGeometry geo = ba_geometry(M, N, K);
+  const int tiles_m = (M + BA_BM - 1) / BA_BM;
+  const long long blocks = (long long)B * tiles_m * geo.tiles_n;
+  if (geo.smem > BA_SMEM_MAX || blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int8_t* X = static_cast<const int8_t*>(x);
+  const int8_t* W = static_cast<const int8_t*>(wt);
+  int32_t* C = static_cast<int32_t*>(c);
+  const int nb = static_cast<int>(blocks);
+  switch ((geo.bn / 8 + BA_WARPS - 1) / BA_WARPS) {
+    case 1: return ba_launch<1>(X, W, C, nb, M, N, K, tiles_m, geo, s);
+    case 2: return ba_launch<2>(X, W, C, nb, M, N, K, tiles_m, geo, s);
+    case 3: return ba_launch<3>(X, W, C, nb, M, N, K, tiles_m, geo, s);
+    case 4: return ba_launch<4>(X, W, C, nb, M, N, K, tiles_m, geo, s);
+    case 5: return ba_launch<5>(X, W, C, nb, M, N, K, tiles_m, geo, s);
+    case 6: return ba_launch<6>(X, W, C, nb, M, N, K, tiles_m, geo, s);
+    case 7: return ba_launch<7>(X, W, C, nb, M, N, K, tiles_m, geo, s);
+    default: return ba_launch<8>(X, W, C, nb, M, N, K, tiles_m, geo, s);
+  }
+}
+
+// The batched admission kernel's tile geometry for [M, K] x [N, K]: into
+// out[6] bn, tiles_n, K pieces a stage, row pitch (pieces), staged-output
+// pitch (int32), dynamic shared memory bytes.
+extern "C" void int8_gemm_batched_tiles_geometry(int M, int N, int K, int* out) {
+  const AdmissionGeometry geo = ba_geometry(M, N, K);
+  out[0] = geo.bn;
+  out[1] = geo.tiles_n;
+  out[2] = geo.kc;
+  out[3] = geo.pitch;
+  out[4] = geo.out_pitch;
+  out[5] = geo.smem;
 }
 
 // The batched decode kernel's dynamic shared memory for one product of

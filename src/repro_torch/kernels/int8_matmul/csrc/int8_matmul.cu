@@ -24,12 +24,12 @@
 // gridDim.z over a batch of independent products as well (the attention
 // qk/pv products of every slot and KV head under a quantized plan, one
 // launch per layer and site).  This kernel serves the batched entry's
-// products of more than 16 rows (admissions) or with K % 16 != 0 or K >
-// 4096, and the single product when K % 16 != 0; every other product runs
-// in int8_gemm_sm90.cu (wgmma + TMA at admission, weight streaming at
-// decode, a block a product for the batched decode products), as
-// ops.int8_gemm_plan and ops.int8_batched_plan pick.  Loads and math of one block do not
-// overlap here.
+// products with K % 16 != 0 or K > 4096, and the single product when K %
+// 16 != 0; every other product runs in int8_gemm_sm90.cu (wgmma + TMA at
+// admission, weight streaming at decode, a block a product for the
+// batched decode products, a block a 32-row tile for the batched
+// admission products), as ops.int8_gemm_plan and ops.int8_batched_plan
+// pick.  Loads and math of one block do not overlap here.
 #include <cuda_runtime.h>
 #include <stdint.h>
 

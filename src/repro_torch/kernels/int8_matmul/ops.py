@@ -8,11 +8,14 @@ by :func:`int8_gemm_plan` from the shapes alone: ``"wgmma"`` (wgmma on
 TMA-fed tiles, admissions) and ``"stream"`` (the weight streamed past at
 most 16 activation rows, decode) from ``csrc/int8_gemm_sm90.cu``, and
 ``"mma"`` (``csrc/int8_matmul.cu``) for a K that is not a multiple of 16.
-A batch takes one of two, chosen by :func:`int8_batched_plan`: ``"stream"``
-(each block streams one whole product past its at most 16 rows, decode;
-``csrc/int8_gemm_sm90.cu``) or ``"mma"`` (``csrc/int8_matmul.cu``,
-admissions).  ``launches`` counts every launch of an entry and ``paths``
-each kernel's.  ``int8_matmul_t`` takes
+A batch takes one of three, chosen by :func:`int8_batched_plan`:
+``"stream"`` (each block streams one whole product past its at most 16
+rows, decode) or ``"tiles"`` (a block a tile of 32 rows by up to 256
+columns, all of its K in flight at once and its output written as whole
+rows, admissions), both ``csrc/int8_gemm_sm90.cu``, or ``"mma"``
+(``csrc/int8_matmul.cu``) for a K that is not a multiple of 16 or past
+4096.  ``launches`` counts every launch of an entry and ``paths`` each
+kernel's.  ``int8_matmul_t`` takes
 the weight pre-transposed ``[N, K]`` as the model caches it, so both
 operands are K-contiguous.  Dequantization is ``(acc * xs) * ws`` in
 float32, the reference's order.
@@ -50,10 +53,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _BATCHED_ARGS = [_P] * 3 + [_I] * 7 + [_P]
 _WGMMA_ARGS = [_P] * 3 + [_I] * 5 + [_P]
 _STREAM_ARGS = [_P] * 3 + [_I] * 3 + [_P]
-_BATCHED_STREAM_ARGS = [_P] * 3 + [_I] * 4 + [_P]
-BATCHED_PATHS = ("stream", "mma")
-# the batched stream kernel's longest K: a product's X rows and two
-# chunks of 16 weight rows in flight stay within a block's shared memory
+_BATCHED_SM90_ARGS = [_P] * 3 + [_I] * 4 + [_P]
+BATCHED_PATHS = ("stream", "tiles", "mma")
+# the batched stream and tiles kernels' longest K: a product's X rows and
+# two chunks of 16 weight rows in flight stay within a block's shared
+# memory, and a tile's K stages stay few
 _BT_MAX_K = 4096
 
 
@@ -124,12 +128,15 @@ def wgmma_plan(m: int, n: int, k: int, want: int) -> Int8GemmPlan:
 
 def int8_batched_plan(m: int, n: int, k: int) -> str:
     """The kernel of a batch of products ``[M, K] x [N, K]``, from the
-    shapes alone: ``"stream"`` (a block a product, its second operand
-    streamed past the at most 16 rows of the first; the decode qk/pv
-    products) for M <= 16 and K a multiple of 16 up to 4096, ``"mma"``
-    (16 x 64 or 64 x 128 ``mma.sync`` tiles, K split when the tiles are
-    few; admissions) for any other shape."""
-    return "stream" if m <= 16 and k % 16 == 0 and k <= _BT_MAX_K else "mma"
+    shapes alone.  K a multiple of 16 up to 4096: ``"stream"`` (a block a
+    product, its second operand streamed past the at most 16 rows of the
+    first; the decode qk/pv products) for M <= 16, ``"tiles"`` (a block a
+    tile of 32 rows by up to 256 columns, ``ref.int8_batched_tiles_ref``;
+    the admissions) for M > 16.  Any other K: ``"mma"`` (16 x 64 or 64 x 128
+    ``mma.sync`` tiles, K split when the tiles are few)."""
+    if k % 16 or k > _BT_MAX_K:
+        return "mma"
+    return "stream" if m <= 16 else "tiles"
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -230,7 +237,7 @@ def int8_gemm_batched(x: torch.Tensor, w_t: torch.Tensor) -> torch.Tensor:
         x, w_t = _operands(x, w_t, "int8_gemm_batched")
         out = torch.empty((b, m, n), dtype=torch.int32, device=x.device)
         if out.numel():
-            rc = _fn("int8_gemm_sm90", "int8_gemm_batched_stream_launch", _BATCHED_STREAM_ARGS)(
+            rc = _fn("int8_gemm_sm90", f"int8_gemm_batched_{path}_launch", _BATCHED_SM90_ARGS)(
                 x.data_ptr(), w_t.data_ptr(), out.data_ptr(), b, m, n, k,
                 torch.cuda.current_stream(x.device).cuda_stream)
             _build.check(rc, "int8_gemm_batched")

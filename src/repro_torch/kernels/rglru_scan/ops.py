@@ -2,13 +2,16 @@
 
 Port of ``repro.kernels.rglru_scan.ops.rglru_scan``.  The reference pads
 ``B`` and ``S`` to its block and chunk sizes (decay 1, input 0); the
-kernel walks each channel's whole sequence and checks its own bounds, so
-any ``B``, ``S`` and ``D`` go in as they are.  On a CPU tensor the
-wrapper runs the plain version (``ref.py``); on a CUDA tensor it launches
-``csrc/rglru_scan.cu`` or raises.
+kernel scans 32-channel tiles of a batch row in chunks of 32 steps, one
+run of 4 steps a warp, carries folded across runs and chunks
+(``ref.rglru_scan_chunked_ref``), and checks its own bounds, so any
+``B``, ``S`` and ``D`` go in as they are.  On a CPU tensor the wrapper
+runs the plain loop (``ref.rglru_scan_ref``); on a CUDA tensor it
+launches ``csrc/rglru_scan.cu`` or raises.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -49,7 +52,9 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                 torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(rc, "rglru_scan")
     rglru_scan.launches += 1
+    rglru_scan.lengths[s] += 1
     return out
 
 
 rglru_scan.launches = 0
+rglru_scan.lengths = collections.Counter()

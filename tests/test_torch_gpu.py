@@ -8,7 +8,7 @@ without JAX:
   PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 
 Tolerances: int8 accumulators (one product on each of its three kernels,
-or a batch on each of its two), stream words,
+or a batch on each of its three), stream words,
 signs and stochastic accumulators (packed operands, activation codes
 against streams, and codes against codes on the binary tensor-core
 kernels, both of them, under all 9 generator pairings) bit-exact; paged attention float32
@@ -24,8 +24,9 @@ bf16 4e-3 + 2^-7 |want| per element (its plain version rounds p to bf16
 too, but against each row's final max where the kernel uses its running
 max, and both round the output to bf16: one output ulp, 2^-7 of |want| at
 most, on top of a small drift); the linear-recurrence scan rtol = atol =
-2e-5, the reference kernel test's (nvcc contracts ``a * h + b`` into one
-FMA, the plain loop rounds twice).  The attention kernels are held at
+2e-5, the reference kernel test's (the kernel folds carries across
+chunks of the sequence and nvcc contracts ``a * h + b`` into one FMA;
+the plain loop runs in order and rounds twice).  The attention kernels are held at
 every head dim they are built for (16, 64, 128, 256).
 """
 import numpy as np
@@ -337,23 +338,32 @@ def test_dense_decode_kernel_matches_plain_on_card(cuda, dtype, hd, g):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,s,d", [(2, 64, 16), (3, 100, 8), (1, 16, 4), (5, 37, 130),
-                                   (8, 256, 2560), (2, 1, 300)])
+                                   (8, 256, 2560), (2, 1, 300), (3, 37, 130), (8, 2048, 2560),
+                                   (2, 33, 7), (1, 4096, 64)])
 def test_rglru_scan_kernel_matches_plain_on_card(cuda, b, s, d):
-    """Ragged B, S and D (no padding); S past and below the 8-step
-    unroll; one launch counted, float32 out."""
+    """Ragged B, S and D (no padding); S below one 32-step chunk, past it
+    by one and ragged, the serving admission and a full window; D % 4 !=
+    0 (the 4-byte copies); one launch counted, at its length too, float32
+    out."""
     g = torch.Generator(device=cuda).manual_seed(4)
     a = torch.rand(b, s, d, generator=g, device=cuda) * 0.799 + 0.2
     x = torch.randn(b, s, d, generator=g, device=cuda)
-    before = rg_ops.rglru_scan.launches
+    before, at_s = rg_ops.rglru_scan.launches, rg_ops.rglru_scan.lengths[s]
     got = rg_ops.rglru_scan(a, x)
     assert rg_ops.rglru_scan.launches == before + 1 and got.dtype == torch.float32
+    assert rg_ops.rglru_scan.lengths[s] == at_s + 1
     torch.testing.assert_close(got, rglru_scan_ref(a, x), atol=2e-5, rtol=2e-5)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,m,k,n,path", [
-    (256, 1, 64, 512, "stream"), (256, 1, 512, 64, "stream"), (64, 37, 64, 130, "mma"),
-    (3, 5, 100, 33, "mma"), (128, 160, 64, 176, "mma"),
+    (256, 1, 64, 512, "stream"), (256, 1, 512, 64, "stream"), (64, 37, 64, 130, "tiles"),
+    (3, 5, 100, 33, "mma"), (128, 160, 64, 176, "tiles"), (128, 160, 176, 64, "tiles"),
+    # the tiles kernel's edges: M one past 16 and past an m16 pair, N of one
+    # column and N % 4 != 0 (4-byte stores), N cut into two and three
+    # tiles, K at 4096 in stages and past it (mma.sync), a long M
+    (4, 17, 64, 1, "tiles"), (3, 45, 96, 33, "tiles"), (2, 33, 4096, 257, "tiles"),
+    (2, 300, 64, 513, "tiles"), (2, 40, 4112, 64, "mma"), (1, 1531, 128, 384, "tiles"),
     # the stream kernel's edges: M 1 / 3 / 16 (one and two n8 tiles), K
     # 64 / 512 and one 16-byte chunk past a 64-byte step, N ragged and
     # past a chunk of weight rows (two stages in flight)
@@ -361,10 +371,12 @@ def test_rglru_scan_kernel_matches_plain_on_card(cuda, b, s, d):
     (3, 16, 80, 5, "stream"), (2, 9, 4096, 40, "stream"), (2, 1, 100, 512, "mma")])
 def test_int8_batched_kernel_bit_exact_on_card(cuda, b, m, k, n, path):
     """The batch on the kernel :func:`int8_batched_plan` picks: int32
-    accumulators equal the plain version's, that kernel's counter moved."""
+    accumulators equal the plain version's, that kernel's counter moved;
+    -128 among the codes."""
     g = torch.Generator(device=cuda).manual_seed(1)
     x = torch.randint(-127, 128, (b, m, k), generator=g, device=cuda, dtype=torch.int8)
     w_t = torch.randint(-127, 128, (b, n, k), generator=g, device=cuda, dtype=torch.int8)
+    x[0, 0], w_t[0, 0] = -128, -128
     fn = int8_ops.int8_gemm_batched
     before = dict(fn.paths)
     assert torch.equal(fn(x, w_t), int8_matmul_acc_ref(x, w_t))

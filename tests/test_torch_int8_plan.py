@@ -9,7 +9,8 @@ once in whole kernel steps, grids within CUDA's limits, and on the
 SMs and, at the short admissions ``chip_smoke.py`` times, only where the
 split was the faster on an H100.  ``int8_batched_plan`` (the batched
 entry's kernel) is held the same way: the decode qk/pv products on the
-stream kernel, larger or other shapes on ``mma.sync``.  The kernels themselves are held bit
+stream kernel, the admission ones (M > 16) on the tiles kernel, K % 16 !=
+0 or past 4096 on ``mma.sync``.  The kernels themselves are held bit
 for bit on the card
 (``tests/test_torch_gpu.py::test_int8_kernel_bit_exact_on_card``).
 """
@@ -151,14 +152,16 @@ def test_wgmma_plan_splits_cover_k(mkn):
 
 # (B, M, K, N) of the batched entry -> its kernel: stablelm-1.6b's decode
 # qk and pv under the mixed plan (8 slots x 32 KV heads, one query row,
-# the 512-position view), ragged decode products, and the mixed plan's
-# admissions (M > 16), K % 16 != 0 and K past 4096 on mma.sync
+# the 512-position view), ragged decode products, the mixed plan's
+# admissions (M > 16) and their edges on the tiles kernel, and K % 16 != 0
+# and K past 4096 on mma.sync
 BATCHED = {
     (256, 1, 64, 512): "stream", (256, 1, 512, 64): "stream", (3, 16, 96, 5): "stream",
     (2, 3, 512, 513): "stream", (4, 16, 4096, 33): "stream", (1, 1, 16, 1): "stream",
-    (128, 160, 64, 176): "mma", (128, 160, 176, 64): "mma", (5, 17, 64, 64): "mma",
+    (128, 160, 64, 176): "tiles", (128, 160, 176, 64): "tiles", (5, 17, 64, 64): "tiles",
     (3, 5, 100, 33): "mma", (256, 1, 520, 64): "mma", (256, 1, 4112, 64): "mma",
-    (2, 16, 8, 5): "mma",
+    (2, 16, 8, 5): "mma", (2, 17, 4096, 513): "tiles", (2, 17, 4112, 64): "mma",
+    (2, 40, 100, 64): "mma",
 }
 
 
@@ -168,6 +171,7 @@ def test_int8_batched_plan_routes_by_shape(bmkn):
     path = ops.int8_batched_plan(m, n, k)
     assert path == BATCHED[bmkn] and path in ops.BATCHED_PATHS
     assert (path == "stream") == (m <= 16 and k % 16 == 0 and k <= 4096)
+    assert (path == "tiles") == (m > 16 and k % 16 == 0 and k <= 4096)
 
 
 def test_int8_gemm_batched_counts_paths_apart_and_runs_plain_on_cpu():
@@ -181,9 +185,10 @@ def test_int8_gemm_batched_counts_paths_apart_and_runs_plain_on_cpu():
     before = (fn.launches, dict(fn.paths))
     assert torch.equal(fn(x, w_t), torch.full((2, 1, 5), -64, dtype=torch.int32))
     assert (fn.launches, fn.paths) == before
-    assert set(fn.paths) == {"stream", "mma"}
+    assert set(fn.paths) == {"stream", "tiles", "mma"}
     fn.paths["stream"] = 3
     assert launch_counts()["int8_gemm_batched_stream"] == 3
     reset_launches()
     assert fn.paths == dict.fromkeys(ops.BATCHED_PATHS, 0)
     assert launch_counts()["int8_gemm_batched_mma"] == 0
+    assert launch_counts()["int8_gemm_batched_tiles"] == 0

@@ -214,8 +214,8 @@ def test_rglru_scan_wrapper_follows_the_port_rules():
 def test_build_key_covers_included_headers(tmp_path, monkeypatch):
     """A library's build key hashes the headers its sources include, so
     editing the shared Hopper header rebuilds the libraries that include
-    it (flash attention, decode, paged prefill, the sm_90 int8 GEMM and the
-    binary tensor-core stochastic GEMM) and no other."""
+    it (flash attention, decode, paged prefill, the sm_90 int8 GEMM, the
+    binary tensor-core stochastic GEMM and the scan) and no other."""
     import shutil
 
     from repro_torch.kernels import _build
@@ -223,7 +223,7 @@ def test_build_key_covers_included_headers(tmp_path, monkeypatch):
     users = {n for n in _build.LIBRARIES
              if any(p.name == "hopper.cuh" for p in _build.headers(n))}
     assert users == {"flash_attention", "decode", "paged_prefill", "int8_gemm_sm90",
-                     "stoch_gemm_sm90"}
+                     "stoch_gemm_sm90", "rglru_scan"}
     copy = tmp_path / "kernels"
     shutil.copytree(os.path.join(PORT, "kernels"), copy,
                     ignore=shutil.ignore_patterns("__pycache__"))
