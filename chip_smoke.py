@@ -590,12 +590,30 @@ def _codes(g, dev, *shape) -> torch.Tensor:
     return torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
 
 
+def _signed_streams(q: torch.Tensor, gen: str):
+    """``core.bitstream.encode_signed`` of int8 codes ``q`` (the reference's
+    staging: -128's magnitude wraps in int8), a slice of codes at a time so
+    a full weight's bits never exist at once: (words ``[..., 4]`` int32,
+    signs int8)."""
+    from repro_torch.core.bitstream import N_WORDS, encode_signed
+
+    flat = q.reshape(-1)
+    words = torch.empty(flat.numel(), N_WORDS, dtype=torch.int32, device=q.device)
+    sign = torch.empty(flat.numel(), dtype=torch.int8, device=q.device)
+    for i in range(0, flat.numel(), 1 << 20):
+        w, s = encode_signed(flat[i:i + (1 << 20)], gen)
+        words[i:i + (1 << 20)], sign[i:i + (1 << 20)] = w, s
+    return words.reshape(*q.shape, N_WORDS), sign.reshape(q.shape)
+
+
 def check_stochastic(dev, g) -> None:
     """The stochastic kernels and the batched int8 entry against their plain
     versions on the card, bit for bit.  ``bts_encode`` under every
-    generator over every code -127..127 and at ragged, activation and full
-    weight shapes.  The stochastic GEMM on each of its entries against one
-    plain result (``bts_encode_ref`` of both operands' codes, then
+    generator over every int8 code -128..127 (at -128 the full stream, as
+    the reference's Pallas kernel gives it) and at ragged, activation and
+    full weight shapes.  The stochastic GEMM on each of its entries against
+    one plain result (``core.bitstream.encode_signed`` of both operands'
+    codes, the reference's staging, where -128 wraps, a slice at a time; then
     ``stoch_matmul_packed_ref``): on ``stoch_matmul.cu`` the packed entry
     and the codes entry (activation codes against the weight's streams),
     on ``stoch_gemm_sm90.cu`` the codes x codes entry and its batched
@@ -616,21 +634,23 @@ def check_stochastic(dev, g) -> None:
     from repro_torch.kernels.int8_matmul import ops as i8
     from repro_torch.kernels.int8_matmul.ref import int8_matmul_acc_ref
     from repro_torch.kernels.stoch_matmul import ops as sm
-    from repro_torch.kernels.stoch_matmul.ref import stoch_matmul_packed_ref
+    from repro_torch.kernels.stoch_matmul.ref import stoch_gemm_codes_ref, stoch_matmul_packed_ref
 
     def codes(*shape):
         return _codes(g, dev, *shape)
 
     for gen in GENERATORS:
         shapes = []
-        for q in (torch.arange(-127, 128, dtype=torch.int8, device=dev), codes(37, 50),
+        for q in (torch.arange(-128, 128, device=dev).to(torch.int8), codes(37, 50),
                   codes(1, 3), codes(8, F), codes(D, F)):
             words, sign = bts_encode(q, gen)
             want_w, want_s = bts_encode_ref(q, gen)
             assert torch.equal(words, want_w) and torch.equal(sign, want_s), (gen, q.shape)
+            if q.dim() == 1:  # code -128 first: the Pallas kernel's full stream
+                assert words[0].eq(-1).all() and sign[0] == -1, gen
             shapes.append(tuple(q.shape))
-        log(f"[bts encode] {gen} at {shapes} (every code -127..127 first): words and signs "
-            "equal the plain version bit for bit")
+        log(f"[bts encode] {gen} at {shapes} (every code -128..127 first; -128: the full "
+            "stream): words and signs equal the plain version bit for bit")
     pairs = [(x, w) for x in GENERATORS for w in GENERATORS]
     ragged = [((), 5, 100, 33), ((), 70, 1000, 129), ((), 1, 17, 5), ((), 9, 2048, 200),
               ((), 2, 255, 40), ((4,), 3, 64, 40), ((), 16, 130, 47), ((), 17, 64, 16),
@@ -649,9 +669,11 @@ def check_stochastic(dev, g) -> None:
         if k == 256:  # every int8 code, -128 included, on both sides
             xq[0] = wq[0] = torch.arange(-128, 128, device=dev).to(torch.int8)
             xq[1] = wq[1] = xq[0].flip(0)
-        xs, sx = bts_encode_ref(xq, x_gen)
-        ws, sw = bts_encode_ref(wq, w_gen)
+        (xs, sx), (ws, sw) = _signed_streams(xq, x_gen), _signed_streams(wq, w_gen)
         want = stoch_matmul_packed_ref(xs, sx, ws, sw)
+        if k == 256:  # code -128: the binary kernels' own plain version agrees
+            assert torch.equal(want.cpu(), stoch_gemm_codes_ref(xq.cpu(), wq.cpu(), x_gen,
+                                                                w_gen)), (lead, m, n)
         before = [f.launches for f in fns]
         kernel = sm.stoch_gemm_plan(m, n, k, n_sm(dev), lead[0] if lead else 1)[0]
         paths = {f: dict(f.paths) for f in fns[2:]}
@@ -1409,10 +1431,24 @@ PLAN_KERNELS = {
     "int8-dense": ("flash_attention", "dense_attention_decode") + INT8_KERNELS,
     "rg-exact": ("flash_attention", "dense_attention_decode", "rglru_scan"),
     "rg-int8": ("flash_attention", "dense_attention_decode", "rglru_scan") + INT8_KERNELS,
+    # chunked prefill: paged chunks through the causal prefill kernel at
+    # in-block starts; dense chunks through the windowed masked scan, whose
+    # steps are dense decode steps; the blocking runs of the 4 short
+    # prompts beside them (mixed lengths: flash on stablelm, the masked
+    # scan on recurrentgemma)
+    "exact-chunked": ("paged_attention_decode", "paged_attention_prefill"),
+    "exact-dense-short": ("flash_attention", "dense_attention_decode"),
+    "exact-dense-chunked": ("dense_attention_decode",),
+    "rg-exact-short": ("dense_attention_decode",),
+    "rg-exact-chunked": ("dense_attention_decode",),
 }
 # kernels a plan's serving path must not launch: mixed's qk/pv (K % 16 ==
-# 0, K <= 4096 at every length it serves) never reach mma.sync
-PLAN_ABSENT = {"mixed": ("int8_gemm_batched_mma",)}
+# 0, K <= 4096 at every length it serves) never reach mma.sync; a dense
+# chunked run takes no full-sequence pass
+PLAN_ABSENT = {"mixed": ("int8_gemm_batched_mma",),
+               "exact-dense-chunked": ("flash_attention", "rglru_scan"),
+               "rg-exact-short": ("flash_attention", "rglru_scan"),
+               "rg-exact-chunked": ("flash_attention", "rglru_scan")}
 # kernels of one KV layout, which a serving run on the other must not launch
 LAYOUT_KERNELS = {
     "paged": ("paged_attention_decode", "paged_attention_prefill",
@@ -1448,7 +1484,7 @@ def _sc_weights(tree) -> list:
 
 
 def serve(cfg, params, prompts, dev, runs, gen: int, max_len: int = 512,
-          kv_block_size: int = BS):
+          kv_block_size: int = BS, chunk_tokens: int = 0, summary=None):
     """Phase 6: the engine for each ``(label, plan, kv_quant)`` run on the
     paged pool (``kv_block_size > 0``) or dense per-slot caches (0);
     returns each run's launches per kernel, counted from the engine's
@@ -1459,7 +1495,11 @@ def serve(cfg, params, prompts, dev, runs, gen: int, max_len: int = 512,
     scales) must hit the prefix cache; on dense caches ``kv_stats`` and
     ``prefix_stats`` are empty.  No kernel of the other layout may launch.
     One run's prepared weight caches (int8 codes, cast copies) are freed
-    before the next run's are made."""
+    before the next run's are made.  ``chunk_tokens > 0`` admits through
+    the chunked-prefill scheduler at that budget, and some prompt must be
+    split (more chunks than requests).  ``summary`` (a dict), if given,
+    takes each run's mean TTFT, prefill and decode tok/s, scheduler
+    counters and first request's modeled ASTRA report by label."""
     from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.launch.serve import dense_state_summary
     from repro_torch.models.attention import KVCache
@@ -1468,7 +1508,8 @@ def serve(cfg, params, prompts, dev, runs, gen: int, max_len: int = 512,
 
     dense = kv_block_size == 0
     serve_cfg = ServeConfig(max_slots=8, max_len=max_len, chunk_steps=8,
-                            kv_block_size=kv_block_size, attn_impl="flash", seed=0)
+                            kv_block_size=kv_block_size, attn_impl="flash", seed=0,
+                            prefill_chunk_tokens=chunk_tokens)
     by_plan, tokens = {}, {}
     for label, plan, kv_quant in runs:
         model = _serving_model(cfg, dev, plan, kv_quant)
@@ -1527,7 +1568,14 @@ def serve(cfg, params, prompts, dev, runs, gen: int, max_len: int = 512,
                                              * cfg.head_dim * item)
             kv_line = (f"kv pool {kv_quant} {kv['bytes_per_block']} B/block, "
                        f"{kv['pool_bytes']} B; prefix {ps or 'off'}")
+        sched = engine.scheduler_stats
+        if chunk_tokens:
+            assert sched["active"] and sched["prefill_chunks"] > len(prompts), (label, sched)
         ttft = np.mean([o.timing.ttft_s for o in outs]) * 1e3
+        if summary is not None:
+            summary[label] = dict(ttft_ms=ttft, prefill_tps=st["prefill_tokens"] / st["prefill_s"],
+                                  decode_tps=st["decode_tokens"] / st["decode_s"], sched=sched,
+                                  hardware=outs[0].hardware, prompt=outs[0].prompt.shape[-1])
         peak = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0.0
         log(f"[serve {label}] {cfg.name} ({cfg.n_layers}L d{cfg.d_model}), "
             f"{len(prompts)} requests x {gen} tokens, 8 slots: decode "
@@ -1535,12 +1583,38 @@ def serve(cfg, params, prompts, dev, runs, gen: int, max_len: int = 512,
             f"tokens in {st['decode_s']:.3f} s), prefill "
             f"{st['prefill_tokens'] / st['prefill_s']:.1f} tok/s, mean TTFT {ttft:.1f} ms, "
             f"end to end {len(prompts) * gen / wall:.1f} tok/s in {wall:.2f} s; {kv_line}; "
-            f"launches {counts}; peak memory {peak:.1f} GiB{sc_line}")
+            f"scheduler {sched}; launches {counts}; peak memory {peak:.1f} GiB{sc_line}")
         by_plan[label] = counts
         tokens[label] = np.stack([o.tokens for o in outs])
         del engine
         _free(dev)
     return by_plan, tokens
+
+
+def chunked_beside_blocking(summary, chunked: str, blocking: str, tokens) -> None:
+    """One line: a chunked run's mean TTFT, prefill and decode tok/s beside
+    its blocking run's from the same call, its scheduler counters, and the
+    greedy agreement of the two (reported, not gated: the two compute the
+    same function in different orders)."""
+    c, b = summary[chunked], summary[blocking]
+    agree = (tokens[chunked] == tokens[blocking]).mean()
+    log(f"[chunked {chunked}] mean TTFT {c['ttft_ms']:.1f} ms (blocking {blocking}: "
+        f"{b['ttft_ms']:.1f}), prefill {c['prefill_tps']:.1f} tok/s ({b['prefill_tps']:.1f}), "
+        f"decode {c['decode_tps']:.1f} tok/s ({b['decode_tps']:.1f}); scheduler {c['sched']}; "
+        f"greedy tokens equal to the blocking run's: {agree:.1%} (reported, not gated)")
+
+
+def log_astra(cfg, summary, label: str) -> None:
+    """A served request's ``RequestOutput.hardware``: the modeled cost on the
+    ASTRA photonic chip (the paper's simulator), not the card's."""
+    hw, prompt = summary[label]["hardware"], summary[label]["prompt"]
+    assert hw is not None and hw.energy_j > 0 and hw.latency_s > 0, label
+    top = ", ".join(f"{k} {e / hw.energy_j:.1%}" for k, e in hw.energy_by_site[:3])
+    log(f"[astra model] {cfg.name} request 0 of {label} (prompt {prompt} tokens, "
+        f"{hw.cached_prompt_tokens} from the prefix cache): modeled ASTRA photonic chip "
+        f"latency {hw.latency_s * 1e6:.3f} us, energy {hw.energy_j * 1e3:.3f} mJ, "
+        f"{hw.energy_per_mac_j * 1e12:.3f} pJ/MAC over {hw.macs} MACs; top sites {top} "
+        "(the paper's chip model, not a measurement of this card)")
 
 
 def calibrate(cfg, params, prompts, dev):
@@ -1728,7 +1802,12 @@ def small_card_vs_cpu(dev) -> None:
     given the codes, but a last-bit difference in a float activation can
     move one code, so 90%.  On dense caches (the flash and dense decode
     kernels) all of them under all four plans.  Both sides of the
-    int8-pool case use the scales one CPU calibration gave."""
+    int8-pool case use the scales one CPU calibration gave.  Then chunked
+    prefill on dense caches under exact, all tokens equal: max_len 30 (not
+    a power of two) and a budget of 16, whose second round plans 4 tokens
+    of one prompt beside 12 of the other, so the first row's gated window
+    steps sit past its cache (their writes clamped, ``kv_len`` at the
+    cache length)."""
     from repro_torch.configs import get_arch
     from repro_torch.models.model import Model
     from repro_torch.models.transformer import ModelOptions
@@ -1758,9 +1837,22 @@ def small_card_vs_cpu(dev) -> None:
         log(f"[small {label}] reduced stablelm float32 on {dev} (kernels) vs cpu (plain "
             f"versions): {agree:.0%} of greedy tokens equal")
         assert agree == 1.0 if plan == "exact" or bs == 0 else agree >= 0.9, (label, agree)
+    chunked = [rng.integers(0, small.vocab, n, dtype=np.int32) for n in (20, 26)]
+    scfg = ServeConfig(max_slots=2, max_len=30, chunk_steps=3, kv_block_size=0,
+                       prefill_chunk_tokens=16)
+    toks = {}
+    for where in ("cpu", dev):
+        m = Model(small, ModelOptions(plan="exact", attn_impl="flash"), device=where)
+        eng = ServeEngine(m, _to(params, m.device), scfg, device=where)
+        toks[str(where)] = np.stack([o.tokens for o in eng.generate_batch(chunked, 4)])
+        assert eng.scheduler_stats["prefill_chunks"] == 4, eng.scheduler_stats
+    agree = (toks["cpu"] == toks[str(dev)]).mean()
+    log(f"[small exact-dense-chunked] reduced stablelm float32, max_len 30, budget 16 (gated "
+        f"steps past the cache) on {dev} vs cpu: {agree:.0%} of greedy tokens equal")
+    assert agree == 1.0, agree
 
 
-def serve_rg(cfg, dev, scan_ms: float) -> dict:
+def serve_rg(cfg, dev, scan_ms: float, summary: dict) -> dict:
     """Full-width recurrentgemma-2b (bf16, random weights from seed 0) on
     dense per-slot caches under ``exact`` and ``int8`` (``rg-exact``,
     ``rg-int8``): 8 prompts of 256 tokens (one full-sequence admission,
@@ -1770,7 +1862,10 @@ def serve_rg(cfg, dev, scan_ms: float) -> dict:
     request's tokens, finite logits of a prefill and of every decode step
     (the engine raises on a non-finite one), each plan's kernels launched
     and no paged kernel; profiles ``rglru_scan`` inside an admission
-    (``scan_ms``: its isolated time).  Returns each run's launches."""
+    (``scan_ms``: its isolated time).  Then the 4 short prompts alone,
+    blocking (``rg-exact-short``) and chunked at 64 tokens a round
+    (``rg-exact-chunked``), 16 new each, max_len 512.  Returns each run's
+    launches."""
     from repro_torch.models.model import Model
 
     n_rglru = cfg.layer_kinds.count("rglru")
@@ -1804,13 +1899,22 @@ def serve_rg(cfg, dev, scan_ms: float) -> dict:
     launches, tokens = serve(cfg, params, prompts, dev, runs, gen=32, max_len=cfg.window,
                              kv_block_size=0)
     admission = f"rglru_scan_s{RG_SHAPES[1][1]}"
-    for label, counts in launches.items():
+    for label, counts in launches.items():  # the two full runs
         # one full-sequence admission (the 8 equal prompts of 256 tokens);
         # the masked scan takes none
         assert counts["rglru_scan"] == counts.get(admission, 0) == n_rglru, (label, counts)
     agree = (tokens["rg-int8"] == tokens["rg-exact"]).mean()
     log(f"[agreement rg-int8] greedy tokens equal to rg-exact: {agree:.1%} (reported, not "
         "gated: random weights at bf16)")
+    # chunked prefill: the 4 masked-scan prompts, blocking and chunked at a
+    # budget of 64 tokens a round (max_len 512: no ring wraps)
+    short_tokens = {}
+    for label, budget in (("rg-exact-short", 0), ("rg-exact-chunked", 64)):
+        counts, toks = serve(cfg, params, prompts[8:], dev, [(label, "exact", "none")], gen=16,
+                             kv_block_size=0, chunk_tokens=budget, summary=summary)
+        launches.update(counts)
+        short_tokens.update(toks)
+    chunked_beside_blocking(summary, "rg-exact-chunked", "rg-exact-short", short_tokens)
     profile_decode_chunk(cfg, params, prompts, dev, runs, kv_block_size=0, max_len=cfg.window,
                          scan_ms=scan_ms)
     del params
@@ -1822,7 +1926,9 @@ def small_rg_card_vs_cpu(dev) -> None:
     """A reduced float32 recurrentgemma (window 8, prompts up to 33 tokens,
     so rings wrap and the masked scan runs past the window) served with
     the kernels on ``dev`` and their plain versions on the CPU, on dense
-    caches under all four plans: every greedy token equal."""
+    caches under all four plans: every greedy token equal; then chunked
+    prefill under exact (budget 5 a round, prompts past the window), every
+    token equal."""
     from repro_torch.configs import get_arch
     from repro_torch.models.model import Model
     from repro_torch.models.transformer import ModelOptions
@@ -1848,6 +1954,19 @@ def small_rg_card_vs_cpu(dev) -> None:
             f"vs cpu (plain versions), mixed / equal prompt lengths: "
             f"{' / '.join(f'{a:.0%}' for a in agree)} of greedy tokens equal")
         assert min(agree) == 1.0, (label, agree)
+    prompts = [rng.integers(0, small.vocab, n, dtype=np.int32) for n in (5, 19, 12, 33, 8)]
+    scfg = ServeConfig(max_slots=3, max_len=48, chunk_steps=4, kv_block_size=0,
+                       prefill_chunk_tokens=5)
+    toks = {}
+    for where in ("cpu", dev):
+        m = Model(small, ModelOptions(plan="exact", attn_impl="flash"), device=where)
+        eng = ServeEngine(m, _to(params, m.device), scfg, device=where)
+        toks[str(where)] = np.concatenate([o.tokens for o in eng.generate_batch(prompts, 10)])
+        assert eng.scheduler_stats["prefill_chunks"] > len(prompts), eng.scheduler_stats
+    agree = (toks["cpu"] == toks[str(dev)]).mean()
+    log(f"[small rg-exact-chunked] reduced recurrentgemma float32 window 8, budget 5 on {dev} "
+        f"vs cpu: {agree:.0%} of greedy tokens equal")
+    assert agree == 1.0, agree
 
 
 def log_tiles() -> None:
@@ -1975,7 +2094,16 @@ def main() -> None:
             cfg.dtype) == (24, 2048, 32, 64, 5632, 100352, "bfloat16")
     params = Model(cfg, device=dev).init(seed=0)
     prompts = make_prompts(cfg.vocab, np.random.default_rng(0))
-    launches, tokens = serve(cfg, params, prompts, dev, plain_runs("exact", "int8"), gen=32)
+    summary = {}
+    launches, tokens = serve(cfg, params, prompts, dev, plain_runs("exact", "int8"), gen=32,
+                             summary=summary)
+    chunked_launches, chunked_tokens = serve(cfg, params, prompts, dev,
+                                             [("exact-chunked", "exact", "none")], gen=32,
+                                             chunk_tokens=256, summary=summary)
+    launches.update(chunked_launches)
+    chunked_beside_blocking(summary, "exact-chunked", "exact", {**tokens, **chunked_tokens})
+    log_astra(cfg, summary, "exact")
+    elapsed("exact-chunked")
     profile_decode_chunk(cfg, params, prompts, dev, plain_runs("exact", "int8"))
     # the dense per-slot layout: flash prefill, dense decode
     dense_runs = [("exact-dense", "exact", "none"), ("int8-dense", "int8", "none")]
@@ -1987,6 +2115,18 @@ def main() -> None:
         log(f"[agreement {label}] greedy tokens equal to the paged exact run: {agree:.1%} "
             "(reported, not gated: random weights at bf16)")
     profile_decode_chunk(cfg, params, prompts, dev, dense_runs, kv_block_size=0)
+    # chunked prefill on dense caches: the sc runs' 4 prompts, blocking and
+    # chunked at a budget of 64 tokens a round
+    sc_prompts = make_sc_prompts(cfg.vocab, np.random.default_rng(1))
+    short_launches, short_tokens = {}, {}
+    for label, budget in (("exact-dense-short", 0), ("exact-dense-chunked", 64)):
+        counts, toks = serve(cfg, params, sc_prompts, dev, [(label, "exact", "none")], gen=16,
+                             kv_block_size=0, chunk_tokens=budget, summary=summary)
+        short_launches.update(counts)
+        short_tokens.update(toks)
+    launches.update(short_launches)
+    chunked_beside_blocking(summary, "exact-dense-chunked", "exact-dense-short", short_tokens)
+    elapsed("exact-dense-chunked")
     flash_vs_naive(cfg, params, prompts, dev)
     # calibrated static scales: the int8 plan and exact's KV on an int8 pool
     plan = calibrate(cfg, params, prompts, dev)
@@ -2000,7 +2140,6 @@ def main() -> None:
         log(f"[agreement {label}] greedy tokens equal to the bf16-pool exact run: {agree:.1%} "
             "(reported, not gated: random weights at bf16)")
     profile_decode_chunk(cfg, params, prompts, dev, kvq_runs)
-    sc_prompts = make_sc_prompts(cfg.vocab, np.random.default_rng(1))
     launches.update(serve(cfg, params, sc_prompts, dev, plain_runs("sc", "mixed"), gen=16)[0])
     profile_decode_chunk(cfg, params, sc_prompts, dev, plain_runs("sc", "mixed"))
     del params
@@ -2011,7 +2150,7 @@ def main() -> None:
             rg.window, rg.vocab, rg.dtype) == (26, RG_D, RG_H, 1, RG_HD, RG_D, RG_WINDOW,
                                                256000, "bfloat16")
     assert rg.layer_kinds.count("rglru") == 18 and rg.layer_kinds.count("local") == 8
-    rg_launches = serve_rg(rg, dev, kernels["rglru_scan"]["ms"])
+    rg_launches = serve_rg(rg, dev, kernels["rglru_scan"]["ms"], summary)
     elapsed("recurrentgemma-2b serving")
     small_card_vs_cpu(dev)
     small_rg_card_vs_cpu(dev)

@@ -21,7 +21,8 @@ from typing import Tuple
 
 import torch
 
-STREAM_LEN = 128  # bits per stream: the 7-bit magnitude's full scale + 1
+from repro_torch.core.quant import STREAM_LEN
+
 N_WORDS = STREAM_LEN // 32  # 4
 GENERATORS = ("thermometer", "bresenham", "lfsr")
 
@@ -64,10 +65,12 @@ def stream_bits(mag: torch.Tensor, generator: str = "bresenham", phase: int = 0)
 
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:
     """``(..., 128)`` {0,1} -> ``(..., 4)`` int32 words (uint32 bit pattern),
-    little-endian within each word."""
+    little-endian within each word.  The sum wraps modulo 2^32 as the
+    reference's ``uint32`` sum does, which matters only for the -1 "bits"
+    of a wrapped magnitude (:func:`encode_signed` at -128)."""
     b = bits.to(torch.int64).reshape(*bits.shape[:-1], N_WORDS, 32)
     shifts = torch.arange(32, dtype=torch.int64, device=bits.device)
-    w = (b << shifts).sum(-1)  # 0 .. 2**32 - 1
+    w = (b << shifts).sum(-1) & 0xFFFFFFFF  # 0 .. 2**32 - 1
     return torch.where(w >= 2**31, w - 2**32, w).to(torch.int32)
 
 
@@ -102,7 +105,14 @@ def popcount(packed: torch.Tensor, axis: int = -1) -> torch.Tensor:
 def encode_signed(q: torch.Tensor, generator: str = "bresenham",
                   phase: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """int8 codes -> (packed magnitudes ``(..., 4)`` int32, sign ``(...)``
-    int32 in {+1, -1}).  Zero has sign +1 and an empty stream."""
-    q32 = torch.as_tensor(q).to(torch.int32)
-    sign = torch.where(q32 < 0, -1, 1).to(torch.int32)
-    return encode(q32.abs(), generator, phase), sign
+    int32 in {+1, -1}).  Zero has sign +1 and an empty stream.
+
+    The magnitude is taken in the codes' own dtype, as the reference's
+    ``jnp.abs`` does: an int8 -128 wraps to -128, and that negative
+    "magnitude" goes through the generator's formula as it is, giving
+    ``[1, 1, 1, 1]`` under bresenham (a -1 at every position, summed
+    modulo 2^32 per word) and the empty stream under thermometer and lfsr.
+    ``quantize`` never gives -128 (it clips to +-127)."""
+    q = torch.as_tensor(q)
+    sign = torch.where(q < 0, -1, 1).to(torch.int32)
+    return encode(q.abs().to(torch.int32), generator, phase), sign

@@ -349,3 +349,29 @@ def model_sites(cfg: ArchConfig) -> Tuple[str, ...]:
     ]
     sites.append("lm_head")
     return tuple(sites)
+
+
+def site_class(op_name: str) -> str:
+    """Aggregation key for per-site accounting: the layer index stripped
+    (``L3.attn.qk`` -> ``attn.qk``); non-layer ops pass through."""
+    if op_name.startswith("L") and "." in op_name:
+        head, rest = op_name.split(".", 1)
+        if head[1:].isdigit():
+            return rest
+    return op_name
+
+
+def validate_site_registry(cfg: ArchConfig, seq: int = 8) -> None:
+    """Every executed GEMM site resolves to exactly one op of the
+    simulator's graph (``core.simulator.model_ops``); raises with the
+    offending sites otherwise.  The converse need not hold: the simulator
+    also models ops kept on the electronic side."""
+    from collections import Counter
+
+    from repro_torch.core.simulator import model_ops
+
+    mm, _ = model_ops(cfg, seq=seq, batch=1)
+    counts = Counter(op.name for op in mm)
+    bad = {s: counts.get(s, 0) for s in model_sites(cfg) if counts.get(s, 0) != 1}
+    if bad:
+        raise AssertionError(f"{cfg.name}: executed GEMM sites without a 1:1 simulator op: {bad}")

@@ -14,6 +14,7 @@ from typing import NamedTuple, Optional
 import torch
 
 MAG_MAX = 127  # 7-bit magnitude
+STREAM_LEN = 128  # bits per stochastic stream (paper: 128-bit + sign)
 
 
 class QTensor(NamedTuple):

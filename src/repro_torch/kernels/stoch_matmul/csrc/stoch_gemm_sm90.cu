@@ -11,9 +11,11 @@
 // quantizer writes them.  Computes
 //   C[m, n] = sum_k sx * sw * popc(T_x[|X[m, k]|] & T_w[|W[n, k]|])
 // into int32, X [M, K] and W [N, K] int8 codes (both K-contiguous), T_x /
-// T_w the generators' tables of the 129 streams of magnitudes 0..128
-// (ops.stream_table, built from core/bitstream.py's encode, so the two
-// cannot differ), sx / sw = -1 for a negative code, else +1.  Integer sums
+// T_w the generators' tables of 129 streams, magnitudes 0..127 and then
+// the stream of code -128 (ops.stream_table, built from core/bitstream.py's
+// encode and encode_signed, so the two cannot differ; at -128 the wrapped
+// int8 magnitude of the reference's encode_signed), sx / sw = -1 for a
+// negative code, else +1.  Integer sums
 // are exact in any order: the result is bit-identical to the plain version
 // (ref.stoch_gemm_codes_ref) for every generator pair and every code.
 // stoch_matmul.cu keeps the TPU kernel's packed interface and codes
@@ -101,7 +103,7 @@ namespace {
 
 using namespace hopper;
 
-constexpr int TABLE = 129;  // streams of magnitudes 0..128 (128: code -128)
+constexpr int TABLE = 129;  // streams of magnitudes 0..127, then row 128: code -128's
 // A stream table sits in shared memory as 8 interleaved copies, entry e of
 // copy j at 16-byte slot 8 e + j, and lane l reads copy l % 8: the 8 lanes
 // of a quarter warp, which one 16-byte load serves together, then fall on

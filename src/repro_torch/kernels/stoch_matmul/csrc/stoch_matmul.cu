@@ -19,10 +19,11 @@
 // * Packed: words and int8 signs as bts_encode writes them.
 // * Codes: int8 codes, expanded while the tile is staged.  At phase 0 a
 //   code's stream is a fixed function of its magnitude: the block copies
-//   the generator's table of 129 streams (magnitudes 0..128, 16 bytes
-//   each, built by the wrapper from core/bitstream.py's encode, so the two
-//   cannot differ) into shared memory once, and a code c stages as
-//   table[|c|] with sign c < 0 ? -1 : +1 (zero: the empty stream, sign +1,
+//   the generator's table of 129 streams (magnitudes 0..127, then row
+//   128, code -128's; 16 bytes each, built by the wrapper from
+//   core/bitstream.py's encode and encode_signed, so the two cannot
+//   differ) into shared memory once, and a code c stages as table[|c|]
+//   with sign c < 0 ? -1 : +1 (zero: the empty stream, sign +1; every code
 //   as encode_signed gives it).  A codes form loads its tiles as unrolled
 //   runs, so each K step's global loads are in flight together and the
 //   table lookups hide behind them.

@@ -26,8 +26,11 @@ themselves.  ``stoch_matmul`` takes quantized activations and a weight's
 cached codes (``core.ossm.WeightCodes``) and dequantizes as ``((acc * 128)
 * xs) * ws``, the reference's order.  On CPU tensors the entries run their
 plain versions (``ref.py``: sign planes and ``same - opp`` for the codes x
-codes entries; ``bts_encode_ref`` then the packed product for the codes x
-streams entry); on CUDA tensors they launch their kernel or raise.
+codes entries; ``core.bitstream.encode_signed`` then the packed product
+for the codes x streams entry); on CUDA tensors they launch their kernel
+or raise.  A code -128, which ``quantize`` never gives, stages as the
+reference's ``encode_signed`` gives it, on every entry that reads codes
+(:func:`stream_table`).
 """
 from __future__ import annotations
 
@@ -35,7 +38,7 @@ import ctypes
 
 import torch
 
-from repro_torch.core.bitstream import N_WORDS, STREAM_LEN, encode
+from repro_torch.core.bitstream import N_WORDS, STREAM_LEN, encode, encode_signed
 from repro_torch.core.ossm import W_GEN, X_GEN, WeightCodes
 from repro_torch.core.quant import QTensor
 from repro_torch.kernels import _build
@@ -46,8 +49,9 @@ from repro_torch.kernels.stoch_matmul.ref import (
 _BK = 16  # stoch_matmul.cu's K step; split-K chunks are multiples of it
 # (BM, BN) of the kernel's two tile configurations, indexed by ``cfg``
 _TILES = {0: (8, 128), 1: (64, 64)}
-# magnitudes a code can have: quantize's codes reach 127, and an int8
-# -128 has magnitude 128 (encode gives it the full stream)
+# rows of a stream table: magnitudes 0..127 (quantize's codes reach
+# +-127), then row 128, the stream of an int8 -128 (encode_signed's, whose
+# wrapped magnitude -128 gives no full stream: see stream_table)
 TABLE_LEN = 129
 _tables = {}  # (device, generator) -> the generator's stream table on it
 
@@ -76,15 +80,21 @@ def _gemm_lib():
 
 
 def stream_table(generator: str, device="cpu") -> torch.Tensor:
-    """The packed stream of every magnitude 0..128 under ``generator``:
-    ``core.bitstream.encode(arange(129), generator)``, ``[129, 4]`` int32
-    (uint32 bit patterns).  The kernel stages a code ``c`` as row ``|c|``
-    with sign ``c < 0 ? -1 : +1``, which is what ``encode_signed`` gives at
-    phase 0.  Built once per device and generator."""
+    """The packed stream the kernels stage for each code magnitude under
+    ``generator``, ``[129, 4]`` int32 (uint32 bit patterns): row ``m <
+    128`` is ``core.bitstream.encode(m)``, and row 128 is what
+    ``encode_signed`` gives an int8 -128 (its wrapped magnitude through the
+    generator's formula: ``[1, 1, 1, 1]`` under bresenham, the empty
+    stream under thermometer and lfsr).  The kernels stage a code ``c`` as
+    row ``|c|`` with sign ``c < 0 ? -1 : +1``, so every int8 code stages as
+    ``encode_signed`` gives it at phase 0.  Built once per device and
+    generator."""
     device = torch.device(device)
     key = (device, generator)
     if key not in _tables:
-        _tables[key] = encode(torch.arange(TABLE_LEN), generator).to(device)
+        rows = encode(torch.arange(TABLE_LEN - 1), generator)
+        minus_128, _ = encode_signed(torch.tensor([-128], dtype=torch.int8), generator)
+        _tables[key] = torch.cat([rows, minus_128]).to(device)
     return _tables[key]
 
 
@@ -189,8 +199,9 @@ def stoch_matmul_codes(xq: torch.Tensor, ws: torch.Tensor, sw: torch.Tensor,
                        x_gen: str = X_GEN) -> torch.Tensor:
     """int8 activation codes ``xq [M, K]`` against a weight's streams ``ws
     [N, K, 4]`` (int32) and signs ``sw [N, K]`` (int8) -> int32 ``[M, N]``:
-    what ``bts_encode(xq, x_gen)`` then ``stoch_matmul_packed`` give, with
-    the codes encoded while the kernel stages its tiles."""
+    what ``encode_signed(xq, x_gen)`` then ``stoch_matmul_packed`` give
+    (``bts_encode`` differs from it only at -128), with the codes encoded
+    while the kernel stages its tiles."""
     tensors = (xq, ws, sw)
     if _check_device(tensors, "stoch_matmul_codes"):
         return stoch_matmul_codes_ref(xq, ws, sw, x_gen)

@@ -6,8 +6,8 @@ bits; this version counts the bits of each ANDed word instead (the same
 integers) and walks N in chunks, so the ``[M, N, K, 4]`` intermediate of a
 full-width ``lm_head`` never exists at once.  Slow by design; the kernel
 must match it bit for bit.  The plain version of the codes x streams
-entry encodes its codes with ``bts_encode_ref`` first, as the kernel's
-table does.  :func:`stoch_gemm_codes_ref` is the plain version of the
+entry encodes its codes with ``core.bitstream.encode_signed`` first, as
+the kernel's table does (at -128 too, where ``bts_encode`` differs).  :func:`stoch_gemm_codes_ref` is the plain version of the
 binary tensor-core kernel (``csrc/stoch_gemm_sm90.cu``, codes against
 codes): its arithmetic, sign planes and ``same - opp``.
 """
@@ -17,10 +17,9 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.core.bitstream import STREAM_LEN, encode, encode_signed, popcount, unpack_bits
+from repro_torch.core.bitstream import STREAM_LEN, encode_signed, popcount, unpack_bits
 from repro_torch.core.ossm import W_GEN, X_GEN
 from repro_torch.core.quant import QTensor
-from repro_torch.kernels.bts_encode.ref import bts_encode_ref
 
 _CHUNK = 1 << 25  # AND-ed words per step of the walk over N
 
@@ -46,17 +45,17 @@ def stoch_matmul_codes_ref(xq: torch.Tensor, ws: torch.Tensor, sw: torch.Tensor,
                            x_gen: str = X_GEN) -> torch.Tensor:
     """int8 codes ``xq [M, K]`` against streams ``ws [N, K, 4]`` and signs
     ``sw [N, K]`` -> int32 ``[M, N]``."""
-    xs, sx = bts_encode_ref(xq, x_gen)
-    return stoch_matmul_packed_ref(xs, sx, ws, sw)
+    xs, sx = encode_signed(xq, x_gen)
+    return stoch_matmul_packed_ref(xs, sx.to(torch.int8), ws, sw)
 
 
 def sign_planes(q: torch.Tensor, generator: str) -> Tuple[torch.Tensor, torch.Tensor]:
     """int8 codes ``[...]`` -> their sign planes ``(P, N)``, each ``[..., 4]``
-    int32 words: the code's stream (``encode(|q|)``, phase 0) in ``P`` when
-    the code is not negative and in ``N`` when it is, zeros in the other."""
-    q32 = q.to(torch.int32)
-    words = encode(q32.abs(), generator)
-    neg = (q32 < 0)[..., None]
+    int32 words: the code's stream (``encode_signed``'s, phase 0; at -128
+    the reference's wrapped one) in ``P`` when the code is not negative and
+    in ``N`` when it is, zeros in the other."""
+    words, _ = encode_signed(q.to(torch.int8), generator)
+    neg = (q < 0)[..., None]
     zero = torch.zeros_like(words)
     return torch.where(neg, zero, words), torch.where(neg, words, zero)
 

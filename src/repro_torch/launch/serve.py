@@ -5,14 +5,21 @@ tokens from ``--seed``) into ``ServeEngine`` on the paged KV pool
 (``--kv-block-size`` > 0, 16 by default) or on dense per-slot caches
 (``--kv-block-size 0``) and reports measured tok/s, mean TTFT, the pool
 and prefix-cache counters, and how many times each hand-written kernel
-launched.  Weights are random (``init_params`` from ``--seed``).  Runs on
-the card unless ``--device cpu``; ``--attn-impl flash`` (the default)
-routes attention through the kernels (paged attention, or flash
-attention and the dense decode kernel on the dense layout).
+launched, then each request's modeled cost on the ASTRA photonic chip
+(the paper's simulator, not a measurement of the serving device) and the
+sites that modeled energy goes to.  Weights are random (``init_params``
+from ``--seed``).  Runs on the card unless ``--device cpu``;
+``--attn-impl flash`` (the default) routes attention through the kernels
+(paged attention, or flash attention and the dense decode kernel on the
+dense layout).
 ``--calibrate`` bakes static
 activation and KV scales into the plan from one exact pass over the run's
 packed prompts (which turns prefix reuse back on under ``int8``/``mixed``);
 ``--kv-quant int8`` then stores the pool as int8 blocks.
+``--prefill-chunk-tokens N`` admits through the chunked-prefill scheduler
+(prompts fed in chunks of a per-round budget of N tokens shared with
+decode) and prints its counters; ``--no-degraded-mode`` makes a paged
+engine raise where admission would wedge instead of shedding load.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \
       --mode int8 --batch 12 --prompt-mix 96,256,384 --gen 32 --max-slots 8
@@ -26,6 +33,8 @@ packed prompts (which turns prefix reuse back on under ``int8``/``mixed``);
   PYTHONPATH=src python -m repro_torch.launch.serve --mode int8 --calibrate --kv-quant int8
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu --mode int8 \
       --calibrate --kv-quant int8
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+      --prefill-chunk-tokens 8 --prompt-mix 5,12,20 --batch 5 --max-slots 3
 """
 from __future__ import annotations
 
@@ -137,12 +146,29 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--kv-quant", default="none", choices=list(ModelOptions.KV_QUANTS),
                     help="int8 = int8 KV pool with the calibrated scales (needs "
                          "--calibrate, or a plan that carries them)")
+    ap.add_argument("--prefill-chunk-tokens", type=int, default=0,
+                    help="chunked-prefill scheduler token budget per round; 0 = blocking "
+                         "full-prompt admission")
+    ap.add_argument("--no-degraded-mode", action="store_true",
+                    help="disable the pool-pressure ladder: a stalled paged admission "
+                         "then raises instead of flushing the prefix cache / shedding load")
     return ap
+
+
+def check_flags(ap: argparse.ArgumentParser, args) -> None:
+    """The reference CLI's refusals of flags that cannot apply."""
+    if args.no_degraded_mode and args.kv_block_size == 0:
+        ap.error("--no-degraded-mode only applies to the paged KV cache; the dense layout "
+                 "has no block pool, hence no pressure ladder to disable")
+    if args.prefill_chunk_tokens < 0:
+        ap.error(f"--prefill-chunk-tokens: {args.prefill_chunk_tokens} is negative; pass a "
+                 "per-round token budget or 0 for blocking full-prompt admission")
 
 
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
+    check_flags(ap, args)
     try:
         plan = ExecutionPlan.from_spec(args.plan or args.mode)
     except (ValueError, TypeError) as e:
@@ -170,7 +196,8 @@ def main(argv=None):
         chunk_steps=args.chunk_steps, sampler=SamplerConfig(args.temperature, args.top_k),
         seed=args.seed, kv_block_size=args.kv_block_size,
         kv_pool_blocks=args.kv_pool_blocks, prefix_cache=not args.no_prefix_cache,
-        kv_quant=args.kv_quant)
+        kv_quant=args.kv_quant, prefill_chunk_tokens=args.prefill_chunk_tokens,
+        degraded_mode=not args.no_degraded_mode)
     try:
         engine = ServeEngine(model, params, serve_cfg, device=model.device)
     except (NotImplementedError, ValueError) as e:  # a refused configuration
@@ -201,8 +228,34 @@ def main(argv=None):
     if ps:
         print(f"  prefix cache: {ps['hits']} hits / {ps['misses']} misses, "
               f"{ps['hit_tokens']} prompt tokens reused, {ps['evictions']} evictions")
+    sched = engine.scheduler_stats
+    if sched["active"]:
+        print(f"  scheduler: budget {sched['token_budget']} tok/round, "
+              f"{sched['prefill_chunks']} prefill chunks / {sched['prefill_tokens']} tokens "
+              f"over {sched['rounds']} rounds ({sched['starved_rounds']} decode-saturated)")
     print(f"  kernel launches: {launch_counts()}")
+    print_hardware(outs)
     return outs
+
+
+def print_hardware(outs) -> None:
+    """Each request's modeled ASTRA cost and the five sites with the most
+    modeled energy over all of them: the photonic chip's, as the paper's
+    simulator gives it, not the serving device's."""
+    site_energy: dict = {}
+    for o in outs:
+        hw = o.hardware
+        print(f"  req {o.request_id}: prompt {o.prompt.shape[-1]:>4} gen {o.gen_len:>3} | "
+              f"modeled ASTRA chip: latency {hw.latency_s * 1e6:.3f} us, energy "
+              f"{hw.energy_j * 1e3:.3f} mJ, {hw.energy_per_mac_j * 1e12:.3f} pJ/MAC"
+              + (f" ({hw.cached_prompt_tokens} prompt tokens from the prefix cache, "
+                 "billed at zero)" if hw.cached_prompt_tokens else ""))
+        for site, e in hw.energy_by_site:
+            site_energy[site] = site_energy.get(site, 0.0) + e
+    top = sorted(site_energy.items(), key=lambda kv: -kv[1])[:5]
+    total = sum(site_energy.values()) or 1.0
+    print("  modeled ASTRA energy by site (top 5): "
+          + ", ".join(f"{s} {e / total * 100:.1f}%" for s, e in top))
 
 
 if __name__ == "__main__":

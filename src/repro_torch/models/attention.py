@@ -14,9 +14,11 @@ Port of ``repro.models.attention`` for this slice:
 
 A dense cache is ``KVCache(k, v)`` with ``[B, n_kv, S_cache, hd]``
 tensors, one row of ``S_cache`` positions per slot; decode writes the new
-token **in place** at each row's ``pos`` (which must be < ``S_cache``:
-the reference's ``dynamic_update_slice`` would clamp an out-of-range
-start, indexing does not, so ``transformer.decode_step`` asserts it).  A
+token **in place** at each row's ``pos``, which must be < ``S_cache``
+where the write is kept (``transformer.decode_step`` asserts it).  A row
+whose write is gated off may sit past the cache; its write lands at
+``S_cache - 1``, where the reference's ``dynamic_update_slice`` clamps it,
+and is put back afterwards.  A
 local layer's cache is a ring of ``S_cache = min(max_len, window)``
 positions: absolute position ``t`` lives at ``t % S_cache`` and every
 resident entry is inside the window, so decode attends to the first
@@ -349,9 +351,10 @@ def attn_decode(p, x: torch.Tensor, cache, pos: torch.Tensor, cfg: ArchConfig, *
                 tables: Optional[BlockTables] = None, use_kernel: bool = False,
                 write: Optional[torch.Tensor] = None):
     """One token per slot (``x [B, 1, D]``, ``pos [B]`` absolute positions)
-    against dense per-slot caches (``KVCache``; global: ``pos < S_cache``,
-    local: the ring at ``pos % S_cache``) or the paged pool (``tables``
-    required; global layers only).  ``write [B]`` bool, on dense caches:
+    against dense per-slot caches (``KVCache``; global: ``pos < S_cache``
+    for a kept write, a gated row's write clamped to ``S_cache - 1`` as the
+    reference's is; local: the ring at ``pos % S_cache``) or the paged pool
+    (``tables`` required; global layers only).  ``write [B]`` bool, on dense caches:
     only those rows keep their token's entry; the others attend with it
     and then get their old entry back (None = all keep it).  Returns
     (out [B, 1, D], cache)."""
@@ -380,7 +383,12 @@ def attn_decode(p, x: torch.Tensor, cache, pos: torch.Tensor, cfg: ArchConfig, *
         if kind == "local":  # the ring wraps; every resident entry is in the window
             slot, kv_len = pos % s_cache, torch.clamp(kv_len, max=s_cache)
         else:
-            slot = pos
+            # a gated row can sit past the cache (a chunked-prefill window
+            # narrower than its bucket, a row riding along): the reference's
+            # dynamic_update_slice clamps its write to S_cache - 1, and its
+            # kv_len = pos + 1 masks nothing past the cache, which
+            # kv_len = S_cache says without reading past it
+            slot, kv_len = torch.clamp(pos, max=s_cache - 1), torch.clamp(kv_len, max=s_cache)
         rows = torch.arange(b, device=x.device)
         # rows that must not keep their write still attend with it, as in
         # the reference (whose caller selects the old state afterwards):

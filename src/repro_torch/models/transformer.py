@@ -238,11 +238,14 @@ def decode_step(params, token: torch.Tensor, states, pos: torch.Tensor, cfg: Arc
     glob = next((st for st, kind in zip(states["layers"], cfg.layer_kinds)
                  if kind == "attn" and isinstance(st, attn.KVCache)), None)
     if glob is not None:
-        # indexing does not clamp as dynamic_update_slice does: check the
-        # write positions once for every global layer, on the device (no
-        # sync); local rings wrap and recurrent states have no positions
-        torch._assert_async(torch.as_tensor(pos, device=glob.k.device).max()
-                            < glob.k.shape[2],
+        # a kept write past the cache would be clamped onto the last
+        # position: check the kept rows once for every global layer, on the
+        # device (no sync); gated rows are clamped and put back (attention),
+        # local rings wrap and recurrent states have no positions
+        past = torch.as_tensor(pos, device=glob.k.device) >= glob.k.shape[2]
+        if write is not None:
+            past = past & write.to(past.device)
+        torch._assert_async(~past.any(),
                             "decode position past the dense cache (pos >= S_cache)")
     x = embed_tokens(params["embedding"], token, cfg)
     use_kernel = opts.attn_impl == "flash"

@@ -8,6 +8,13 @@ brings each step's tokens to the host as it goes.  Both return
 ``(toks [B, steps], finite [B], (next_tok, states, pos, gen))``.
 Positions advance for every slot, free ones included, as in the
 reference: their writes land in the scratch block.
+
+``active`` (optional ``[B]`` bool) gates each slot's state updates: an
+inactive slot's dense cache writes are put back (``decode(write=...)``)
+and its recurrent states selected back, so its state stays exactly as it
+was.  The engine passes it on dense caches while a ``PREFILLING`` slot is
+present, so ride-along decode cannot touch a half-prefilled slot; on the
+paged pool a prefilling slot's table row points at the scratch block.
 """
 from __future__ import annotations
 
@@ -16,25 +23,27 @@ from typing import Optional
 import torch
 
 from repro_torch.serve.sampling import SamplerConfig, sample_next_token
-from repro_torch.serve.slots import finite_mask
+from repro_torch.serve.slots import finite_mask, select_states
 
 
-def _step(model, params, tok, states, pos, gen, sampler, tables):
-    logits, states = model.decode(params, tok, states, pos, block_tables=tables)
+def _step(model, params, tok, states, pos, gen, sampler, tables, active):
+    logits, new = model.decode(params, tok, states, pos, block_tables=tables, write=active)
+    states = new if active is None else select_states(new, states, active)
     nxt = sample_next_token(logits, sampler, gen, model.cfg)
     return nxt, states, finite_mask(logits)
 
 
 def make_fused_decode(model):
-    """``fused(params, tok, states, pos, gen, steps, sampler, tables=None)``
-    for ``model``."""
+    """``fused(params, tok, states, pos, gen, steps, sampler, tables=None,
+    active=None)`` for ``model``."""
 
     def fused(params, tok, states, pos, gen: Optional[torch.Generator], steps: int,
-              sampler: SamplerConfig, tables=None):
+              sampler: SamplerConfig, tables=None, active: Optional[torch.Tensor] = None):
         finite = torch.ones(tok.shape[0], dtype=torch.bool, device=tok.device)
         out = []
         for _ in range(steps):
-            tok, states, fin = _step(model, params, tok, states, pos, gen, sampler, tables)
+            tok, states, fin = _step(model, params, tok, states, pos, gen, sampler, tables,
+                                     active)
             finite &= fin
             out.append(tok)
             pos = pos + 1
@@ -45,12 +54,13 @@ def make_fused_decode(model):
 
 
 def unfused_decode(model, params, tok, states, pos, gen, steps: int,
-                   sampler: SamplerConfig, tables=None):
+                   sampler: SamplerConfig, tables=None, active: Optional[torch.Tensor] = None):
     """The oracle loop: each step's tokens reach the host before the next."""
     finite = torch.ones(tok.shape[0], dtype=torch.bool, device=tok.device)
     out = []
     for _ in range(steps):
-        tok, states, fin = _step(model, params, tok, states, pos, gen, sampler, tables)
+        tok, states, fin = _step(model, params, tok, states, pos, gen, sampler, tables,
+                                 active)
         finite &= fin
         out.append(tok.cpu())
         pos = pos + 1

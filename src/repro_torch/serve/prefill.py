@@ -21,6 +21,11 @@ as is.  Two dense strategies, chosen per architecture by
   of its ring).  The dense caches are written in place, so the gate goes
   into decode itself (``write``): a gated row attends with its new entry,
   as in the reference, and its old entry is put back afterwards.
+
+The chunked-prefill scheduler adds :func:`prefill_window`, the masked
+scan windowed over the engine's own state with a start per slot; the
+paged layout chunks through :func:`prefill_paged_suffix`, whose starts may
+sit anywhere inside a block.
 """
 from __future__ import annotations
 
@@ -76,18 +81,35 @@ def prefill_full_seq(model, params, tokens: torch.Tensor, lengths: torch.Tensor,
 
 def prefill_scan(model, params, tokens: torch.Tensor, lengths: torch.Tensor, max_len: int):
     """Token-by-token prefill from zeroed states with per-slot masked
-    updates: step ``t`` feeds every row its token ``t`` at position ``t``;
-    rows with ``t >= length`` keep their states (decode puts their cache
-    entries back, their recurrent states are selected back) and their last
-    logits.  Returns (last_logits [B, 1, V], states of batch B)."""
+    updates: :func:`prefill_window` from position 0 over fresh states of
+    batch B.  Returns (last_logits [B, 1, V], states)."""
+    b = tokens.shape[0]
+    starts = torch.zeros(b, dtype=torch.int64, device=tokens.device)
+    return prefill_window(model, params, tokens, starts, lengths,
+                          model.init_decode_state(b, max_len))
+
+
+def prefill_window(model, params, tokens: torch.Tensor, starts: torch.Tensor,
+                   lengths: torch.Tensor, states):
+    """One chunked-prefill window over the engine's whole dense state (the
+    windowed :func:`prefill_scan`): step ``t`` feeds row ``b`` its token
+    ``tokens[b, t]`` at position ``starts[b] + t``, its cache write kept
+    and its recurrent states taken only while ``t < lengths[b]``.  Every
+    row runs, decoding and free ones included (``lengths[b] == 0``): under
+    dynamic int8 scales the activation absmax spans all of them, as in the
+    reference.  A gated row past the dense cache writes at its last
+    position and gets it back (``attention.attn_decode``).  ``tokens [B,
+    L]`` is right-padded per row.  Returns (logits at each row's ``t ==
+    lengths[b] - 1`` ``[B, 1, V]``, meaningful only where a chunk ends
+    there; the states, updated in place where they can be)."""
     b, s = tokens.shape
-    states = model.init_decode_state(b, max_len)
-    lengths = lengths.to(tokens.device)
-    last = torch.zeros((b, 1, model.cfg.vocab), dtype=torch.float32, device=tokens.device)
+    dev = tokens.device
+    starts = starts.to(dev).long()
+    lengths = lengths.to(dev)
+    last = torch.zeros((b, 1, model.cfg.vocab), dtype=torch.float32, device=dev)
     for t in range(s):
         active = t < lengths
-        logits, new = model.decode(params, tokens[:, t:t + 1], states,
-                                   torch.full((b,), t, dtype=torch.int64, device=tokens.device),
+        logits, new = model.decode(params, tokens[:, t:t + 1], states, starts + t,
                                    write=active)
         states = select_states(new, states, active)
         last = torch.where((t == lengths - 1)[:, None, None], logits, last)

@@ -34,7 +34,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core.bitstream import GENERATORS  # noqa: E402
+from repro_torch.core.bitstream import GENERATORS, encode_signed  # noqa: E402
 from repro_torch.kernels.bts_encode import bts_encode  # noqa: E402
 from repro_torch.kernels.bts_encode.ref import bts_encode_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
@@ -384,11 +384,12 @@ def test_int8_batched_kernel_bit_exact_on_card(cuda, b, m, k, n, path):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(255,), (37, 50), (2048, 5632)])
+@pytest.mark.parametrize("shape", [(255,), (256,), (37, 50), (2048, 5632)])
 @pytest.mark.parametrize("gen", GENERATORS)
 def test_bts_encode_kernel_bit_exact_on_card(cuda, gen, shape):
-    q = torch.arange(-127, 128, dtype=torch.int8, device=cuda)
-    if shape != (255,):
+    """(256,): every int8 code, -128 with the Pallas encoder's full stream."""
+    q = torch.arange(-128 if shape == (256,) else -127, 128, device=cuda).to(torch.int8)
+    if len(shape) > 1:
         g = torch.Generator(device=cuda).manual_seed(2)
         q = torch.randint(-127, 128, shape, generator=g, device=cuda, dtype=torch.int8)
     words, sign = bts_encode(q, gen)
@@ -463,9 +464,9 @@ GEMM_SERVING = [(8, 2048, 2048, "stream"), (8, 5632, 2048, "stream"), (8, 2048, 
                          + [(*e, *PAIRS[i]) for i, e in enumerate(GEMM_SERVING)])
 def test_stoch_gemm_codes_kernel_bit_exact_on_card(cuda, m, k, n, kernel, x_gen, w_gen):
     """Codes against codes on the binary tensor cores: int32 accumulators
-    equal both operands' ``bts_encode_ref`` then the packed plain
-    version's, every int8 code on both sides; the kernel the plan picks is
-    the one counted."""
+    equal both operands' ``encode_signed`` (the reference's staging: -128
+    wraps) then the packed plain version's, every int8 code on both sides;
+    the kernel the plan picks is the one counted."""
     xq, wq = _all_codes(cuda, m, k, 11), _all_codes(cuda, n, k, 12)
     fn = sm_ops.stoch_gemm_codes
     assert sm_ops.stoch_gemm_plan(m, n, k, torch.cuda.get_device_properties(
@@ -473,9 +474,9 @@ def test_stoch_gemm_codes_kernel_bit_exact_on_card(cuda, m, k, n, kernel, x_gen,
     before = dict(fn.paths)
     got = fn(xq, wq, x_gen, w_gen)
     assert {p: c - before[p] for p, c in fn.paths.items() if c != before[p]} == {kernel: 1}
-    xs, sx = bts_encode_ref(xq, x_gen)
-    ws, sw = bts_encode_ref(wq, w_gen)
-    assert torch.equal(got, stoch_matmul_packed_ref(xs, sx, ws, sw))
+    (xs, sx), (ws, sw) = encode_signed(xq, x_gen), encode_signed(wq, w_gen)
+    assert torch.equal(got, stoch_matmul_packed_ref(xs, sx.to(torch.int8), ws,
+                                                    sw.to(torch.int8)))
 
 
 @pytest.mark.gpu

@@ -109,6 +109,21 @@ def test_encode_signed_bit_identical(gen):
     assert not words[CODES == 0].any()
 
 
+@pytest.mark.parametrize("gen", GENS)
+def test_encode_signed_minus_128_bit_identical(gen):
+    """int8 -128, which quantize never gives: the reference's ``jnp.abs``
+    wraps it to -128, and the generator's formula then gives bresenham
+    ``[1, 1, 1, 1]`` and thermometer / lfsr the empty stream, sign -1; the
+    port follows the same arithmetic."""
+    q = np.array([-128, -127, 0, 127], np.int8)
+    words, sign = bitstream.encode_signed(torch.from_numpy(q), gen)
+    jw, js = jbits.encode_signed(jnp.asarray(q), gen)
+    np.testing.assert_array_equal(_u32(words), np.asarray(jw))
+    np.testing.assert_array_equal(sign.numpy(), np.asarray(js))
+    assert _u32(words)[0].tolist() == ([1] * 4 if gen == "bresenham" else [0] * 4)
+    assert sign[0] == -1
+
+
 def test_pack_bits_and_popcount_match_reference(rng):
     bits = rng.integers(0, 2, (6, 5, 128)).astype(np.int32)
     words = bitstream.pack_bits(torch.from_numpy(bits))

@@ -5,9 +5,11 @@ Both kernels (``csrc/stoch_matmul.cu``'s codes form and the binary
 tensor-core kernel of ``csrc/stoch_gemm_sm90.cu``) read int8 codes and
 stage each as ``table[|c|]`` with sign ``c < 0 ? -1 : +1``, from
 :func:`stream_table`: so the tables, and that staging rule over every
-code quantize gives, are held here against the reference's ``encode`` /
-``encode_signed``.  The entries themselves run their plain versions on a
-CPU tensor (codes against streams: ``bts_encode_ref`` then
+int8 code (-128 included), are held here against the reference's
+``encode`` / ``encode_signed``.  ``bts_encode`` keeps the reference
+Pallas kernel's answer at -128 (the full stream), held against that
+kernel in interpret mode.  The entries themselves run their plain
+versions on a CPU tensor (codes against streams: ``encode_signed`` then
 ``stoch_matmul_packed_ref``; codes against codes: the sign-plane product
 ``stoch_gemm_codes_ref``), held against the reference's ``stoch_matmul``
 (the Pallas kernel in interpret mode) at ragged shapes under several
@@ -25,12 +27,14 @@ import numpy as np  # noqa: E402
 
 from repro.core import bitstream as jbits  # noqa: E402
 from repro.core.quant import QTensor as JaxQTensor  # noqa: E402
+from repro.kernels.bts_encode.ops import bts_encode as jax_bts_encode  # noqa: E402
 from repro.kernels.stoch_matmul.ops import stoch_matmul as jax_stoch_matmul  # noqa: E402
 from repro_torch.core.bitstream import GENERATORS  # noqa: E402
 from repro_torch.core.bitstream import popcount as bitstream_popcount  # noqa: E402
 from repro_torch.core.ossm import WeightCodes  # noqa: E402
 from repro_torch.core.quant import QTensor  # noqa: E402
 from repro_torch.kernels import launch_counts  # noqa: E402
+from repro_torch.kernels.bts_encode import bts_encode  # noqa: E402
 from repro_torch.kernels.bts_encode.ref import bts_encode_ref  # noqa: E402
 from repro_torch.kernels.stoch_matmul import ops as sm_ops  # noqa: E402
 
@@ -52,31 +56,52 @@ def _want(xq: np.ndarray, wq: np.ndarray, x_gen: str, w_gen: str) -> np.ndarray:
 
 @pytest.mark.parametrize("gen", GENERATORS)
 def test_stream_table_equals_reference_encode(gen):
-    """Every magnitude 0..128 (128: an int8 -128) under each generator."""
+    """Every magnitude 0..127 under each generator, then row 128: the
+    reference's ``encode_signed`` of an int8 -128 (its magnitude wraps to
+    -128 in int8: ``[1, 1, 1, 1]`` under bresenham, empty otherwise)."""
     table = sm_ops.stream_table(gen)
     assert table.dtype == torch.int32 and table.shape == (sm_ops.TABLE_LEN, 4) == (129, 4)
-    want = np.asarray(jbits.encode(jnp.arange(129, dtype=jnp.int32), gen))
-    np.testing.assert_array_equal(table.numpy().view(np.uint32), want)
+    want = np.asarray(jbits.encode(jnp.arange(128, dtype=jnp.int32), gen))
+    np.testing.assert_array_equal(table[:128].numpy().view(np.uint32), want)
+    jw, _ = jbits.encode_signed(jnp.asarray([-128], jnp.int8), gen)
+    np.testing.assert_array_equal(table[128:].numpy().view(np.uint32), np.asarray(jw))
+    assert table[128].tolist() == ([1] * 4 if gen == "bresenham" else [0] * 4)
     assert sm_ops.stream_table(gen) is table  # built once per device and generator
 
 
 @pytest.mark.parametrize("gen", GENERATORS)
 def test_table_staging_rule_equals_encode_signed(gen):
     """The kernel's staging of a code c, ``table[|c|]`` with sign ``c < 0 ?
-    -1 : +1``: the reference's ``encode_signed`` over every code quantize
-    gives (-127..127; zero: the empty stream, sign +1), and the port's
-    ``bts_encode_ref`` over every int8 code (-128 included, which quantize
-    never gives: both read magnitude 128, the full stream)."""
-    for lo in (-127, -128):
-        codes = np.arange(lo, 128).astype(np.int8)
-        q = torch.from_numpy(codes)
-        words = sm_ops.stream_table(gen)[q.to(torch.int64).abs()]
-        sign = torch.where(q < 0, -1, 1)
-        ref_w, ref_s = bts_encode_ref(q, gen)
-        assert torch.equal(words, ref_w) and torch.equal(sign.to(torch.int8), ref_s)
-    jw, js = jbits.encode_signed(jnp.asarray(codes[1:]), gen)
-    np.testing.assert_array_equal(words[1:].numpy().view(np.uint32), np.asarray(jw))
-    np.testing.assert_array_equal(sign[1:].numpy(), np.asarray(js))
+    -1 : +1``: the reference's ``encode_signed`` over every int8 code
+    (-128 included, which quantize never gives; zero: the empty stream,
+    sign +1).  The port's ``bts_encode_ref`` agrees on every code quantize
+    gives and keeps the Pallas kernel's full stream at -128."""
+    codes = np.arange(-128, 128).astype(np.int8)
+    q = torch.from_numpy(codes)
+    words = sm_ops.stream_table(gen)[q.to(torch.int64).abs()]
+    sign = torch.where(q < 0, -1, 1)
+    jw, js = jbits.encode_signed(jnp.asarray(codes), gen)
+    np.testing.assert_array_equal(words.numpy().view(np.uint32), np.asarray(jw))
+    np.testing.assert_array_equal(sign.numpy(), np.asarray(js))
+    ref_w, ref_s = bts_encode_ref(q, gen)
+    assert torch.equal(words[1:], ref_w[1:]) and torch.equal(sign.to(torch.int8), ref_s)
+    assert ref_w[0].eq(-1).all()
+
+
+@pytest.mark.parametrize("gen", GENERATORS)
+def test_bts_encode_plain_version_equals_reference_kernel(gen):
+    """The port's ``bts_encode`` on a CPU tensor (its plain version) over
+    every int8 code, against the reference's ``bts_encode_kernel`` in
+    interpret mode, which takes the magnitude in int32: -128 gets the full
+    stream there (not what the reference's ``encode_signed`` gives)."""
+    codes = np.arange(-128, 128).astype(np.int8).reshape(4, 64)
+    jw, js = jax_bts_encode(jnp.asarray(codes), gen, interpret=True)
+    before = launch_counts()
+    words, sign = bts_encode(torch.from_numpy(codes), gen)
+    assert launch_counts() == before
+    np.testing.assert_array_equal(words.numpy().view(np.uint32), np.asarray(jw))
+    np.testing.assert_array_equal(sign.numpy(), np.asarray(js))
+    assert (np.asarray(jw)[0, 0] == 0xFFFFFFFF).all()
 
 
 # ragged (M, K, N) under (x_gen, w_gen): one row, K past the kernel's

@@ -12,9 +12,9 @@ from :func:`~repro_torch.kernels.stoch_matmul.ops.stream_table` when ``c >=
 * the plain version (``ref.stoch_gemm_codes_ref``, which the entries run
   on a CPU tensor) against the reference's ``stoch_matmul`` (the Pallas
   kernel in interpret mode) at ragged shapes, every code -127..127 and
-  zero; code -128, which quantize never gives, against the port's packed
-  plain version (both read magnitude 128, the full stream; the reference's
-  ``encode_signed`` takes ``abs`` in int8, where -128 stays -128);
+  zero; code -128, which quantize never gives, against the same reference
+  (whose ``encode_signed`` takes ``abs`` in int8, where -128 stays -128:
+  the table's row 128 is that stream, not the full one);
 * the prepared ``sc`` weight cache: ``quantize_weight_t``'s codes and
   scales, nothing else;
 * the kernel and K split each shape takes, and the launch counters.
@@ -36,7 +36,7 @@ from repro.core.quant import QTensor as JaxQTensor  # noqa: E402
 from repro.kernels.stoch_matmul.ops import stoch_matmul as jax_stoch_matmul  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core.astra_layer import quantize_weight_t  # noqa: E402
-from repro_torch.core.bitstream import GENERATORS, popcount  # noqa: E402
+from repro_torch.core.bitstream import GENERATORS, encode_signed, popcount  # noqa: E402
 from repro_torch.core.ossm import WeightCodes  # noqa: E402
 from repro_torch.kernels import kernel_wrappers, launch_counts, reset_launches  # noqa: E402
 from repro_torch.kernels.bts_encode.ref import bts_encode_ref  # noqa: E402
@@ -59,21 +59,20 @@ def _kernel_planes(codes: torch.Tensor, gen: str):
 @pytest.mark.parametrize("x_gen,w_gen", PAIRS)
 def test_sign_plane_products_equal_reference_popcount(x_gen, w_gen):
     """same - opp of every code pair (-128..127 on both sides: every
-    magnitude 0..128 with both signs) equals the signed popcount of the
-    reference's streams of the two magnitudes."""
-    mags = jnp.arange(129, dtype=jnp.int32)
-    xw = np.asarray(jbits.encode(mags, x_gen))[:, None, :]
-    ww = np.asarray(jbits.encode(mags, w_gen))[None, :, :]
-    pair = np.vectorize(lambda v: bin(int(v)).count("1"))(xw & ww).sum(-1)  # [129, 129]
+    magnitude 0..127 with both signs, and -128) equals the signed popcount
+    of the reference's ``encode_signed`` streams of the two codes."""
+    c = np.arange(-128, 128)
+    xw, sx = (np.asarray(a) for a in jbits.encode_signed(jnp.asarray(c, jnp.int8), x_gen))
+    ww, sw = (np.asarray(a) for a in jbits.encode_signed(jnp.asarray(c, jnp.int8), w_gen))
+    pair = np.vectorize(lambda v: bin(int(v)).count("1"))(
+        xw[:, None, :] & ww[None, :, :]).sum(-1)  # [256, 256]
     codes = torch.arange(-128, 128).to(torch.int8)
     px, nx = _kernel_planes(codes, x_gen)
     pw, nw = _kernel_planes(codes, w_gen)
     px, nx, pw, nw = px[:, None], nx[:, None], pw[None], nw[None]
     same = popcount(px & pw) + popcount(nx & nw)
     opp = popcount(nx & pw) + popcount(px & nw)
-    c = np.arange(-128, 128)
-    sign = np.where(c < 0, -1, 1)
-    want = sign[:, None] * sign[None, :] * pair[np.abs(c)][:, np.abs(c)]
+    want = sx[:, None] * sw[None, :] * pair
     np.testing.assert_array_equal((same - opp).numpy(), want)
     # the plain version's planes are the kernels', and its signed bits'
     # products the same table
@@ -121,19 +120,29 @@ def test_plain_version_equals_reference_stoch_matmul(rng, mkn):
     assert launch_counts() == before
 
 
-@pytest.mark.parametrize("x_gen,w_gen", [("thermometer", "bresenham"), ("lfsr", "thermometer")])
+@pytest.mark.parametrize("x_gen,w_gen", [("thermometer", "bresenham"), ("lfsr", "thermometer"),
+                                         ("bresenham", "bresenham")])
 def test_plain_version_on_code_minus_128(x_gen, w_gen):
-    """Every int8 code on both sides, -128 included, against the port's
-    packed plain version (``bts_encode_ref``: magnitude 128, the full
-    stream)."""
+    """Every int8 code on both sides, -128 included, against the
+    reference's ``stoch_matmul`` (the Pallas kernel in interpret mode, its
+    operands from the reference's ``encode_signed``, where -128's
+    magnitude wraps), and the port's entries on CPU tensors."""
     codes = torch.arange(-128, 128).to(torch.int8)
     xq = torch.stack([codes, codes.flip(0), codes.roll(37)])
     wq = torch.stack([codes, codes.flip(0), codes.roll(-5), torch.zeros_like(codes)])
+    want = _want(xq.numpy(), wq.numpy().T.copy(), x_gen, w_gen)
+    np.testing.assert_array_equal(sm_ref.stoch_gemm_codes_ref(xq, wq, x_gen, w_gen).numpy(),
+                                  want)
+    np.testing.assert_array_equal(sm_ops.stoch_gemm_codes(xq, wq, x_gen, w_gen).numpy(), want)
+    ws, sw = encode_signed(wq, w_gen)
+    np.testing.assert_array_equal(
+        sm_ops.stoch_matmul_codes(xq, ws, sw.to(torch.int8), x_gen).numpy(), want)
+    assert (want[:, 3] == 0).all()
+    # bts_encode keeps the Pallas encoder's full stream at -128, so the
+    # packed product over its streams differs from the reference's there
     xs, sx = bts_encode_ref(xq, x_gen)
-    ws, sw = bts_encode_ref(wq, w_gen)
-    want = sm_ref.stoch_matmul_packed_ref(xs, sx, ws, sw)
-    assert torch.equal(sm_ref.stoch_gemm_codes_ref(xq, wq, x_gen, w_gen), want)
-    assert want[:, 3].eq(0).all()
+    full = sm_ref.stoch_matmul_packed_ref(xs, sx, *bts_encode_ref(wq, w_gen))
+    assert not np.array_equal(full.numpy(), want)
 
 
 def test_plain_version_walks_n_in_chunks(rng, monkeypatch):
