@@ -20,11 +20,25 @@ recurrentgemma-2b (RG-LRU + sliding-window local attention, head dim
 256) on dense per-slot caches under ``exact`` and ``int8`` (``rg-exact``,
 ``rg-int8``: the ``rglru_scan`` kernel in every recurrent layer's
 prefill, flash attention with window 2048 and dense decode on the
-rings), checking that every request gets its tokens, the logits are
-finite, the prefix cache hits where it may, and that each serving run
-itself launched every kernel of its plan's path and no kernel of the
-other layout.  Reduced float32 models of both families are served on the
-card and on the CPU, and their greedy tokens compared.  One int8
+rings) and on the paged pool (``rg-exact-paged``: the rings through the
+block table, decoded by the paged kernel once per local layer and step,
+admission prefilled dense and scattered into the pools), checking that
+every request gets its tokens, the logits are finite, the prefix cache
+hits where it may, and that each serving run itself launched every
+kernel of its plan's path and no kernel of the other layout (for a
+stateful stack on the pool: none in its decode chunks).  The open-loop
+path ``ServeFrontend`` -> ``EngineSupervisor`` -> ``ServeEngine`` replays
+a mixed traffic trace at full-width stablelm-1.6b in wall time
+(``[traffic]``: TTFT and inter-token latency percentiles while prompts
+are admitted mid-decode) and twice in virtual time, clean and under
+injected step errors, NaN logits and pool pressure with retries
+(``[traffic faults]``: conservation, a clean audit, and the tokens of
+every untouched request admitted in the same packed round as in the
+clean replay equal to the clean replay's; a request whose round moved
+may round otherwise, so those are counted).  Paged decode is timed at
+recurrentgemma's rings (``[time paged decode rg]``).  Reduced float32 models of both families are served on the
+card and on the CPU, and their greedy tokens compared (recurrentgemma on
+dense caches and on the paged pool, its rings wrapping).  One int8
 product runs on ``wgmma`` with TMA-fed tiles at admission and on a
 weight-streaming kernel at decode: both are held bit for bit at every
 serving shape and at each kernel's edges, each model's decode step and
@@ -69,6 +83,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -1042,6 +1057,46 @@ def check_paged_prefill(dev, g) -> None:
                 f"/ 2 blocks): max|kernel-plain| {worst:.2e} <= {tol}")
 
 
+def check_prefill_padding(dev, g) -> None:
+    """A suffix row's output must not depend on the rows packed beside it:
+    the G query heads are folded over the padded suffix length, so the
+    padding decides which rows share a 64-row tile.  For every pool, head
+    dim 64 and 256, G 1, 4 and 10 and softcap 0 and 30, 8 real suffix rows
+    (starts 0 and 32) alone and padded to 24 and 64 rows (the extra rows
+    random) give bit-identical outputs for the real rows."""
+    from repro_torch.kernels.paged_attention import ops as pa
+
+    fn, bs, kvh, w = pa.paged_attention_prefill, BS, 4, 8
+    start = torch.tensor([0, 32], dtype=torch.int32, device=dev)
+    table = (torch.randperm(2 * w, generator=g, device=dev).reshape(2, w) + 1).int()
+    n = 0
+    for name in ("float32", "bfloat16", "int8"):
+        for hd in (HD, 256):
+            if name == "int8":
+                kp, vp, *scales = _int8_pool(g, dev, 2 * w + 1, kvh, hd, bs)
+                qdt = torch.float32
+            else:
+                qdt = getattr(torch, name)
+                kp, vp = (torch.randn(2 * w + 1, kvh, bs, hd, generator=g, device=dev).to(qdt)
+                          for _ in range(2))
+                scales = []
+            for grp in (1, 4, 10):
+                for softcap in (0.0, 30.0):
+                    q = torch.randn(2, kvh * grp, 64, hd, generator=g, device=dev).to(qdt)
+                    alone = fn(q[:, :, :8].contiguous(), kp, vp, table, start, *scales,
+                               softcap=softcap)
+                    for s in (24, 64):
+                        got = fn(q[:, :, :s].contiguous(), kp, vp, table, start, *scales,
+                                 softcap=softcap)[:, :, :8]
+                        # the plain version on the CPU makes no such promise
+                        assert dev.type != "cuda" or torch.equal(got, alone), \
+                            (name, hd, grp, softcap, s)
+                        n += 1
+    log(f"[paged prefill padding] {n} cases (float32 / bf16 / int8 pools, hd {HD} and 256, G "
+        "1/4/10, softcap 0/30, 8 real rows at starts 0 and 32 padded to 24 and 64): the real "
+        "rows' outputs bit-identical to those of the unpadded suffix")
+
+
 def check_dense(dev, g) -> None:
     """Flash attention and dense decode against their plain versions at
     reduced shapes: flash at head dims 16 and 64, G = 1, 2, 4, causal with
@@ -1230,7 +1285,8 @@ RG_TOL = 2e-5
 RG_DECODE_FILLS = [260, 264, 268, 272, 276, 280, 284, 288]  # kv_len of 8 slots mid-run
 # kernel rows timed at recurrentgemma's shapes: their launches are the rg runs'
 RG_ROWS = ("rglru_scan", "rglru_scan_window", "flash_attention_hd256",
-           "dense_attention_decode_hd256", "int8_gemm_rg", "int8_gemm_rg_admission")
+           "dense_attention_decode_hd256", "int8_gemm_rg", "int8_gemm_rg_admission",
+           "paged_attention_decode_rg")
 
 
 def check_rglru(dev, g) -> None:
@@ -1380,6 +1436,80 @@ def time_wide_attention(dev, g, timer=time_ms) -> dict:
     return out
 
 
+def time_rg_paged_decode(dev, g, timer=time_ms) -> dict:
+    """Paged decode at recurrentgemma-2b's local rings on the pool: 8 slots
+    x 10 query heads over 1 KV head of 256, each slot's 2048-position ring
+    through a 128-wide table of 16-position blocks (distinct random
+    physical blocks), kv_len ``RG_DECODE_FILLS`` (260-288: the split plan,
+    chosen from the table's 2048 positions alone, leaves most splits with
+    no live key).  Held against ``paged_decode_ref`` on a bf16 pool
+    (``BF16_TOL``, ``SERVING_DRAWS`` draws) and on an int8 pool with
+    per-head scales (float32 queries, ``INT8_POOL_TOL``); timed on the bf16
+    pool beside its bound (q read and o written once, the live keys' K and
+    V and their table entries read once), the plain version,
+    ``scaled_dot_product_attention`` over the gathered ring with a length
+    mask (the gather made before the timing) and, for the log, the dense
+    decode kernel over the same ring laid out contiguously."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from repro_torch.kernels.paged_attention import ops as pa
+    from repro_torch.kernels.paged_attention.ref import paged_decode_ref
+
+    fn = pa.paged_attention_decode
+    w = RG_WINDOW // BS
+    nb = 8 * w + 1
+    kv_len = torch.tensor(RG_DECODE_FILLS, dtype=torch.int32, device=dev)
+    table = (torch.randperm(nb - 1, generator=g, device=dev).reshape(8, w) + 1).int()
+    errs = []
+    for _ in range(SERVING_DRAWS):
+        q = torch.randn(8, RG_H, RG_HD, generator=g, device=dev).bfloat16()
+        kp, vp = (torch.randn(nb, 1, BS, RG_HD, generator=g, device=dev).bfloat16()
+                  for _ in range(2))
+        before = fn.launches
+        err, sh = held(fn(q, kp, vp, table, kv_len), paged_decode_ref(q, kp, vp, table, kv_len),
+                       BF16_TOL)
+        assert sh <= 1 and fn.launches == before + (dev.type == "cuda"), \
+            ("paged decode at recurrentgemma's rings", err, sh)
+        errs.append(err)
+    ki, vi, ks, vs = _int8_pool(g, dev, nb, 1, RG_HD)
+    qf = torch.randn(8, RG_H, RG_HD, generator=g, device=dev)
+    before = fn.int8_launches
+    err8, sh8 = held(fn(qf, ki, vi, table, kv_len, ks, vs),
+                     paged_decode_ref(qf, ki, vi, table, kv_len, k_scale=ks, v_scale=vs),
+                     INT8_POOL_TOL)
+    assert sh8 <= 1 and fn.int8_launches == before + (dev.type == "cuda"), \
+        ("int8 pool at recurrentgemma's rings", err8, sh8)
+    err = max(errs)
+
+    def ring(pool):  # [8, 1, 2048, 256]: each slot's ring gathered through the table
+        return pool[table.long()].movedim(1, 2).reshape(8, 1, RG_WINDOW, RG_HD)
+
+    kr, vr = ring(kp), ring(vp)
+    ke, ve = kr.expand(8, RG_H, RG_WINDOW, RG_HD), vr.expand(8, RG_H, RG_WINDOW, RG_HD)
+    mask = (torch.arange(RG_WINDOW, device=dev)[None] < kv_len[:, None])[:, None, None]
+    k_ms = timer(lambda: fn(q, kp, vp, table, kv_len))
+    p_ms = timer(lambda: paged_decode_ref(q, kp, vp, table, kv_len))
+    l_ms = timer(lambda: sdpa(q[:, :, None], ke, ve, attn_mask=mask))
+    d_ms = timer(lambda: pa.dense_attention_decode(q, kr, vr, kv_len))
+    fill = sum(RG_DECODE_FILLS)
+    live_blocks = sum(-(-n // BS) for n in RG_DECODE_FILLS)
+    n_bytes = 2 * q.numel() * 2 + 2 * fill * RG_HD * 2 + live_blocks * 4 + kv_len.numel() * 4
+    b_ms, b_by = bound_ms(n_bytes, 4 * fill * RG_H * RG_HD, "bf16")
+    log(f"[time paged decode rg] B=8 H={RG_H} KV=1 hd={RG_HD} bf16 ring {RG_WINDOW} through a "
+        f"{w}-wide table of {BS}-position blocks, kv_len {RG_DECODE_FILLS}, "
+        f"{decode_splits(dev, 8, 1, w * BS)} splits: max|kernel-plain| per draw "
+        f"{', '.join(f'{e:.2e}' for e in errs)} (<= {BF16_TOL}); int8 pool, float32 q: "
+        f"{err8:.2e} (<= {INT8_POOL_TOL}); kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} bound_ms "
+        f"{b_ms:.4f} ({b_by}, {b_ms / k_ms:.1%} of it) library_ms {l_ms:.4f} "
+        "(scaled_dot_product_attention over the gathered ring with a length mask); dense "
+        f"decode kernel over the same ring, contiguous: {d_ms:.4f} ms")
+    return {"paged_attention_decode_rg": dict(
+        name="paged_attention_decode_rg", route="cuda", wrapper="paged_attention_decode",
+        source=SRC_DECODE, replaces="src/repro/kernels/paged_attention/kernel.py:146",
+        max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=l_ms)}
+
+
 def make_prompts(vocab: int, rng) -> list:
     """12 prompts of 96-384 tokens; six share a 256-token prefix, and three
     of those (8-10) are admitted only after the first retirements, so
@@ -1441,20 +1571,65 @@ PLAN_KERNELS = {
     "exact-dense-chunked": ("dense_attention_decode",),
     "rg-exact-short": ("dense_attention_decode",),
     "rg-exact-chunked": ("dense_attention_decode",),
+    # recurrentgemma on the paged pool: its local rings decode through the
+    # paged kernel; admission prefills dense (flash and the scan for the
+    # equal-length round, the masked scan's dense decode steps for the
+    # mixed one) and scatters into the pools
+    "rg-exact-paged": ("paged_attention_decode", "flash_attention", "rglru_scan",
+                       "dense_attention_decode"),
+    # the open-loop replay of a mixed trace (stablelm, paged, prefix on)
+    "traffic": ("paged_attention_decode", "paged_attention_prefill"),
 }
 # kernels a plan's serving path must not launch: mixed's qk/pv (K % 16 ==
 # 0, K <= 4096 at every length it serves) never reach mma.sync; a dense
 # chunked run takes no full-sequence pass
 PLAN_ABSENT = {"mixed": ("int8_gemm_batched_mma",),
+               "rg-exact-paged": ("paged_attention_prefill",),
                "exact-dense-chunked": ("flash_attention", "rglru_scan"),
                "rg-exact-short": ("flash_attention", "rglru_scan"),
                "rg-exact-chunked": ("flash_attention", "rglru_scan")}
-# kernels of one KV layout, which a serving run on the other must not launch
+# kernels of one KV layout, which a serving run on the other must not
+# launch: in the whole run, but for a stateful stack on the paged pool
+# inside its decode chunks only (its admission prefills dense before the
+# scatter into the pools)
 LAYOUT_KERNELS = {
     "paged": ("paged_attention_decode", "paged_attention_prefill",
               "paged_attention_decode_int8", "paged_attention_prefill_int8"),
     "dense": ("flash_attention", "dense_attention_decode"),
 }
+
+
+# each serving run's launches by phase: label -> {"decode": [(steps, launches
+# of that decode chunk)], "admission": [(prompt lengths, launches of that
+# dense packed prefill)]} (filled by serve)
+PHASES = {}
+
+
+def _delta(before: dict, after: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)}
+
+
+def _count_phases(engine, label: str) -> None:
+    """Record ``engine``'s launches per decode chunk and per dense packed
+    prefill into ``PHASES[label]`` (host-side counters: no sync)."""
+    from repro_torch.kernels import launch_counts
+
+    rec = PHASES[label] = {"decode": [], "admission": []}
+    fused, small = engine._fused, engine._packed_prefill_small
+
+    def fused_counted(*a, **kw):
+        before = launch_counts()
+        out = fused(*a, **kw)
+        rec["decode"].append((kw["steps"], _delta(before, launch_counts())))
+        return out
+
+    def small_counted(reqs):
+        before = launch_counts()
+        out = small(reqs)
+        rec["admission"].append(([r.prompt_len for r in reqs], _delta(before, launch_counts())))
+        return out
+
+    engine._fused, engine._packed_prefill_small = fused_counted, small_counted
 
 
 def plain_runs(*plans) -> list:
@@ -1494,6 +1669,10 @@ def serve(cfg, params, prompts, dev, runs, gen: int, max_len: int = 512,
     pool, plans that may reuse prefixes (exact, or static calibrated
     scales) must hit the prefix cache; on dense caches ``kv_stats`` and
     ``prefix_stats`` are empty.  No kernel of the other layout may launch.
+    A stateful stack (recurrent or windowed layers) on the paged pool
+    admits through a dense prefill, so the dense kernels are forbidden in
+    its decode chunks only (``PHASES``), its pools hold only its attention
+    layers' K and V, and its prefix cache is off.
     One run's prepared weight caches (int8 codes, cast copies) are freed
     before the next run's are made.  ``chunk_tokens > 0`` admits through
     the chunked-prefill scheduler at that budget, and some prompt must be
@@ -1507,6 +1686,8 @@ def serve(cfg, params, prompts, dev, runs, gen: int, max_len: int = 512,
     from repro_torch.serve import ServeConfig, ServeEngine
 
     dense = kv_block_size == 0
+    stateful = any(k != "attn" for k in cfg.layer_kinds)
+    n_pools = sum(k in ("attn", "local") for k in cfg.layer_kinds)
     serve_cfg = ServeConfig(max_slots=8, max_len=max_len, chunk_steps=8,
                             kv_block_size=kv_block_size, attn_impl="flash", seed=0,
                             prefill_chunk_tokens=chunk_tokens)
@@ -1521,6 +1702,7 @@ def serve(cfg, params, prompts, dev, runs, gen: int, max_len: int = 512,
             torch.cuda.reset_peak_memory_stats(dev)
         reset_launches()  # from prepare on: the weight encodes count
         engine = ServeEngine(model, params, serve_cfg, device=dev)  # fresh: no warm prefix
+        _count_phases(engine, label)
         _sync(dev)
         prepared = launch_counts()
         t0 = time.perf_counter()
@@ -1544,7 +1726,11 @@ def serve(cfg, params, prompts, dev, runs, gen: int, max_len: int = 512,
             assert not missing, (label, "kernels of the path never launched", missing, counts)
             absent = [k for k in PLAN_ABSENT.get(label, ()) if counts[k]]
             assert not absent, (label, "kernels off the path launched", absent, counts)
-            stray = [k for k in LAYOUT_KERNELS["paged" if dense else "dense"] if counts[k]]
+            if dense or not stateful:
+                stray = [k for k in LAYOUT_KERNELS["paged" if dense else "dense"] if counts[k]]
+            else:
+                stray = [(k, d[k]) for _, d in PHASES[label]["decode"]
+                         for k in LAYOUT_KERNELS["dense"] if d.get(k)]
             assert not stray, (label, "kernels of the other KV layout launched", stray, counts)
         if dense:
             assert kv == {} and ps == {}, (label, kv, ps)
@@ -1558,16 +1744,19 @@ def serve(cfg, params, prompts, dev, runs, gen: int, max_len: int = 512,
                     assert isinstance(state, KVCache) and tuple(state.k.shape) == shape, label
             kv_line = "dense " + dense_state_summary(engine._states, cfg)
         else:
-            if plan == "exact" or kv_quant != "none":  # exact or static calibrated scales
+            if stateful:  # rings and recurrent states cannot resume from pooled blocks
+                assert not kv["prefix_cache"] and "recurrent/windowed" in \
+                    kv["prefix_cache_off_reason"], (label, kv)
+            elif plan == "exact" or kv_quant != "none":  # exact or static calibrated scales
                 assert kv["prefix_cache"] and ps["hits"] > 0, (label, ps)
             else:
                 assert not kv["prefix_cache"]  # dynamic scales: reuse gated off
             item = 1 if kv_quant == "int8" else (2 if cfg.dtype == "bfloat16" else 4)
             assert kv["kv_quant"] == kv_quant
-            assert kv["bytes_per_block"] == (cfg.n_layers * 2 * cfg.n_kv_heads * BS
+            assert kv["bytes_per_block"] == (n_pools * 2 * cfg.n_kv_heads * BS
                                              * cfg.head_dim * item)
             kv_line = (f"kv pool {kv_quant} {kv['bytes_per_block']} B/block, "
-                       f"{kv['pool_bytes']} B; prefix {ps or 'off'}")
+                       f"{kv['pool_bytes']} B; prefix {ps or 'off: ' + kv.get('prefix_cache_off_reason', '')}")
         sched = engine.scheduler_stats
         if chunk_tokens:
             assert sched["active"] and sched["prefill_chunks"] > len(prompts), (label, sched)
@@ -1575,6 +1764,7 @@ def serve(cfg, params, prompts, dev, runs, gen: int, max_len: int = 512,
         if summary is not None:
             summary[label] = dict(ttft_ms=ttft, prefill_tps=st["prefill_tokens"] / st["prefill_s"],
                                   decode_tps=st["decode_tokens"] / st["decode_s"], sched=sched,
+                                  kv=kv,
                                   hardware=outs[0].hardware, prompt=outs[0].prompt.shape[-1])
         peak = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0.0
         log(f"[serve {label}] {cfg.name} ({cfg.n_layers}L d{cfg.d_model}), "
@@ -1589,6 +1779,239 @@ def serve(cfg, params, prompts, dev, runs, gen: int, max_len: int = 512,
         del engine
         _free(dev)
     return by_plan, tokens
+
+
+# the open-loop replay: the mixed suite (chat, summarize, fan-out with
+# shared prefixes) at 4 requests a second, 32 requests, seed 0
+TRAFFIC = dict(suite="mixed", rate_rps=4.0, n=32, seed=0)
+TRAFFIC_STEP_S = 0.05  # virtual seconds an engine round costs in the virtual replays
+TRAFFIC_FAULT_KINDS = ("step_error", "nonfinite_logits", "pool_pressure")
+
+
+def _traffic_stack_factory(cfg, params, dev, trace):
+    """``stack(clock, injector=None, retries=0)``: a fresh front-end over a
+    supervisor (delivering ``injector``'s faults, when given, and auditing
+    every step) over a fresh engine (``exact``, paged pool of
+    ``BS``-position blocks, 8 slots, prefix cache on)."""
+    from repro_torch.serve import (
+        EngineSupervisor, FrontendConfig, ServeConfig, ServeEngine, ServeFrontend,
+    )
+    from repro_torch.traffic import trace_max_len
+
+    model = _serving_model(cfg, dev, "exact")
+    scfg = ServeConfig(max_slots=8, max_len=-(-trace_max_len(trace) // BS) * BS, chunk_steps=8,
+                       kv_block_size=BS, seed=0)
+
+    def stack(clock, injector=None, retries=0):
+        eng = ServeEngine(model, params, scfg, device=dev, clock=clock)
+        return ServeFrontend(eng, FrontendConfig(max_retries=retries), clock=clock,
+                             supervisor=EngineSupervisor(eng, injector))
+    return stack
+
+
+def _traffic_lines(tag, cfg, trace, r, m, extra="") -> None:
+    ttfts = [o.timing.ttft_s for o in r.outputs
+             if o.reject_reason is None and o.fault_reason is None]
+    log(f"[{tag}] {cfg.name} exact, paged pool (block {BS}, 8 slots, prefix cache on): "
+        f"{trace.suite} trace, {len(trace)} requests at {trace.rate_rps:g} rps "
+        f"({trace.arrival}, seed {trace.seed}) replayed in {r.duration_s:.3f} s{extra}: "
+        f"completed {m['n_completed']}/{m['n_offered']}, rejected "
+        f"{m['rejected_by_reason'] or 0}, faulted {m['faulted_by_reason'] or 0}; "
+        f"{m['completed_tok_s']:.1f} tok/s; TTFT p50/p95/p99/max "
+        f"{m['ttft_p50_s'] * 1e3:.1f} / {m['ttft_p95_s'] * 1e3:.1f} / "
+        f"{m['ttft_p99_s'] * 1e3:.1f} / {max(ttfts, default=0.0) * 1e3:.1f} ms; ITL "
+        f"p50/p95/p99 {m['itl_p50_s'] * 1e3:.2f} / {m['itl_p95_s'] * 1e3:.2f} / "
+        f"{m['itl_p99_s'] * 1e3:.2f} ms (each request's mean gap), max "
+        f"{m['itl_max_s'] * 1e3:.2f} ms; queue p50 {m['queue_p50_s'] * 1e3:.1f} ms, "
+        f"high-water depth {r.stats['max_queue_depth']}")
+
+
+def _audit_clean(fe) -> str:
+    """Audit the front-end's engine at the end of a replay (held blocks
+    declared); every step's audit ran.  Returns the count for the log."""
+    sup = fe.supervisor
+    report = fe.engine.audit(external_refs=sup.held_blocks)
+    assert report["leaked_blocks"] == 0 and sup.stats["audits_run"] == sup.stats["steps"]
+    return f"{sup.stats['audits_run']} audits clean"
+
+
+def serve_traffic(cfg, params, dev) -> dict:
+    """``[traffic]``: the open-loop path ``ServeFrontend`` ->
+    ``EngineSupervisor`` -> ``ServeEngine`` at full width: ``TRAFFIC``'s
+    trace replayed in wall time (arrivals slept for, every timestamp the
+    host's clock, an audit every step) after a warm replay of its first 8
+    requests on a throwaway virtual-clock stack;
+    completed/offered, rejections by reason, TTFT and ITL p50/p95/p99 and
+    max (ITL percentiles over each request's mean gap, max over every gap),
+    the kernels launched (counts reset just before the replay).  Returns
+    those launches."""
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.traffic import VirtualClock, evaluate, generate_trace, replay_trace
+
+    trace = generate_trace(vocab=cfg.vocab, **TRAFFIC)
+    stack = _traffic_stack_factory(cfg, params, dev, trace)
+    # warm: the trace's first 8 requests in virtual time on a throwaway stack
+    replay_trace(stack(VirtualClock()), dataclasses.replace(trace, requests=trace.requests[:8]),
+                 virtual_step_s=TRAFFIC_STEP_S)
+    _free(dev)
+    fe = stack(None)
+    _sync(dev)
+    reset_launches()
+    r = replay_trace(fe, trace)
+    _sync(dev)
+    counts = launch_counts()
+    m = evaluate(r.outputs, r.duration_s, offered_rps=trace.rate_rps)
+    assert m["n_offered"] == len(trace) == m["n_completed"], m
+    for rid in r.request_ids:
+        out = r.outputs_by_id[rid]
+        assert np.array_equal(r.token_streams[rid], out.tokens), rid
+        assert ((out.tokens >= 0) & (out.tokens < cfg.vocab)).all()
+    _traffic_lines("traffic", cfg, trace, r, m, " (wall clock)")
+    log(f"[traffic] launches {counts}; prefix {fe.engine.prefix_stats}; {_audit_clean(fe)}")
+    if dev.type == "cuda":
+        missing = [k for k in PLAN_KERNELS["traffic"] if counts[k] == 0]
+        stray = [k for k in LAYOUT_KERNELS["dense"] if counts[k]]
+        assert not missing and not stray, (missing, stray, counts)
+    del fe
+    _free(dev)
+    return {"traffic": counts}
+
+
+def gemm_rows_by_packing(dev) -> str:
+    """How a bf16 product's rows depend on the rows packed with them: the
+    share of output elements of a few rows (8 and 24, as one or a few short
+    prompts give) that differ in some bit from the same rows inside a
+    256-row product, at stablelm's projection shapes.  cuBLAS picks a
+    split-K kernel for a few rows at a long K (the down projection's 5632),
+    whose partial sums add in another order."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    parts = []
+    for k, n in ((D, D), (D, F), (F, D)):
+        w = (torch.randn(k, n, generator=g, device=dev) * 0.02).bfloat16()
+        x = torch.randn(256, k, generator=g, device=dev).bfloat16()
+        big = x @ w
+        for lo, m in ((0, 8), (64, 24)):
+            share = ((x[lo:lo + m] @ w) != big[lo:lo + m]).float().mean().item()
+            parts.append(f"K {k} N {n} rows {lo}+{m}: {share:.4f}")
+    return "; ".join(parts)
+
+
+def _log_admissions(fe) -> list:
+    """Record every paged admission round of ``fe``'s engine: a list with
+    one entry a round, each member's (request id, prefix start, the rounds
+    whose prefill wrote its matched prefix blocks, None for a block none
+    wrote)."""
+    eng = fe.engine
+    rounds, writer, bs, prefill = [], {}, eng._block_size, eng._prefill_paged
+
+    def logged(slot_ids, reqs):
+        out = prefill(slot_ids, reqs)
+        members = []
+        for i, req, start in zip(out[0], out[1], out[3]):
+            blocks = eng._slot_blocks[i]
+            members.append((req.id, start, tuple(writer.get(b) for b in blocks[:start // bs])))
+            writer.update((b, len(rounds)) for b in blocks[start // bs:])
+        if members:
+            rounds.append(members)
+        return out
+    eng._prefill_paged = logged
+    return rounds
+
+
+def _rounds_alike(faulted, clean, f_index, c_index):
+    """``alike(r)``: whether the faulted replay's admission round ``r``
+    packed the same requests (trace indices, via ``*_index`` from request
+    id) at the same prefix starts, in the same order, as a round of the
+    clean replay, every member's prefix blocks written by rounds alike in
+    turn and matching the clean round's."""
+    c_round = {c_index[rid]: r for r, members in enumerate(clean) for rid, _, _ in members}
+
+    def sig(members, index):
+        return [(index[rid], start) for rid, start, _ in members]
+
+    @functools.cache
+    def alike(r):
+        members = faulted[r]
+        twin = clean[c_round[f_index[members[0][0]]]]
+        return sig(members, f_index) == sig(twin, c_index) and all(
+            len(fs) == len(cs) and all(s is not None and alike(s)
+                                       and c_round[f_index[faulted[s][0][0]]] == t
+                                       for s, t in zip(fs, cs))
+            for (_, _, fs), (_, _, cs) in zip(members, twin))
+    return alike
+
+
+def traffic_faults(cfg, params, dev) -> None:
+    """``[traffic faults]``: ``TRAFFIC``'s trace twice in virtual time
+    (``TRAFFIC_STEP_S`` a round): clean, then with
+    ``ServeFaultInjector.periodic(100 * 32 + 4, every=4,
+    TRAFFIC_FAULT_KINDS, seed=0)`` and 2 retries.  Asserts conservation
+    (offered = completed + rejected + faulted + cancelled) and a clean
+    ``audit()`` at the end.  Faults move admissions, so the faulted replay
+    packs other prompts together, and a bf16 product's row rounds
+    otherwise beside other rows (``gemm_rows_by_packing``).  So of the
+    requests no fault touched (never faulted, never retried), those
+    admitted in a round alike the clean replay's (``_rounds_alike``) must
+    have its tokens; the others are counted."""
+    from repro_torch.serve import ServeFaultInjector
+    from repro_torch.traffic import VirtualClock, evaluate, generate_trace, replay_trace
+
+    trace = generate_trace(vocab=cfg.vocab, **TRAFFIC)
+    stack = _traffic_stack_factory(cfg, params, dev, trace)
+    fe = stack(VirtualClock())
+    clean_rounds = _log_admissions(fe)
+    clean = replay_trace(fe, trace, virtual_step_s=TRAFFIC_STEP_S)
+    del fe
+    _free(dev)
+    inj = ServeFaultInjector.periodic(n_steps=100 * len(trace) + 4, every=4,
+                                      kinds=TRAFFIC_FAULT_KINDS, seed=0)
+    fe = stack(VirtualClock(), inj, retries=2)
+    rounds = _log_admissions(fe)
+    retried = set()
+    fe.on_retry = retried.add  # the replay chains its own hook after this one
+    rf = replay_trace(fe, trace, virtual_step_s=TRAFFIC_STEP_S)
+    mf = evaluate(rf.outputs, rf.duration_s, offered_rps=trace.rate_rps)
+    assert mf["n_offered"] == len(trace) == (mf["n_completed"] + mf["n_rejected"]
+                                            + mf["n_faulted"] + mf["n_cancelled"]), mf
+    audits = _audit_clean(fe)
+    f_index = {rid: i for i, rid in enumerate(rf.request_ids)}
+    alike = _rounds_alike(rounds, clean_rounds, f_index,
+                          {rid: i for i, rid in enumerate(clean.request_ids)})
+    last_round = {rid: r for r, members in enumerate(rounds) for rid, _, _ in members}
+    held = moved = moved_same = retried_same = n_retried_done = 0
+    for i, rid in enumerate(rf.request_ids):
+        out, want = rf.outputs_by_id[rid], clean.outputs_by_id[clean.request_ids[i]]
+        if out.fault_reason is None and out.reject_reason is None:
+            equal = np.array_equal(out.tokens, want.tokens)
+            if rid in retried:
+                n_retried_done += 1
+                retried_same += equal
+            elif alike(last_round[rid]):
+                assert equal, (i, out.tokens, want.tokens)
+                held += 1
+            else:
+                moved += 1
+                moved_same += equal
+    assert held > 0, (held, moved)
+    sup, eng_st = fe.supervisor, fe.engine.stats()
+    _traffic_lines("traffic faults", cfg, trace, rf, mf,
+                   f" (virtual clock, {TRAFFIC_STEP_S} s a round)")
+    mc = evaluate(clean.outputs, clean.duration_s, offered_rps=trace.rate_rps)
+    _traffic_lines("traffic faults", cfg, trace, clean, mc, " (virtual clock, clean)")
+    log(f"[traffic faults] {sup.stats['faults_injected']} faults injected over "
+        f"{sup.stats['steps']} supervised steps ({TRAFFIC_FAULT_KINDS}, every 4, seed 0): "
+        f"{eng_st['n_quarantined']} quarantined, {eng_st['n_shed']} shed, "
+        f"{fe.stats['retries']} retries, degraded transitions "
+        f"{[n for _, n in eng_st['degraded_transitions']]}; conservation {mf['n_offered']} = "
+        f"{mf['n_completed']} + {mf['n_rejected']} + {mf['n_faulted']} + {mf['n_cancelled']}; "
+        f"{audits}; untouched requests: {held} admitted in a round alike the clean "
+        f"replay's, tokens equal (asserted), {moved_same}/{moved} in a moved round with "
+        f"tokens equal (reported); {retried_same}/{n_retried_done} retried-then-completed "
+        f"equal (reported); admission rounds {len(rounds)} (clean {len(clean_rounds)})")
+    log("[traffic faults] share of a few rows' outputs that differ from the same rows inside "
+        f"a 256-row bf16 product (cuBLAS as configured by default): {gemm_rows_by_packing(dev)}")
+    del fe
+    _free(dev)
 
 
 def chunked_beside_blocking(summary, chunked: str, blocking: str, tokens) -> None:
@@ -1864,8 +2287,11 @@ def serve_rg(cfg, dev, scan_ms: float, summary: dict) -> dict:
     and no paged kernel; profiles ``rglru_scan`` inside an admission
     (``scan_ms``: its isolated time).  Then the 4 short prompts alone,
     blocking (``rg-exact-short``) and chunked at 64 tokens a round
-    (``rg-exact-chunked``), 16 new each, max_len 512.  Returns each run's
-    launches."""
+    (``rg-exact-chunked``), 16 new each, max_len 512.  Then the 12 prompts
+    again on the paged pool (``rg-exact-paged``: block 16, max_len 2048,
+    the rings through the table), its launches held per phase
+    (:func:`check_rg_paged_phases`) and its greedy agreement with
+    ``rg-exact`` reported.  Returns each run's launches."""
     from repro_torch.models.model import Model
 
     n_rglru = cfg.layer_kinds.count("rglru")
@@ -1917,9 +2343,83 @@ def serve_rg(cfg, dev, scan_ms: float, summary: dict) -> dict:
     chunked_beside_blocking(summary, "rg-exact-chunked", "rg-exact-short", short_tokens)
     profile_decode_chunk(cfg, params, prompts, dev, runs, kv_block_size=0, max_len=cfg.window,
                          scan_ms=scan_ms)
+    counts, paged_tokens = serve(cfg, params, prompts, dev, [("rg-exact-paged", "exact", "none")],
+                                 gen=32, max_len=cfg.window, summary=summary)
+    launches.update(counts)
+    check_rg_paged_phases(cfg, dev)
+    kv = summary["rg-exact-paged"]["kv"]
+    agree = (paged_tokens["rg-exact-paged"] == tokens["rg-exact"]).mean()
+    log(f"[rg-exact-paged] kv_stats: bytes_per_block {kv['bytes_per_block']} (8 local layers x "
+        f"K and V x {BS} x {RG_HD} x 2 B), {kv['pool_blocks']} blocks, {kv['pool_bytes']} B; "
+        f"prefix cache off: {kv['prefix_cache_off_reason']}; greedy tokens equal to rg-exact's "
+        f"(dense rings): {agree:.1%} (reported, not gated: bf16, two different decode kernels)")
     del params
     _free(dev)
     return launches
+
+
+def check_rg_paged_phases(cfg, dev) -> None:
+    """``rg-exact-paged``'s launches by phase: every decode chunk launches
+    ``paged_attention_decode`` once per local layer and step and no dense
+    kernel; the equal-length admission launches ``flash_attention`` once
+    per local layer and ``rglru_scan`` once per recurrent layer; a
+    mixed-length admission takes the masked scan (dense decode steps, no
+    flash, no scan)."""
+    n_local, n_rglru = cfg.layer_kinds.count("local"), cfg.layer_kinds.count("rglru")
+    rec = PHASES["rg-exact-paged"]
+    if dev.type != "cuda":  # the plain versions count nothing
+        return
+    for steps, d in rec["decode"]:
+        assert d.get("paged_attention_decode") == n_local * steps, (steps, d)
+        assert not any(d.get(k) for k in ("dense_attention_decode", "flash_attention",
+                                          "rglru_scan")), d
+    equal = 0
+    for lens, d in rec["admission"]:
+        if len(set(lens)) == 1:
+            equal += 1
+            assert d.get("flash_attention") == n_local and d.get("rglru_scan") == n_rglru, d
+        else:
+            assert not d.get("flash_attention") and not d.get("rglru_scan"), d
+            assert d.get("dense_attention_decode"), d
+    assert equal >= 1, rec["admission"]
+    log(f"[rg-exact-paged] {len(rec['decode'])} decode chunks: paged_attention_decode "
+        f"{n_local} x steps each, no dense kernel; admissions "
+        + "; ".join(f"{sorted(set(l))} x{len(l)}: flash {d.get('flash_attention', 0)}, "
+                    f"rglru_scan {d.get('rglru_scan', 0)}, dense decode "
+                    f"{d.get('dense_attention_decode', 0)}" for l, d in rec["admission"]))
+
+
+def small_rg_paged_card_vs_cpu(dev) -> None:
+    """The reduced float32 recurrentgemma (window 8) on the paged pool
+    (``kv_block_size 4``, max_len 48): prompts up to 33 tokens, so the
+    rings wrap through the table in admission and decode, served with the
+    kernels on ``dev`` and their plain versions on the CPU under all four
+    plans: every greedy token equal."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import Model
+    from repro_torch.models.transformer import ModelOptions
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    small = get_arch("recurrentgemma-2b").reduced(dtype="float32", window=8)
+    rng = np.random.default_rng(9)
+    params = Model(small, device="cpu").init(seed=4)
+    scfg = ServeConfig(max_slots=3, max_len=48, chunk_steps=4, kv_block_size=4)
+    for label in ("exact", "int8", "sc", "mixed"):
+        agree = []
+        for group in ((5, 19, 12, 33, 8), (16, 16)):
+            prompts = [rng.integers(0, small.vocab, n, dtype=np.int32) for n in group]
+            toks = {}
+            for where in ("cpu", dev):
+                m = Model(small, ModelOptions(plan=label, attn_impl="flash"), device=where)
+                eng = ServeEngine(m, _to(params, m.device), scfg, device=where)
+                assert eng._ring_len == 8 and eng.kv_stats["block_size"] == 4
+                toks[str(where)] = np.concatenate([o.tokens for o in
+                                                   eng.generate_batch(prompts, 10)])
+            agree.append((toks["cpu"] == toks[str(dev)]).mean())
+        log(f"[small rg-exact-paged {label}] reduced recurrentgemma float32 window 8 on the "
+            f"paged pool (block 4) on {dev} (kernels) vs cpu (plain versions), mixed / equal "
+            f"prompt lengths: {' / '.join(f'{a:.0%}' for a in agree)} of greedy tokens equal")
+        assert min(agree) == 1.0, (label, agree)
 
 
 def small_rg_card_vs_cpu(dev) -> None:
@@ -2078,6 +2578,7 @@ def main() -> None:
     check_kernels(dev, g)
     check_int8_pool(dev, g)
     check_paged_prefill(dev, g)
+    check_prefill_padding(dev, g)
     check_dense(dev, g)
     check_wide_attention(dev, g)
     check_rglru(dev, g)
@@ -2085,7 +2586,7 @@ def main() -> None:
     elapsed("build, probe and kernel checks")
     kernels = {**time_kernels(dev, g), **time_int8_pool(dev, g), **time_dense(dev, g),
                **time_stochastic(dev, g, rates=rates), **time_rglru(dev, g),
-               **time_wide_attention(dev, g),
+               **time_wide_attention(dev, g), **time_rg_paged_decode(dev, g),
                **time_int8_gemms(dev, g, "int8_gemm_rg", RG_DECODE_GEMMS, RG_PREFILL_GEMMS)}
     elapsed("kernel timings")
 
@@ -2142,6 +2643,10 @@ def main() -> None:
     profile_decode_chunk(cfg, params, prompts, dev, kvq_runs)
     launches.update(serve(cfg, params, sc_prompts, dev, plain_runs("sc", "mixed"), gen=16)[0])
     profile_decode_chunk(cfg, params, sc_prompts, dev, plain_runs("sc", "mixed"))
+    _free(dev)
+    launches.update(serve_traffic(cfg, params, dev))
+    elapsed("traffic")
+    traffic_faults(cfg, params, dev)
     del params
     _free(dev)  # the sc weight caches go before recurrentgemma's weights come
     elapsed("stablelm-1.6b serving")
@@ -2154,6 +2659,7 @@ def main() -> None:
     elapsed("recurrentgemma-2b serving")
     small_card_vs_cpu(dev)
     small_rg_card_vs_cpu(dev)
+    small_rg_paged_card_vs_cpu(dev)
     elapsed("card against CPU")
 
     # launches: summed over the serving runs of the row's model (the rows

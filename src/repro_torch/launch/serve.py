@@ -20,6 +20,22 @@ packed prompts (which turns prefix reuse back on under ``int8``/``mixed``);
 (prompts fed in chunks of a per-round budget of N tokens shared with
 decode) and prints its counters; ``--no-degraded-mode`` makes a paged
 engine raise where admission would wedge instead of shedding load.
+recurrentgemma serves on either layout: on the paged pool its local rings
+live in the blocks and its RG-LRU states stay by slot (prefix cache off,
+blocking admission).
+
+``--traffic-trace`` (a trace JSON, or an inline spec such as
+``mixed:rate=4,n=32,seed=0``) replays an open-loop trace through
+``ServeFrontend`` -> ``EngineSupervisor`` -> ``ServeEngine`` instead of one
+batch, after a warm replay on a throwaway virtual-clock stack: in wall time
+by default, or on a virtual clock with ``--virtual-step S`` seconds a
+round.  It prints the ``[traffic]`` lines: completed/offered, rejections by
+reason, queue wait, TTFT and ITL p50/p95/p99, the SLO line with
+``--slo-ttft``/``--slo-itl``, and the fault counters.  The admission flags
+(``--max-queue``, ``--queue-timeout``, ``--max-concurrency``,
+``--deadline``, ``--max-retries``, ``--retry-backoff``) and the fault
+injector (``--fault-every``, ``--fault-kinds``, ``--fault-seed``) apply to
+the replay only.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \
       --mode int8 --batch 12 --prompt-mix 96,256,384 --gen 32 --max-slots 8
@@ -35,10 +51,18 @@ engine raise where admission would wedge instead of shedding load.
       --calibrate --kv-quant int8
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
       --prefill-chunk-tokens 8 --prompt-mix 5,12,20 --batch 5 --max-slots 3
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b --reduced \
+      --device cpu --kv-block-size 4 --prompt-mix 5,12,20 --batch 5 --max-slots 3
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+      --traffic-trace 'mixed:rate=8,n=8' --virtual-step 0.05
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode exact --max-slots 8 \
+      --traffic-trace 'mixed:rate=4,n=32,seed=0' --fault-every 4 \
+      --fault-kinds step_error,nonfinite_logits,pool_pressure --max-retries 2
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -51,10 +75,15 @@ from repro_torch.kernels import _build, launch_counts, reset_launches
 from repro_torch.models.model import Model
 from repro_torch.models.transformer import ModelOptions
 from repro_torch.serve import (
-    GREEDY, SamplerConfig, ServeConfig, ServeEngine, kv_quant_reject_reason,
+    FAULT_KINDS, GREEDY, EngineSupervisor, FrontendConfig, SamplerConfig, ServeConfig,
+    ServeEngine, ServeFaultInjector, ServeFrontend, kv_quant_reject_reason,
     make_fused_decode, prefill_full_seq, sample_next_token,
 )
 from repro_torch.serve.prefill import pack_prompts
+from repro_torch.traffic import (
+    SLOConfig, TrafficTrace, VirtualClock, evaluate, generate_trace, parse_trace_spec,
+    replay_trace, trace_max_len,
+)
 
 
 def generate(model: Model, params, prompts, gen_len: int, max_len: int,
@@ -132,7 +161,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--chunk-steps", type=int, default=8)
-    ap.add_argument("--max-slots", type=int, default=0, help="0 = one per request")
+    ap.add_argument("--max-slots", type=int, default=0,
+                    help="engine slots (0 = one per request, traffic: 4)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kv-block-size", type=int, default=16,
                     help="positions per paged pool block; 0 = dense per-slot caches")
@@ -152,6 +182,42 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-degraded-mode", action="store_true",
                     help="disable the pool-pressure ladder: a stalled paged admission "
                          "then raises instead of flushing the prefix cache / shedding load")
+    ap.add_argument("--traffic-trace", default="",
+                    help="open-loop replay instead of one batch: a trace JSON, or an "
+                         "inline spec like 'chat:rate=4,n=32,seed=0'")
+    ap.add_argument("--virtual-step", type=float, default=0.0,
+                    help="replay on a virtual clock, each engine round costing this many "
+                         "virtual seconds; 0 = wall-clock replay")
+    ap.add_argument("--slo-ttft", type=float, default=0.0,
+                    help="TTFT bound in seconds for the goodput line")
+    ap.add_argument("--slo-itl", type=float, default=0.0,
+                    help="max inter-token-gap bound in seconds for the goodput line")
+    ap.add_argument("--max-queue", type=int, default=-1,
+                    help="admission queue capacity (0 = no waiting room, -1 = unbounded); "
+                         "overflow is rejected as queue_full (open-loop replay only)")
+    ap.add_argument("--queue-timeout", type=float, default=0.0,
+                    help="reject requests waiting longer than this many seconds "
+                         "(queue_timeout); 0 = wait forever (open-loop replay only)")
+    ap.add_argument("--max-concurrency", type=int, default=0,
+                    help="most admitted requests in flight at once (open-loop replay "
+                         "only); 0 = the engine's --max-slots")
+    ap.add_argument("--deadline", type=float, default=0.0,
+                    help="per-request end-to-end deadline in seconds; 0 = none "
+                         "(open-loop replay only)")
+    ap.add_argument("--max-retries", type=int, default=0,
+                    help="retries granted to requests ending in a retryable fault class; "
+                         "0 = no retry (open-loop replay only)")
+    ap.add_argument("--retry-backoff", type=float, default=0.5,
+                    help="base retry backoff in seconds; attempt k waits "
+                         "min(base * 2^(k-1), 8 * base) on the replay clock")
+    ap.add_argument("--fault-every", type=int, default=0,
+                    help="inject one deterministic fault every N supervisor steps; "
+                         "0 = no injection (open-loop replay only)")
+    ap.add_argument("--fault-kinds", default="step_error,nonfinite_logits",
+                    help="comma list of fault kinds the injector draws from: "
+                         "step_error, nonfinite_logits, pool_pressure, slow_step")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed of the injector's kind and victim draws")
     return ap
 
 
@@ -163,6 +229,157 @@ def check_flags(ap: argparse.ArgumentParser, args) -> None:
     if args.prefill_chunk_tokens < 0:
         ap.error(f"--prefill-chunk-tokens: {args.prefill_chunk_tokens} is negative; pass a "
                  "per-round token budget or 0 for blocking full-prompt admission")
+    if not args.traffic_trace:
+        for flag, val, default in (
+                ("--max-queue", args.max_queue, -1),
+                ("--queue-timeout", args.queue_timeout, 0.0),
+                ("--max-concurrency", args.max_concurrency, 0),
+                ("--virtual-step", args.virtual_step, 0.0),
+                ("--deadline", args.deadline, 0.0),
+                ("--max-retries", args.max_retries, 0),
+                ("--retry-backoff", args.retry_backoff, 0.5),
+                ("--fault-every", args.fault_every, 0),
+                ("--fault-kinds", args.fault_kinds, "step_error,nonfinite_logits"),
+                ("--fault-seed", args.fault_seed, 0)):
+            if val != default:
+                ap.error(f"{flag} only applies to open-loop replay; pass "
+                         "--traffic-trace <file or spec> to select it")
+        return
+    if args.deadline < 0:
+        ap.error(f"--deadline: {args.deadline} is negative; pass an "
+                 "end-to-end deadline in seconds > 0, or 0 to disable")
+    if args.max_retries < 0:
+        ap.error(f"--max-retries: {args.max_retries} is negative; pass the "
+                 "retry attempts granted to retryable faults, or 0 to "
+                 "disable retry")
+    if args.retry_backoff < 0:
+        ap.error(f"--retry-backoff: {args.retry_backoff} is negative; pass "
+                 "a base backoff in seconds >= 0")
+    if args.fault_every < 0:
+        ap.error(f"--fault-every: {args.fault_every} is negative; pass an "
+                 "injection period in supervisor steps, or 0 to disable")
+    unknown = sorted(set(k for k in args.fault_kinds.split(",") if k) - set(FAULT_KINDS))
+    if unknown:
+        ap.error(f"--fault-kinds: unknown name(s): {', '.join(unknown)}; "
+                 f"valid: {', '.join(FAULT_KINDS)}")
+    if args.max_queue < -1:
+        ap.error(f"--max-queue: {args.max_queue} is invalid; pass a queue "
+                 "capacity >= 0 (0 = no waiting room) or -1 for unbounded")
+    if args.queue_timeout < 0:
+        ap.error(f"--queue-timeout: {args.queue_timeout} is negative; pass "
+                 "a timeout in seconds > 0, or 0 to disable")
+    if args.max_concurrency < 0:
+        ap.error(f"--max-concurrency: {args.max_concurrency} is negative; "
+                 "pass an in-flight cap >= 1 (must not exceed --max-slots) "
+                 "or 0 to inherit the engine's max_slots")
+    if args.virtual_step < 0:
+        ap.error(f"--virtual-step: {args.virtual_step} is negative; pass a "
+                 "virtual round time in seconds > 0, or 0 for wall-clock "
+                 "replay")
+
+
+def load_trace(ap: argparse.ArgumentParser, spec: str, cfg) -> TrafficTrace:
+    """``--traffic-trace``: a JSON trace file, or an inline spec."""
+    if os.path.exists(spec):
+        return TrafficTrace.load(spec)
+    try:
+        kw = parse_trace_spec(spec)
+    except ValueError as e:
+        ap.error(f"--traffic-trace: {spec!r} is neither a file nor a valid spec: {e}")
+    return generate_trace(vocab=cfg.vocab, **kw)
+
+
+def run_traffic(model: Model, params, trace: TrafficTrace, args,
+                ap: argparse.ArgumentParser):
+    """Open-loop replay of ``trace`` through the front-end, the supervisor
+    and the engine, after a warm replay on a throwaway virtual-clock stack;
+    prints the ``[traffic]`` lines.  Returns the replay's outputs."""
+    block = args.kv_block_size
+    max_len = trace_max_len(trace)
+    if block:
+        max_len = -(-max_len // block) * block
+    serve_cfg = ServeConfig(
+        max_slots=args.max_slots or 4, max_len=max_len, chunk_steps=args.chunk_steps,
+        sampler=SamplerConfig(args.temperature, args.top_k), seed=args.seed,
+        kv_block_size=block, kv_pool_blocks=args.kv_pool_blocks,
+        prefix_cache=not args.no_prefix_cache, kv_quant=args.kv_quant,
+        prefill_chunk_tokens=args.prefill_chunk_tokens,
+        degraded_mode=not args.no_degraded_mode)
+    fe_cfg = FrontendConfig(  # check_flags has refused every value it would
+        max_queue_depth=None if args.max_queue < 0 else args.max_queue,
+        queue_timeout_s=args.queue_timeout or None,
+        max_concurrency=args.max_concurrency or None,
+        default_deadline_s=args.deadline or None,
+        max_retries=args.max_retries, retry_backoff_s=args.retry_backoff)
+    virtual = args.virtual_step > 0
+
+    def stack(force_virtual=False, inject=False):
+        clk = VirtualClock() if (virtual or force_virtual) else None
+        eng = ServeEngine(model, params, serve_cfg, device=model.device, clock=clk)
+        sup = None
+        if inject and args.fault_every > 0:
+            # a horizon the run cannot outlast
+            inj = ServeFaultInjector.periodic(
+                n_steps=100 * max(len(trace), 1) + args.fault_every, every=args.fault_every,
+                kinds=[k for k in args.fault_kinds.split(",") if k], seed=args.fault_seed)
+            sup = EngineSupervisor(eng, inj)
+        elif args.fault_every > 0 or args.max_retries > 0 or args.deadline:
+            sup = EngineSupervisor(eng)  # containment and audit, no injection
+        try:
+            return ServeFrontend(eng, fe_cfg, clock=clk, supervisor=sup)
+        except ValueError as e:
+            ap.error(str(e))
+
+    try:
+        warm = stack(force_virtual=True)
+    except (NotImplementedError, ValueError) as e:  # a refused configuration
+        ap.error(str(e))
+    replay_trace(warm, trace, virtual_step_s=args.virtual_step or 0.05)
+    frontend = stack(inject=True)
+    reset_launches()
+    result = replay_trace(frontend, trace,
+                          virtual_step_s=args.virtual_step if virtual else None)
+    slo = (SLOConfig(args.slo_ttft, args.slo_itl)
+           if args.slo_ttft > 0 and args.slo_itl > 0 else None)
+    m = evaluate(result.outputs, result.duration_s, slo, offered_rps=trace.rate_rps)
+    print_traffic(trace, result, m, fe_cfg, slo, frontend,
+                  f"virtual step={args.virtual_step}s" if virtual else "wall")
+    print(f"  kernel launches: {launch_counts()}")
+    return result.outputs
+
+
+def print_traffic(trace, result, m, fe_cfg, slo, frontend, clock_kind: str) -> None:
+    """The ``[traffic]`` lines of one replay (the reference CLI's)."""
+    print(f"[traffic] {trace.suite} trace: {len(trace)} requests at "
+          f"{trace.rate_rps:g} rps ({trace.arrival}), replayed in "
+          f"{result.duration_s:.2f}s ({clock_kind})")
+    print(f"  completed {m['n_completed']}/{m['n_offered']} "
+          f"({m['completed_tok_s']:.1f} tok/s), rejected {m['n_rejected']} "
+          f"{m['rejected_by_reason'] or ''}")
+    st = result.stats
+    print(f"  queue: p50 wait {m['queue_p50_s'] * 1e3:.1f} ms, high-water "
+          f"depth {st['max_queue_depth']}"
+          + (f" (cap {fe_cfg.max_queue_depth})" if fe_cfg.max_queue_depth is not None else ""))
+    print(f"  TTFT p50/p95/p99: {m['ttft_p50_s'] * 1e3:.1f} / "
+          f"{m['ttft_p95_s'] * 1e3:.1f} / {m['ttft_p99_s'] * 1e3:.1f} ms")
+    print(f"  ITL  p50/p95/p99: {m['itl_p50_s'] * 1e3:.2f} / "
+          f"{m['itl_p95_s'] * 1e3:.2f} / {m['itl_p99_s'] * 1e3:.2f} ms "
+          f"(max {m['itl_max_s'] * 1e3:.2f} ms)")
+    if slo is not None:
+        print(f"  SLO (ttft<={slo.ttft_s}s, itl<={slo.itl_s}s): "
+              f"{m['n_slo_met']}/{m['n_offered']} met "
+              f"({m['slo_attainment']:.0%}), goodput {m['goodput_rps']:.2f} rps")
+    if frontend.supervisor is not None:
+        sup_st = frontend.supervisor.stats
+        eng_st = frontend.engine.stats()
+        print(f"  faults: {sup_st['faults_injected']} injected over "
+              f"{sup_st['steps']} supervised steps, "
+              f"{eng_st['n_quarantined']} quarantined / "
+              f"{eng_st['n_cancelled']} cancelled / {eng_st['n_shed']} shed, "
+              f"{st['retries']} retries, {sup_st['audits_run']} audits clean")
+        if eng_st["degraded_transitions"]:
+            path = " -> ".join(name for _, name in eng_st["degraded_transitions"])
+            print(f"  degraded ladder: {path} (now {eng_st['degraded_level']})")
 
 
 def main(argv=None):
@@ -191,6 +408,8 @@ def main(argv=None):
         reason = kv_quant_reject_reason(model, args.kv_block_size)
         if reason is not None:
             ap.error(f"--kv-quant: {reason}")
+    if args.traffic_trace:
+        return run_traffic(model, params, load_trace(ap, args.traffic_trace, cfg), args, ap)
     serve_cfg = ServeConfig(
         max_slots=args.max_slots or len(prompts), max_len=max(lengths) + args.gen + 1,
         chunk_steps=args.chunk_steps, sampler=SamplerConfig(args.temperature, args.top_k),

@@ -8,7 +8,7 @@ Port of ``repro.models.attention`` for this slice:
   cache: padded to the serving length (global) or the ``window``-sized
   ring (local);
 * ``attn_decode``        — one token per slot against dense per-slot
-  caches (``KVCache``) or the paged pool (global layers only);
+  caches (``KVCache``) or the paged pool, a local layer's ring included;
 * ``attn_prefill_paged`` — packed multi-token suffixes against the pool,
   starts anywhere inside a block (the prefix-cache admission path).
 
@@ -30,8 +30,11 @@ The paged pool is ``PagedKVCache(k, v)`` with ``[n_blocks, n_kv, bs, hd]``
 tensors shared by every slot through per-slot block tables, or
 ``QuantPagedKVCache`` with int8 blocks and calibrated per-KV-head scales
 (writes quantize, the gathered view dequantizes, the kernel dequantizes
-each streamed block).  Block 0 is the scratch sink for padded and
-overrun writes.  The port writes the pool
+each streamed block).  A local layer's ring lives in the pool too: its
+``ring_len = min(max_len, window)`` logical positions are the first
+entries of the slot's table row, absolute position ``t`` at ``t %
+ring_len`` (``BlockTables.ring_len``).  Block 0 is the scratch sink for
+padded and overrun writes.  The port writes the pool
 **in place** (``index_put_``): a functional copy of a full-width pool per
 layer per step would cost more than the step itself.  Where several rows
 write one position — only ever the scratch block — every duplicate
@@ -107,9 +110,12 @@ def kv_dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 class BlockTables(NamedTuple):
     """Per-slot logical->physical block mapping shared across layers;
-    unallocated entries point at scratch block 0."""
+    unallocated entries point at scratch block 0.  ``ring_len`` is a local
+    layer's ring length in positions, ``min(max_len, window)`` (global
+    layers ignore it; 0 where the stack has no local layer)."""
 
     table: torch.Tensor  # [B, W] int32
+    ring_len: int = 0
 
 
 def attn_init(gen: torch.Generator, cfg: ArchConfig, device=None):
@@ -354,16 +360,15 @@ def attn_decode(p, x: torch.Tensor, cache, pos: torch.Tensor, cfg: ArchConfig, *
     against dense per-slot caches (``KVCache``; global: ``pos < S_cache``
     for a kept write, a gated row's write clamped to ``S_cache - 1`` as the
     reference's is; local: the ring at ``pos % S_cache``) or the paged pool
-    (``tables`` required; global layers only).  ``write [B]`` bool, on dense caches:
+    (``tables`` required; local: the ring of ``tables.ring_len`` positions
+    through the table, written at ``pos % ring_len``, ``kv_len = min(pos +
+    1, ring_len)``).  ``write [B]`` bool, on dense caches:
     only those rows keep their token's entry; the others attend with it
     and then get their old entry back (None = all keep it).  Returns
     (out [B, 1, D], cache)."""
     _check_kind(kind)
     dense_cache = isinstance(cache, KVCache)
     assert dense_cache or tables is not None, "paged decode needs a BlockTables"
-    if kind == "local" and not dense_cache:
-        raise NotImplementedError("local layers on the paged pool are not ported yet "
-                                  "(ROADMAP queue 1: paged stateful stacks)")
     b = x.shape[0]
     sites = as_binding(sites)
     pos = torch.as_tensor(pos, device=x.device).to(torch.int64)
@@ -410,7 +415,12 @@ def attn_decode(p, x: torch.Tensor, cache, pos: torch.Tensor, cfg: ArchConfig, *
             for c, o_c in zip(cache, old):
                 c[rows, :, slot] = torch.where(keep, c[rows, :, slot], o_c)
     else:
-        cache = _paged_write_token(cache, tables.table, pos, k_new, v_new)
+        slot = pos
+        if kind == "local":  # the ring through the table: every entry is in the window
+            if tables.ring_len <= 0:
+                raise ValueError("a local layer on the paged pool needs BlockTables.ring_len")
+            slot, kv_len = pos % tables.ring_len, torch.clamp(kv_len, max=tables.ring_len)
+        cache = _paged_write_token(cache, tables.table, slot, k_new, v_new)
         if kernel:
             from repro_torch.kernels.paged_attention import paged_attention_decode
 

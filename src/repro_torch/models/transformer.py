@@ -14,9 +14,10 @@ Parameters: ``{"embedding": {"table"}, "head": {"w"} | {}, "final_norm",
 an RG-LRU core ``{"w_in","conv_w","conv_b","w_a","w_x","lam","w_out"}``.
 Serving state: ``{"layers": [...]}`` with one entry per layer — a dense
 per-slot ``KVCache`` in the model dtype (a ``window``-sized ring for a
-local layer) or an ``RGLRUState`` — or, for pure global-attention stacks
-only, one ``PagedKVCache | QuantPagedKVCache`` block pool per layer, int8
-under ``kv_quant="int8"``.
+local layer) or an ``RGLRUState`` — or, on the paged layout, one
+``PagedKVCache | QuantPagedKVCache`` block pool per ``attn``/``local``
+layer (int8 under ``kv_quant="int8"``) beside the slot-indexed
+``RGLRUState`` of each ``rglru`` layer.
 """
 from __future__ import annotations
 
@@ -287,12 +288,6 @@ def suffix_forward(params, tokens: torch.Tensor, cfg: ArchConfig, opts: ModelOpt
     return _head(params, x, cfg, opts), {**states, "layers": new_layers}
 
 
-PAGED_STATEFUL_REASON = (
-    "the paged KV layout (kv_block_size > 0) serves pure global-attention stacks only: "
-    "local rings and recurrent states in the pool are not ported yet (ROADMAP queue 1: "
-    "paged stateful stacks); serve this stack with kv_block_size=0")
-
-
 def _dense_state(cfg: ArchConfig, kind: str, batch: int, max_len: int, device):
     if kind == "rglru":
         return rglru_mod.RGLRUState(
@@ -313,32 +308,34 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
     ``[batch, n_kv, max_len, hd]`` cache in the model dtype (a local
     layer's ring clamped to ``min(max_len, window)``) or an ``RGLRUState``
     (``h [batch, d_rnn]``, ``conv [batch, conv_width - 1, d_rnn]``, both
-    float32).  ``paged = (n_blocks, block_size)`` gives one block pool per
-    layer of a pure global-attention stack instead (no batch axis: block
-    tables carry slot identity); ``kv_quant="int8"`` makes each pool int8
-    with the per-head scales ``plan.kv_group_scale`` gives over the
-    layer's group (the reference's one pool per scanned group).  Dense
-    caches stay in the model dtype: with ``kv_quant="int8"`` they are
-    refused, with the serving engine's reason."""
+    float32).  ``paged = (n_blocks, block_size)`` gives each ``attn`` and
+    ``local`` layer one block pool instead (no batch axis: block tables
+    carry slot identity; a local layer's ring lives in it) while an
+    ``rglru`` layer keeps its slot-indexed ``RGLRUState``;
+    ``kv_quant="int8"`` makes each pool int8 with the per-head scales
+    ``plan.kv_group_scale`` gives over the layer's group (the reference's
+    one pool per scanned group).  Dense caches stay in the model dtype:
+    with ``kv_quant="int8"`` they are refused, with the serving engine's
+    reason."""
     _check_supported(cfg)
     if paged is None:
         if kv_quant != "none":
             raise ValueError(DENSE_KV_QUANT_REASON)
         return {"layers": [_dense_state(cfg, kind, batch, max_len, device)
                            for kind in cfg.layer_kinds]}
-    if any(k != "attn" for k in cfg.layer_kinds):
-        raise NotImplementedError(PAGED_STATEFUL_REASON)
-    n_blocks, block_size = paged
-    if kv_quant == "none":
-        return {"layers": [attn.init_paged_cache(cfg, n_blocks, block_size, device)
-                           for _ in cfg.layer_kinds]}
-    if plan is None:
+    if kv_quant != "none" and plan is None:
         raise ValueError("kv_quant='int8' needs a calibrated plan")
+    n_blocks, block_size = paged
     layers = []
-    for li in range(cfg.n_layers):
-        grp = layer_group(cfg, li)
-        k_scale = plan.kv_group_scale(tuple(f"L{l}.kv.k" for l in grp))
-        v_scale = plan.kv_group_scale(tuple(f"L{l}.kv.v" for l in grp))
-        layers.append(attn.init_paged_quant_cache(cfg, n_blocks, block_size, k_scale,
-                                                  v_scale, device))
+    for li, kind in enumerate(cfg.layer_kinds):
+        if kind == "rglru":
+            layers.append(_dense_state(cfg, kind, batch, max_len, device))
+        elif kv_quant == "none":
+            layers.append(attn.init_paged_cache(cfg, n_blocks, block_size, device))
+        else:
+            grp = layer_group(cfg, li)
+            k_scale = plan.kv_group_scale(tuple(f"L{l}.kv.k" for l in grp))
+            v_scale = plan.kv_group_scale(tuple(f"L{l}.kv.v" for l in grp))
+            layers.append(attn.init_paged_quant_cache(cfg, n_blocks, block_size, k_scale,
+                                                      v_scale, device))
     return {"layers": layers}

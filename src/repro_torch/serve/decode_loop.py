@@ -15,6 +15,11 @@ and its recurrent states selected back, so its state stays exactly as it
 was.  The engine passes it on dense caches while a ``PREFILLING`` slot is
 present, so ride-along decode cannot touch a half-prefilled slot; on the
 paged pool a prefilling slot's table row points at the scratch block.
+
+``poison`` (optional ``[B]`` bool) NaNs the flagged slots' logits at every
+step of the chunk, before the finite flag and sampling: the injected
+``nonfinite_logits`` fault (``serve/faults.py``).  ``poison=None`` adds no
+operation.
 """
 from __future__ import annotations
 
@@ -26,8 +31,16 @@ from repro_torch.serve.sampling import SamplerConfig, sample_next_token
 from repro_torch.serve.slots import finite_mask, select_states
 
 
-def _step(model, params, tok, states, pos, gen, sampler, tables, active):
+def _poisoned(logits: torch.Tensor, poison: torch.Tensor) -> torch.Tensor:
+    """NaN out the logits of the slots flagged in ``poison [B]``."""
+    shape = (-1,) + (1,) * (logits.dim() - 1)
+    return torch.where(poison.reshape(shape), torch.full_like(logits, float("nan")), logits)
+
+
+def _step(model, params, tok, states, pos, gen, sampler, tables, active, poison):
     logits, new = model.decode(params, tok, states, pos, block_tables=tables, write=active)
+    if poison is not None:
+        logits = _poisoned(logits, poison)
     states = new if active is None else select_states(new, states, active)
     nxt = sample_next_token(logits, sampler, gen, model.cfg)
     return nxt, states, finite_mask(logits)
@@ -35,15 +48,16 @@ def _step(model, params, tok, states, pos, gen, sampler, tables, active):
 
 def make_fused_decode(model):
     """``fused(params, tok, states, pos, gen, steps, sampler, tables=None,
-    active=None)`` for ``model``."""
+    active=None, poison=None)`` for ``model``."""
 
     def fused(params, tok, states, pos, gen: Optional[torch.Generator], steps: int,
-              sampler: SamplerConfig, tables=None, active: Optional[torch.Tensor] = None):
+              sampler: SamplerConfig, tables=None, active: Optional[torch.Tensor] = None,
+              poison: Optional[torch.Tensor] = None):
         finite = torch.ones(tok.shape[0], dtype=torch.bool, device=tok.device)
         out = []
         for _ in range(steps):
             tok, states, fin = _step(model, params, tok, states, pos, gen, sampler, tables,
-                                     active)
+                                     active, poison)
             finite &= fin
             out.append(tok)
             pos = pos + 1
@@ -54,13 +68,14 @@ def make_fused_decode(model):
 
 
 def unfused_decode(model, params, tok, states, pos, gen, steps: int,
-                   sampler: SamplerConfig, tables=None, active: Optional[torch.Tensor] = None):
+                   sampler: SamplerConfig, tables=None, active: Optional[torch.Tensor] = None,
+                   poison: Optional[torch.Tensor] = None):
     """The oracle loop: each step's tokens reach the host before the next."""
     finite = torch.ones(tok.shape[0], dtype=torch.bool, device=tok.device)
     out = []
     for _ in range(steps):
         tok, states, fin = _step(model, params, tok, states, pos, gen, sampler, tables,
-                                 active)
+                                 active, poison)
         finite &= fin
         out.append(tok.cpu())
         pos = pos + 1

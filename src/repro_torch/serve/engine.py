@@ -10,9 +10,14 @@ RG-LRU state — so it serves every ported block kind: blocking admission
 runs one packed prefill of the admitted prompts (the full-sequence pass
 where it is exact, else the masked token-by-token scan;
 ``packed_prefill``) and scatters each one's states into its slot.
-``kv_block_size > 0`` stores KV in one block pool per layer with
-radix-tree prefix reuse, for pure global-attention stacks only (refused
-at construction otherwise).  Requests flow
+``kv_block_size > 0`` stores every ``attn``/``local`` layer's KV in a
+block pool (a local layer's ring of ``min(max_len, window)`` positions
+through the table) with radix-tree prefix reuse for pure global-attention
+stacks; a stateful stack (recurrent or windowed layers) keeps its
+``RGLRUState``s by slot, admits through a dense packed prefill whose
+caches and rings block-scatter into the pools
+(``slots.paged_scatter_states``), and runs with the prefix cache off and
+blocking admission, as the reference does.  Requests flow
 
   queue -> [admit: claim a free slot; paged: reserve blocks (reusing
             interned prefix blocks)]
@@ -53,14 +58,22 @@ is a pure function of the token path on the paged layout
 non-finite on some slots commits every healthy slot first and then raises
 ``NonFiniteLogitsError`` naming exactly the bad ones: their tokens of that
 chunk are dropped and their requests end at the pre-fault stream
-(``RequestOutput.fault_reason``).  With ``astra_accounting`` (the
+(``RequestOutput.fault_reason``).  An injected fault
+(``step(faults=...)``, normally from ``serve/supervisor.py``) does the
+same: a ``step_error`` ends its victim before any commit, a
+``nonfinite_logits`` NaNs its victim's logits inside the chunk.  The
+engine ends a faulted slot's request itself before it raises, so the
+supervisor's ``quarantine_slot`` of it is a no-op; ``cancel`` ends a
+queued or decoding request, and ``audit`` cross-checks the bookkeeping
+(refcounts against holders, table rows against slots).  ``token_sink``
+receives each request's tokens as they reach the host (the front-end's
+streams, ``serve/frontend.py``).  With ``astra_accounting`` (the
 default) each output carries ``hardware``, its request's modeled cost on
 the ASTRA photonic chip (``serve/accounting.py``; not a measurement of
 the card), prompt tokens served from the prefix cache billed at zero.  On
 the card the attention kernels exist for the head dims ``HEAD_DIMS``; a
 model of another head dim is refused when the engine is built
-(:func:`attn_kernel_reject_reason`).  Retries, the supervisor and the
-front-end come with later slices (ROADMAP.md).
+(:func:`attn_kernel_reject_reason`).
 """
 from __future__ import annotations
 
@@ -76,18 +89,19 @@ from repro_torch.core.energy import AstraChipConfig
 from repro_torch.core.plan import kv_sites, model_sites, validate_site_registry
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels._build import HEAD_DIMS
-from repro_torch.models.attention import BlockTables
+from repro_torch.models.attention import BlockTables, PagedKVCache, QuantPagedKVCache
 from repro_torch.models.model import Model
-from repro_torch.models.transformer import (
-    DENSE_KV_QUANT_REASON, PAGED_STATEFUL_REASON, PORTED_KINDS,
-)
+from repro_torch.models.transformer import DENSE_KV_QUANT_REASON, PORTED_KINDS
 from repro_torch.serve.accounting import (
     RequestHardwareReport, RequestTiming, request_hardware_report, request_timing,
 )
 from repro_torch.serve.clock import resolve_clock
 from repro_torch.serve.decode_loop import make_fused_decode
 from repro_torch.serve.kv_pool import KVBlockPool
-from repro_torch.serve.faults import FAULT_NONFINITE, FAULT_POOL_PRESSURE, NonFiniteLogitsError
+from repro_torch.serve.faults import (
+    CANCEL_CLASS, CANCELLED, FAULT_NONFINITE, FAULT_POOL_PRESSURE, FAULT_STEP_ERROR,
+    FaultSpec, InjectedStepError, NonFiniteLogitsError,
+)
 from repro_torch.serve.prefill import (
     pack_prompts, packed_prefill, prefill_paged_suffix, prefill_window,
 )
@@ -96,7 +110,7 @@ from repro_torch.serve.sampling import GREEDY, SamplerConfig, sample_next_token
 from repro_torch.serve.scheduler import (
     DegradedLadder, SchedulerConfig, TokenBudgetScheduler, pow2_bucket,
 )
-from repro_torch.serve.slots import SlotState, scatter_states
+from repro_torch.serve.slots import SlotState, paged_scatter_states, scatter_states
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,9 +157,12 @@ class RequestOutput:
     # astra_accounting); not a measurement of the serving device
     hardware: Optional[RequestHardwareReport] = None
     timing: Optional[RequestTiming] = None
-    # set when a fault ended the request instead of its budget or EOS
-    # ("nonfinite_logits", "pool_pressure"); ``tokens`` then holds its
-    # pre-fault stream
+    # set by the front-end (serve/frontend.py) when it refused the request
+    # ("queue_full" | "queue_timeout"): empty tokens, queue-wait-only timing
+    reject_reason: Optional[str] = None
+    # set when a fault or the client ended the request instead of its
+    # budget or EOS (a fault class of serve/faults.py, or "cancelled" |
+    # "deadline_exceeded"); ``tokens`` then holds its pre-fault stream
     fault_reason: Optional[str] = None
 
     @property
@@ -207,6 +224,14 @@ def kv_quant_reject_reason(model: Model, kv_block_size: int) -> Optional[str]:
     return None
 
 
+def _pool_bytes_per_block(states) -> int:
+    """Storage bytes of one physical block over every layer's K and V
+    pools, at the pools' dtype (int8 under kv_quant); recurrent states and
+    the per-head scales are not per block."""
+    return sum(t[0].numel() * t.element_size() for st in states["layers"]
+               if isinstance(st, (PagedKVCache, QuantPagedKVCache)) for t in (st.k, st.v))
+
+
 def attn_kernel_reject_reason(head_dim: int, attn_impl: str,
                               device_type: str) -> Optional[str]:
     """Why the attention kernels cannot serve this model (None = they
@@ -223,12 +248,16 @@ def attn_kernel_reject_reason(head_dim: int, attn_impl: str,
 class ServeEngine:
     def __init__(self, model: Model, params, config: Optional[ServeConfig] = None, *,
                  chip: Optional[AstraChipConfig] = None, device: DeviceLike = None,
-                 clock: Optional[Callable[[], float]] = None):
+                 clock: Optional[Callable[[], float]] = None,
+                 token_sink: Optional[Callable[[int, np.ndarray], None]] = None):
         """``device=None`` means the card (raises without one); it must be
         the model's device.  ``chip`` is the modeled ASTRA chip the
         accounting bills against (the default organization if None).
         ``clock`` replaces the wall clock for every timestamp (a replay
-        harness passes a virtual one)."""
+        harness passes a virtual one).  ``token_sink(request_id, tokens)``
+        is called as soon as generated tokens are on the host — the first
+        token at admission, then once per decode chunk, EOS-trimmed, so a
+        request's calls concatenate to its final ``tokens``."""
         config = ServeConfig() if config is None else config
         self.device = resolve_device(device)
         if model.device != self.device:
@@ -248,10 +277,6 @@ class ServeEngine:
         if any(k not in PORTED_KINDS for k in cfg.layer_kinds):
             raise NotImplementedError(f"{cfg.name}: serving ports {'/'.join(PORTED_KINDS)} "
                                       "stacks only (ROADMAP queue 1: other block kinds)")
-        if config.kv_block_size > 0 and any(k != "attn" for k in cfg.layer_kinds):
-            # so the reference's blocking fallback for chunked admission of
-            # a paged stateful stack does not arise here
-            raise NotImplementedError(f"{cfg.name}: {PAGED_STATEFUL_REASON}")
         reason = attn_kernel_reject_reason(cfg.head_dim, model.opts.attn_impl, self.device.type)
         if reason is not None:
             raise NotImplementedError(f"{cfg.name}: {reason}")
@@ -267,6 +292,7 @@ class ServeEngine:
         self.config = config
         self.chip = chip or AstraChipConfig()
         self.clock = resolve_clock(clock)
+        self.token_sink = token_sink
         self._fused = make_fused_decode(model)
         self._queue: deque[Request] = deque()
         self._slots: List[Optional[_Slot]] = [None] * config.max_slots
@@ -284,14 +310,21 @@ class ServeEngine:
                             "decode_s": 0.0, "decode_tokens": 0}
         self._step_no = 0  # engine rounds run
         self._n_quarantined = 0  # slots ended by a fault
+        self._n_cancelled = 0  # requests ended by cancel or a deadline
         self._n_shed = 0  # queue heads shed by the degraded ladder
-        self._paged = config.kv_block_size > 0
+        self._fault_ended: Tuple[int, ...] = ()  # slots the last raised fault ended
+        # the suffix prefill (prefix reuse, paged chunking) rebuilds every
+        # layer's state from pooled blocks: pure global attention only
+        self._suffix_path = all(k == "attn" for k in cfg.layer_kinds)
+        self._paged = (config.kv_block_size > 0
+                       and any(k in ("attn", "local") for k in cfg.layer_kinds))
         # the full-sequence prefill emits window-sized rings; where the
         # window exceeds max_len the slots' rings are smaller (init_cache
         # clamps them), so admission takes the masked scan
         self._force_scan = (any(k == "local" for k in cfg.layer_kinds)
                             and config.max_len < cfg.window)
         self._prefix: Optional[RadixPrefixTree] = None
+        self._pool: Optional[KVBlockPool] = None
         if self._paged:
             self._init_pool(model, config)
         else:
@@ -303,7 +336,10 @@ class ServeEngine:
         self._admit_progress = False  # a request left the queue this round
         self._admit_stalled = False  # a paged admission rolled back this round
         self._sched: Optional[TokenBudgetScheduler] = None
-        if config.prefill_chunk_tokens > 0:
+        if config.prefill_chunk_tokens > 0 and (self._suffix_path or not self._paged):
+            # a paged stateful stack cannot resume its rings and recurrent
+            # states from pooled blocks mid-prompt: it admits blocking, as
+            # the reference's does (scheduler_stats["active"] is False)
             self._sched = TokenBudgetScheduler(SchedulerConfig(config.prefill_chunk_tokens))
         self._prefilling: List[int] = []  # PREFILLING slot ids, admission order
 
@@ -325,9 +361,15 @@ class ServeEngine:
         self._tables_np = np.zeros((config.max_slots, w), np.int32)
         self._tables_dev = torch.as_tensor(self._tables_np, device=self.device)
         self._tables_dirty = False
+        cfg = model.cfg
+        self._ring_len = (min(config.max_len, cfg.window)
+                          if any(k == "local" for k in cfg.layer_kinds) else 0)
         self._prefix_off_reason: Optional[str] = None
         if not config.prefix_cache:
             self._prefix_off_reason = "disabled by config (prefix_cache=False)"
+        elif not self._suffix_path:
+            self._prefix_off_reason = ("stateful stack: recurrent/windowed layers cannot "
+                                       "resume from pooled blocks")
         elif not _kv_deterministic(model):
             self._prefix_off_reason = (
                 "non-deterministic KV: a quantized GEMM site runs with dynamic "
@@ -336,11 +378,7 @@ class ServeEngine:
             self._prefix = RadixPrefixTree(bs)
         self._states = model.init_decode_state(config.max_slots, config.max_len,
                                                paged=(n_blocks, bs))
-        # storage of one block over every layer's K and V pools, at the
-        # pools' dtype (int8 under kv_quant); per-head scales are not per block
-        self._pool.bytes_per_block = sum(
-            t[0].numel() * t.element_size() for st in self._states["layers"]
-            for t in (st.k, st.v))
+        self._pool.bytes_per_block = _pool_bytes_per_block(self._states)
 
     # ------------------------------------------------------------- intake
     def check_request(self, prompt, max_new_tokens: int) -> np.ndarray:
@@ -357,11 +395,23 @@ class ServeEngine:
                              f"exceeds max_len {self.config.max_len}")
         return prompt
 
-    def submit(self, prompt, max_new_tokens: int, eos_id: Optional[int] = None) -> int:
-        prompt = self.check_request(prompt, max_new_tokens)
+    def allocate_request_id(self) -> int:
+        """Reserve the next request id without queueing anything: the
+        front-end ids a request when it arrives, so a rejected request and
+        a served one share one id space."""
         rid = self._next_id
         self._next_id += 1
-        req = Request(rid, prompt, max_new_tokens, eos_id, t_submit=self.clock())
+        return rid
+
+    def submit(self, prompt, max_new_tokens: int, eos_id: Optional[int] = None,
+               request_id: Optional[int] = None, t_submit: Optional[float] = None) -> int:
+        """Queue a request.  ``request_id`` (from :meth:`allocate_request_id`)
+        and ``t_submit`` let the front-end keep its own arrival time as the
+        latency anchor."""
+        prompt = self.check_request(prompt, max_new_tokens)
+        rid = self.allocate_request_id() if request_id is None else request_id
+        req = Request(rid, prompt, max_new_tokens, eos_id,
+                      t_submit=self.clock() if t_submit is None else t_submit)
         if max_new_tokens == 0:
             now = self.clock()
             self._complete(req, [], t_admit=now, t_first=now, events=[])
@@ -381,15 +431,19 @@ class ServeEngine:
             outs.extend(self.step())
         return sorted(outs, key=lambda o: o.request_id)
 
-    def step(self) -> List[RequestOutput]:
+    def step(self, faults: Optional[Sequence[FaultSpec]] = None) -> List[RequestOutput]:
         """Admit (+ blocking prefill), one chunked-prefill dispatch, one
         decode chunk, then the admission progress check; returns what
-        finished."""
+        finished.  ``faults`` injects this round's decode faults
+        (``step_error``, ``nonfinite_logits``); the raised ``ServeFault``
+        names the slots it ended, and skips the progress check exactly as
+        the reference's does."""
         self._step_no += 1
+        self._fault_ended = ()
         self._admit()
         if self._sched is not None:
             self._prefill_chunk()
-        self._decode_chunk()
+        self._decode_chunk(faults)
         self._check_progress()
         return self._drain()
 
@@ -469,6 +523,7 @@ class ServeEngine:
                          remaining=req.max_new_tokens - 1, filled=req.prompt_len,
                          generated=[tok0], cached=cached[j], t_admit=t_admit,
                          t_first=t_first, events=[(t_first, 1)])
+            self._emit_tokens(req, tok0)
             if self._hit_eos(req, tok0) or slot.remaining == 0:
                 self._retire(slot)
                 self._release_blocks(i)
@@ -508,20 +563,25 @@ class ServeEngine:
             self._tables_np[slot_i, : len(blocks)] = blocks
         self._tables_dirty = True
 
-    def _prefill_dense(self, slot_ids: List[int], reqs: List[Request]) -> torch.Tensor:
-        """One packed prefill of the admitted prompts (full-sequence or
-        masked scan, ``packed_prefill``); each request's states replace its
-        slot's rows."""
+    def _packed_prefill_small(self, reqs: List[Request]):
+        """One packed prefill of ``reqs`` from zeroed dense states of batch
+        ``len(reqs)`` (full-sequence or masked scan, ``packed_prefill``)."""
         tokens, lengths = pack_prompts([r.prompt for r in reqs], self.model.cfg,
                                        device=self.device)
-        last_logits, small = packed_prefill(self.model, self.params, tokens, lengths,
-                                            self.config.max_len, force_scan=self._force_scan)
+        return packed_prefill(self.model, self.params, tokens, lengths, self.config.max_len,
+                              force_scan=self._force_scan)
+
+    def _prefill_dense(self, slot_ids: List[int], reqs: List[Request]) -> torch.Tensor:
+        """Each request's packed-prefill states replace its slot's rows."""
+        last_logits, small = self._packed_prefill_small(reqs)
         scatter_states(self._states, small, torch.as_tensor(slot_ids, device=self.device))
         return last_logits
 
     def _prefill_paged(self, slot_ids: List[int], reqs: List[Request]):
         """Reserve blocks (reusing interned prefix blocks), prefill the
-        unmatched suffixes in one packed pass, intern new prompt blocks.
+        unmatched suffixes in one packed pass, intern new prompt blocks; a
+        stateful stack prefills its whole prompts dense and block-scatters
+        the caches and rings into the pools (``paged_scatter_states``).
         A request whose blocks cannot be covered goes back to the queue
         front with every later one (FCFS), and the round counts as stalled."""
         bs = self._block_size
@@ -543,12 +603,17 @@ class ServeEngine:
         if not adm_reqs:
             return [], [], None, []
         rows = torch.as_tensor(self._tables_np[adm_slots], device=self.device)
-        suffixes = [r.prompt[s:] for r, s in zip(adm_reqs, starts)]
-        tokens, lengths = pack_prompts(suffixes, self.model.cfg, device=self.device)
-        ctx = self._ctx_bucket(max(s + int(tokens.shape[-1]) for s in starts))
-        last_logits, self._states = prefill_paged_suffix(
-            self.model, self.params, tokens, lengths, self._states, rows,
-            torch.as_tensor(starts, dtype=torch.int32, device=self.device), ctx)
+        if self._suffix_path:
+            suffixes = [r.prompt[s:] for r, s in zip(adm_reqs, starts)]
+            tokens, lengths = pack_prompts(suffixes, self.model.cfg, device=self.device)
+            ctx = self._ctx_bucket(max(s + int(tokens.shape[-1]) for s in starts))
+            last_logits, self._states = prefill_paged_suffix(
+                self.model, self.params, tokens, lengths, self._states, rows,
+                torch.as_tensor(starts, dtype=torch.int32, device=self.device), ctx)
+        else:
+            last_logits, small = self._packed_prefill_small(adm_reqs)
+            paged_scatter_states(self._states, small,
+                                 torch.as_tensor(adm_slots, device=self.device), rows)
         if self._prefix is not None:
             for i, req, start in zip(adm_slots, adm_reqs, starts):
                 self._intern_prompt(i, req, start)
@@ -706,6 +771,7 @@ class ServeEngine:
             slot.generated = [tok0]
             slot.t_first = t_first
             slot.events = [(t_first, 1)]
+            self._emit_tokens(req, tok0)
             self._prefilling.remove(i)
             if self._paged:
                 self._install_blocks(i, self._slot_blocks[i], into_table=True)
@@ -732,14 +798,179 @@ class ServeEngine:
         if self._tables_dirty:
             self._tables_dev = torch.as_tensor(self._tables_np, device=self.device)
             self._tables_dirty = False
-        return BlockTables(self._tables_dev)
+        return BlockTables(self._tables_dev, self._ring_len)
+
+    # -------------------------------------------------- fault containment
+    def quarantine_slot(self, slot_i: int, reason: str, scrub: bool = True) -> None:
+        """End the request in ``slot_i`` at the tokens it had before the
+        fault (``fault_reason=reason``) and free the slot; no other slot is
+        touched.  Its exclusively held pool blocks are zeroed first
+        (``scrub``): attention masks scores, not values, so a NaN left
+        there would reach their next owner.  A dense row needs no scrub:
+        admission overwrites it whole.  A slot the last raised fault already
+        ended is a no-op that counts nothing (the engine ends faulted slots
+        before it raises)."""
+        slot = self._slots[slot_i]
+        if slot is None:
+            if slot_i in self._fault_ended:
+                return
+            raise ValueError(f"quarantine of empty slot {slot_i}")
+        if slot.state is SlotState.PREFILLING:
+            self._prefilling.remove(slot_i)
+        gen = np.concatenate(slot.generated, axis=-1) if slot.generated else []
+        now = self.clock()
+        self._complete(slot.req, gen, slot.t_admit or now,
+                       slot.t_first or slot.t_admit or now, slot.events,
+                       cached=slot.cached, fault_reason=reason)
+        if scrub and self._paged:
+            # shared (interned) blocks hold prompt prefill output that this
+            # slot's decode never wrote, so they cannot carry its poison
+            self._scrub_blocks([b for b in self._slot_blocks[slot_i]
+                                if self._pool.ref(b) == 1])
+        self._release_blocks(slot_i)
+        self._slots[slot_i] = None
+        if reason in CANCEL_CLASS:
+            self._n_cancelled += 1
+        else:
+            self._n_quarantined += 1
+
+    def _scrub_blocks(self, blocks: List[int]) -> None:
+        """Zero the given physical blocks in every layer's K/V pool (int8
+        codes included; the per-head scales stay); recurrent states have
+        no blocks."""
+        if not blocks:
+            return
+        idx = torch.as_tensor(blocks, device=self.device)
+        for st in self._states["layers"]:
+            if isinstance(st, (PagedKVCache, QuantPagedKVCache)):
+                st.k[idx] = 0
+                st.v[idx] = 0
+
+    def cancel(self, request_id: int, reason: str = CANCELLED) -> bool:
+        """End a queued or in-flight request (client intent) with
+        ``fault_reason=reason``; a decoding one through
+        :meth:`quarantine_slot`, so its blocks are freed at once (unscrubbed:
+        it decoded finite tokens until now).  False when the id is neither
+        queued nor in flight."""
+        for j, req in enumerate(self._queue):
+            if req.id == request_id:
+                del self._queue[j]
+                now = self.clock()
+                self._complete(req, [], t_admit=now, t_first=now, events=[],
+                               fault_reason=reason)
+                self._n_cancelled += 1
+                return True
+        for i, slot in enumerate(self._slots):
+            if slot is not None and slot.req.id == request_id:
+                self.quarantine_slot(i, reason, scrub=False)
+                return True
+        return False
+
+    def audit(self, external_refs: Sequence[int] = ()) -> Dict[str, object]:
+        """Cross-check the serving bookkeeping and raise ``RuntimeError`` on
+        the first drift: request ids of the outbox against the queue and
+        slots, the PREFILLING list against slot states and, on the paged
+        layout, every block's refcount against its holders (slot tables,
+        prefix tree and ``external_refs``, e.g. a supervisor's held
+        blocks), the pool's free list, and each slot's table row against
+        its blocks.  Returns a report (``leaked_blocks`` and
+        ``leaked_bytes`` are 0 whenever it returns)."""
+        out_ids = [o.request_id for o in self._outbox]
+        if len(set(out_ids)) != len(out_ids):
+            raise RuntimeError(f"audit: duplicate request ids in outbox ({out_ids})")
+        live_ids = {s.req.id for s in self._slots if s is not None}
+        live_ids |= {r.id for r in self._queue}
+        stale = set(out_ids) & live_ids
+        if stale:
+            raise RuntimeError(f"audit: request id(s) {sorted(stale)} are simultaneously "
+                               "finished (outbox) and live (queue/slot)")
+        for i in self._prefilling:
+            s = self._slots[i]
+            if s is None or s.state is not SlotState.PREFILLING:
+                raise RuntimeError(f"audit: prefilling list names slot {i} but the slot "
+                                   f"is {'empty' if s is None else s.state}")
+        report: Dict[str, object] = {
+            "paged": self._paged,
+            "slots_live": sum(s is not None for s in self._slots),
+            "queued": len(self._queue),
+            "outbox": len(out_ids),
+            "leaked_blocks": 0,
+            "leaked_bytes": 0,
+        }
+        if not self._paged:
+            return report
+        self._pool.check_consistent()
+        expected: Dict[int, int] = {}
+        tree_blocks = self._prefix.interned_blocks() if self._prefix is not None else []
+        for b in [b for blocks in self._slot_blocks for b in blocks] + list(tree_blocks) \
+                + list(external_refs):
+            expected[b] = expected.get(b, 0) + 1
+        drift = [(b, self._pool.ref(b), expected.get(b, 0))
+                 for b in range(1, self._pool.n_blocks)
+                 if self._pool.ref(b) != expected.get(b, 0)]
+        if drift:
+            b, have, want = drift[0]
+            raise RuntimeError(
+                f"audit: {len(drift)} block(s) with refcount drift — e.g. block {b}: "
+                f"pool ref {have} vs {want} actual holder(s) (slot tables + prefix tree "
+                "+ external refs)")
+        for i, slot in enumerate(self._slots):
+            row = self._tables_np[i]
+            blocks = self._slot_blocks[i]
+            if slot is None and blocks:
+                raise RuntimeError(f"audit: empty slot {i} still holds blocks {blocks}")
+            if slot is None or slot.state is SlotState.PREFILLING:
+                if row.any():
+                    raise RuntimeError(
+                        f"audit: slot {i} ({'empty' if slot is None else 'PREFILLING'}) "
+                        "has a non-scratch device table row — ride-along decode writes "
+                        "could corrupt another slot's blocks")
+            else:
+                want_row = np.zeros_like(row)
+                want_row[: len(blocks)] = blocks
+                if not np.array_equal(row, want_row):
+                    raise RuntimeError(f"audit: slot {i} device table row {row.tolist()} "
+                                       f"!= host blocks {blocks}")
+        report.update(pool_blocks=self._pool.n_blocks, live_blocks=self._pool.n_live,
+                      free_blocks=self._pool.n_free, tree_blocks=len(tree_blocks),
+                      external_refs=len(list(external_refs)))
+        return report
 
     # ------------------------------------------------------------- chunk
-    def _decode_chunk(self):
+    @staticmethod
+    def _resolve_victim(hint: Optional[int], active: List[int]) -> int:
+        """A FaultSpec's slot hint mapped onto the slots decoding this round."""
+        return active[0] if hint is None else active[hint % len(active)]
+
+    def _end_faulted(self, err_cls, message: str, slots: List[int]):
+        """End each faulted slot's request at its pre-fault stream, then
+        raise ``err_cls`` naming them."""
+        for i in slots:
+            self.quarantine_slot(i, err_cls.reason)
+        self._fault_ended = tuple(slots)
+        raise err_cls(message, slots=tuple(slots))
+
+    def _decode_chunk(self, faults: Optional[Sequence[FaultSpec]] = None):
         active = [i for i, s in enumerate(self._slots)
                   if s is not None and s.state is SlotState.DECODING]
         if not active:
             return
+        faults = faults or ()
+        for spec in faults:
+            if spec.kind == FAULT_STEP_ERROR:
+                # a whole-chunk failure before any commit: the healthy slots
+                # skip one chunk, which greedy streams do not notice
+                victim = self._resolve_victim(spec.slot, active)
+                self._end_faulted(InjectedStepError,
+                                  f"injected device error at engine step {self._step_no} "
+                                  f"(slot {victim})", [victim])
+        poison = None
+        poisoned = sorted({self._resolve_victim(s.slot, active)
+                           for s in faults if s.kind == FAULT_NONFINITE})
+        if poisoned:
+            p = np.zeros(self.config.max_slots, bool)
+            p[poisoned] = True
+            poison = torch.as_tensor(p, device=self.device)
         steps = min(self.config.chunk_steps, min(self._slots[i].remaining for i in active))
         pos = np.zeros(self.config.max_slots, np.int64)
         for i in active:
@@ -756,7 +987,7 @@ class ServeEngine:
         toks, finite, (next_tok, states, _, _) = self._fused(
             self.params, self._cur_tok, self._states, torch.as_tensor(pos, device=self.device),
             self._gen, steps=steps, sampler=self.config.sampler,
-            tables=self._block_tables() if self._paged else None, active=mask)
+            tables=self._block_tables() if self._paged else None, active=mask, poison=poison)
         self._states = states
         self._cur_tok = next_tok
         toks_np = toks.cpu().numpy()  # [B, steps]
@@ -767,13 +998,12 @@ class ServeEngine:
         self.phase_stats["decode_tokens"] += steps * (len(active) - len(bad))
         for i in active:
             if i in bad:
-                # sampled from non-finite logits: neither emitted nor
-                # counted; the request ends at its pre-fault stream
-                self._quarantine(i, FAULT_NONFINITE)
+                # sampled from non-finite logits: neither emitted nor counted
                 continue
             slot = self._slots[i]
             slot.generated.append(toks_np[i])
             slot.events.append((t_now, steps))
+            self._emit_tokens(slot.req, toks_np[i])
             slot.pos += steps
             slot.remaining -= steps
             if slot.remaining == 0 or self._hit_eos(slot.req, toks_np[i]):
@@ -782,32 +1012,11 @@ class ServeEngine:
                 self._slots[i] = None
         if bad:
             # every healthy slot is committed above; the fault names exactly
-            # the bad ones, already retired
-            raise NonFiniteLogitsError(f"non-finite logits at engine step {self._step_no} "
-                                       f"for slot(s) {bad}", slots=tuple(bad))
-
-    def _quarantine(self, slot_i: int, reason: str):
-        """End the request in ``slot_i`` at the tokens it had before the
-        fault (``fault_reason=reason``) and free the slot.  Its chunk
-        advanced the slot's recurrent state and cache past that stream, so
-        it cannot go on.  The blocks only it holds are zeroed first:
-        attention masks scores, not values, so a NaN left there would reach
-        their next owner.  A dense row needs no scrub: admission overwrites
-        it whole."""
-        slot = self._slots[slot_i]
-        gen = np.concatenate(slot.generated, axis=-1) if slot.generated else []
-        self._complete(slot.req, gen, slot.t_admit, slot.t_first, slot.events,
-                       cached=slot.cached, fault_reason=reason)
-        if self._paged:
-            own = [b for b in self._slot_blocks[slot_i] if self._pool.ref(b) == 1]
-            if own:
-                idx = torch.as_tensor(own, device=self.device)
-                for st in self._states["layers"]:
-                    st.k[idx] = 0
-                    st.v[idx] = 0
-        self._release_blocks(slot_i)
-        self._slots[slot_i] = None
-        self._n_quarantined += 1
+            # the bad ones (injected or organic), ended at their pre-fault
+            # streams: this chunk advanced their states past those
+            self._end_faulted(NonFiniteLogitsError,
+                              f"non-finite logits at engine step {self._step_no} "
+                              f"for slot(s) {bad}", bad)
 
     # ------------------------------------------------------------ retire
     def _hit_eos(self, req: Request, toks: np.ndarray) -> bool:
@@ -818,6 +1027,14 @@ class ServeEngine:
             return toks
         hits = np.nonzero(toks == req.eos_id)[0]
         return toks[: hits[0] + 1] if hits.size else toks
+
+    def _emit_tokens(self, req: Request, toks: np.ndarray) -> None:
+        """Hand freshly generated host tokens to ``token_sink``, EOS-trimmed
+        (each request's tokens exactly once, in order)."""
+        if self.token_sink is not None:
+            toks = self._trim_eos(req, toks)
+            if toks.shape[-1]:
+                self.token_sink(req.id, toks)
 
     def _retire(self, slot: _Slot):
         gen = self._trim_eos(slot.req, np.concatenate(slot.generated, axis=-1))
@@ -840,7 +1057,7 @@ class ServeEngine:
                                          int(gen.shape[-1]), cached_prompt_len=cached)
         timing = request_timing(req.t_submit, t_admit, t_first, events, self.clock())
         self._outbox.append(RequestOutput(req.id, req.prompt, gen, timing.wall_time_s,
-                                          hw, timing, fault_reason))
+                                          hw, timing, fault_reason=fault_reason))
 
     # ------------------------------------------------------------- stats
     @property
@@ -894,6 +1111,7 @@ class ServeEngine:
             "queued": len(self._queue),
             "slots_live": sum(s is not None for s in self._slots),
             "n_quarantined": self._n_quarantined,
+            "n_cancelled": self._n_cancelled,
             "n_shed": self._n_shed,
             "degraded_level": (self._ladder.level_name if self._ladder is not None
                                else "normal"),

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models.transformer import init_decode_state
 from repro_torch.serve.slots import select_states
 
 FULL_SEQ_KINDS = ("attn", "xattn")
@@ -81,12 +82,15 @@ def prefill_full_seq(model, params, tokens: torch.Tensor, lengths: torch.Tensor,
 
 def prefill_scan(model, params, tokens: torch.Tensor, lengths: torch.Tensor, max_len: int):
     """Token-by-token prefill from zeroed states with per-slot masked
-    updates: :func:`prefill_window` from position 0 over fresh states of
-    batch B.  Returns (last_logits [B, 1, V], states)."""
+    updates: :func:`prefill_window` from position 0 over fresh dense states
+    of batch B, in the model dtype whatever the pool's ``kv_quant`` (a
+    paged stateful engine scatters them into its pools afterwards, and an
+    int8 pool quantizes them there).  Returns (last_logits [B, 1, V],
+    states)."""
     b = tokens.shape[0]
     starts = torch.zeros(b, dtype=torch.int64, device=tokens.device)
-    return prefill_window(model, params, tokens, starts, lengths,
-                          model.init_decode_state(b, max_len))
+    fresh = init_decode_state(model.cfg, b, max_len, device=model.device)
+    return prefill_window(model, params, tokens, starts, lengths, fresh)
 
 
 def prefill_window(model, params, tokens: torch.Tensor, starts: torch.Tensor,

@@ -1,12 +1,13 @@
 """Slot lifecycle and per-slot tensor helpers (port of ``repro.serve.slots``).
 
 The slot state enum, the dense-layout scatter of a prefill's states
-(caches, rings, recurrent states) into the engine's slots, the per-slot
-select used by the masked-scan prefill, and the finiteness check the
-decode loop reduces over a chunk.  Paged pools have
-no batch axis (block tables carry slot identity), so the suffix prefill
-writes them directly and the reference's paged scatter has no
-counterpart.
+(caches, rings, recurrent states) into the engine's slots, its paged
+counterpart (a stateful stack's dense prefill block-scattered into the
+pools through the admitted slots' table rows, recurrent states by slot),
+the per-slot select used by the masked-scan prefill, and the finiteness
+check the decode loop reduces over a chunk.  A pure global-attention
+stack never takes the paged scatter: its suffix prefill writes the pools
+directly.
 """
 from __future__ import annotations
 
@@ -35,6 +36,51 @@ def scatter_states(big, small, slot_ids: torch.Tensor):
                 raise ValueError(f"prefill state {tuple(s.shape)} does not fit the "
                                  f"engine's {tuple(d.shape)}")
             d[slot_ids] = s.to(d.dtype)
+    return big
+
+
+def _block_scatter(pool: torch.Tensor, dense: torch.Tensor, rows: torch.Tensor) -> None:
+    """Write a dense per-request cache ``dense [n, kv, L, hd]`` into the
+    pool ``[n_blocks, kv, bs, hd]`` through ``rows [n, nb]`` (logical
+    blocks ``0..nb-1``; ``L`` zero-padded to ``nb * bs``), in place.
+    Entries past a request's allocation point at scratch block 0, so
+    several rows may write it: each duplicate takes the value of the last
+    such row, as the reference's scatter leaves it."""
+    n, kvh, length, hd = dense.shape
+    bs = pool.shape[2]
+    nb = rows.shape[1]
+    d = torch.nn.functional.pad(dense, (0, 0, 0, nb * bs - length))
+    vals = d.reshape(n, kvh, nb, bs, hd).movedim(2, 1).reshape(n * nb, kvh, bs, hd)
+    flat = rows.reshape(-1).long()
+    idx = torch.arange(flat.numel(), device=flat.device)
+    last = torch.full((pool.shape[0],), -1, dtype=torch.long, device=flat.device)
+    last.scatter_reduce_(0, flat, idx, reduce="amax")
+    pool[flat] = vals.to(pool.dtype)[last[flat]]
+
+
+def paged_scatter_states(big, small, slot_ids: torch.Tensor, rows: torch.Tensor):
+    """Install a stateful stack's dense prefill ``small = {"layers": [...]}``
+    (batch n) into the paged engine state ``big``, in place: each
+    attn/local layer's dense cache or ring block-scatters into its pool
+    through ``rows [n, W]`` (the admitted slots' table rows), its first
+    ``nb = min(W, ceil(L / bs))`` blocks, quantized first against an int8
+    pool's scales; every other leaf (``RGLRUState``) scatters at
+    ``slot_ids [n]`` as :func:`scatter_states` does.  Returns ``big``."""
+    from repro_torch.models.attention import (
+        KVCache, PagedKVCache, QuantPagedKVCache, kv_quantize,
+    )
+
+    for dst, src in zip(big["layers"], small["layers"], strict=True):
+        if isinstance(dst, (PagedKVCache, QuantPagedKVCache)):
+            assert isinstance(src, KVCache)
+            nb = min(rows.shape[1], -(-src.k.shape[2] // dst.k.shape[2]))
+            k, v = src.k, src.v
+            if isinstance(dst, QuantPagedKVCache):
+                k, v = kv_quantize(k, dst.k_scale), kv_quantize(v, dst.v_scale)
+            _block_scatter(dst.k, k, rows[:, :nb])
+            _block_scatter(dst.v, v, rows[:, :nb])
+        else:
+            scatter_states({"layers": [dst]}, {"layers": [src]}, slot_ids)
     return big
 
 

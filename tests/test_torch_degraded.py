@@ -190,8 +190,8 @@ def test_dense_layout_has_no_ladder(arch):
                       device="cpu")
     eng.generate_batch([_prompt(tcfg.vocab, 5, 1)], 2)
     st = eng.stats()
-    assert set(st) == {"step", "queued", "slots_live", "n_quarantined", "n_shed",
+    assert set(st) == {"step", "queued", "slots_live", "n_quarantined", "n_cancelled", "n_shed",
                        "degraded_level", "degraded_transitions", "kv", "prefix", "scheduler"}
     assert (st["degraded_level"], st["degraded_transitions"], st["kv"], st["scheduler"]) == (
         "normal", [], {}, {"active": False})
-    assert st["step"] >= 1 and st["n_shed"] == st["n_quarantined"] == 0
+    assert st["step"] >= 1 and st["n_shed"] == st["n_quarantined"] == st["n_cancelled"] == 0

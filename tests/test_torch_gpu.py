@@ -135,6 +135,38 @@ def _check_prefill(cuda, q_shape, kp, vp, table, start, dtype, tol, scales=()):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("pool", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("g", [1, 4, 10])
+@pytest.mark.parametrize("hd", [64, 256])
+def test_paged_prefill_rows_independent_of_padding_on_card(cuda, pool, g, hd):
+    """The G query heads are folded over the padded suffix length, so the
+    padding decides which rows share a tile: 8 real suffix rows (starts 0
+    and 32) alone and padded to 24 and 64 rows give bit-identical outputs
+    for the real rows, softcap 0 and 30."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    kvh, bs, w = 4, 16, 8
+    start = torch.tensor([0, 32], dtype=torch.int32, device=cuda)
+    table = (torch.randperm(2 * w, generator=gen, device=cuda).reshape(2, w) + 1).int()
+    scales = []
+    if pool == "int8":
+        kp, vp = (torch.randint(-127, 128, (2 * w + 1, kvh, bs, hd), generator=gen,
+                                device=cuda, dtype=torch.int8) for _ in range(2))
+        scales = [torch.rand(kvh, generator=gen, device=cuda) * 0.02 + 0.01 for _ in range(2)]
+        qdt = torch.float32
+    else:
+        qdt = getattr(torch, pool)
+        kp, vp = (torch.randn(2 * w + 1, kvh, bs, hd, generator=gen, device=cuda).to(qdt)
+                  for _ in range(2))
+    fn = pa_ops.paged_attention_prefill
+    for softcap in (0.0, 30.0):
+        q = torch.randn(2, kvh * g, 64, hd, generator=gen, device=cuda).to(qdt)
+        alone = fn(q[:, :, :8].contiguous(), kp, vp, table, start, *scales, softcap=softcap)
+        for s in (24, 64):
+            got = fn(q[:, :, :s].contiguous(), kp, vp, table, start, *scales, softcap=softcap)
+            assert torch.equal(got[:, :, :8], alone), (s, softcap)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("g", [1, 4, 10])
 @pytest.mark.parametrize("hd", [16, 64, 128, 256])

@@ -21,9 +21,10 @@ under ``exact`` and ``int8`` with both attention paths (``naive``;
 ``flash``: the flash and dense-decode kernels' plain versions on the
 CPU), and under ``sc`` and ``mixed`` one short case of mixed lengths past
 the window.  Also: the
-prefill strategy selection against the reference's, and the refusals
-at construction (the paged layout for a stateful stack, a head dim the
-CUDA kernels are not built for).
+prefill strategy selection against the reference's, what the paged
+layout refuses a stateful stack (prefix reuse, chunked admission), and
+the refusal at construction of a head dim the CUDA kernels are not built
+for.
 """
 import dataclasses
 
@@ -144,11 +145,17 @@ def test_full_seq_packable_matches_reference(name, lens):
 
 
 def test_paged_layout_refused_for_stateful_stack(archs):
-    _, tcfg, _, tparams = archs[32]
-    model = Model(tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeEngine(model, tparams, ServeConfig(max_slots=2, max_len=32, kv_block_size=4),
-                    device="cpu")
+    """The paged layout serves a stateful stack (its rings in the pool) but
+    refuses it what needs pooled blocks to resume state: the prefix cache
+    (off, with the reference's reason) and chunked admission (blocking, as
+    the reference falls back to)."""
+    jcfg, tcfg, jparams, tparams = archs[32]
+    cfg = dict(max_slots=2, max_len=32, kv_block_size=4, prefill_chunk_tokens=8)
+    eng = ServeEngine(Model(tcfg, device="cpu"), tparams, ServeConfig(**cfg), device="cpu")
+    ref = JaxServeEngine(JaxModel(jcfg), jparams, JaxServeConfig(**cfg))
+    assert eng.kv_stats["prefix_cache_off_reason"] == ref.kv_stats["prefix_cache_off_reason"]
+    assert "recurrent/windowed" in eng.kv_stats["prefix_cache_off_reason"]
+    assert eng.scheduler_stats == ref.scheduler_stats == {"active": False}
 
 
 def test_head_dim_outside_the_kernels_refused_at_construction(monkeypatch):
