@@ -22,7 +22,16 @@ recurrentgemma-2b (RG-LRU + sliding-window local attention, head dim
 prefill, flash attention with window 2048 and dense decode on the
 rings) and on the paged pool (``rg-exact-paged``: the rings through the
 block table, decoded by the paged kernel once per local layer and step,
-admission prefilled dense and scattered into the pools), checking that
+admission prefilled dense and scattered into the pools), then serves
+full-width granite-moe-1b-a400m (mixture-of-experts MLPs; attention at
+GQA 2) on the pool, on dense caches and chunked (``moe-exact``,
+``moe-int8``, ``moe-experts-int8`` with the expert products on the
+batched int8 entry, ``moe-exact-dense``, ``moe-exact-chunked``: each decode
+chunk launches its layout's decode kernel once per layer and step; a
+profiled chunk gives the expert products' and the routing, dispatch
+and combine's device time) and full-width xlstm-125m on its dense
+recurrent states (``xl-exact``: no attention kernel; ``xl-int8``: the
+int8 GEMM's two kernels), checking that
 every request gets its tokens, the logits are finite, the prefix cache
 hits where it may, and that each serving run itself launched every
 kernel of its plan's path and no kernel of the other layout (for a
@@ -36,12 +45,17 @@ injected step errors, NaN logits and pool pressure with retries
 every untouched request admitted in the same packed round as in the
 clean replay equal to the clean replay's; a request whose round moved
 may round otherwise, so those are counted).  Paged decode is timed at
-recurrentgemma's rings (``[time paged decode rg]``).  Reduced float32 models of both families are served on the
-card and on the CPU, and their greedy tokens compared (recurrentgemma on
-dense caches and on the paged pool, its rings wrapping).  One int8
+recurrentgemma's rings (``[time paged decode rg]``), and paged decode,
+causal prefill and the batched int8 entry at granite's shapes (``[time
+... moe]``).  Reduced float32 models of all four families are served on
+the card and on the CPU, and their greedy tokens compared (recurrentgemma
+on dense caches and on the paged pool, its rings wrapping; granite with
+its expert sites quantized in one run).  One int8
 product runs on ``wgmma`` with TMA-fed tiles at admission and on a
-weight-streaming kernel at decode: both are held bit for bit at every
-serving shape and at each kernel's edges, each model's decode step and
+weight-streaming kernel at decode: both are held bit for bit at
+stablelm's and recurrentgemma's serving shapes, at every shape the
+granite and xLSTM int8 runs gave them and the batched entry (recorded
+while those runs serve) and at each kernel's edges, each model's decode step and
 admission pass are timed summed (admission beside ``torch._int_mm``),
 short admissions time the ``wgmma`` kernel split against unsplit, and
 every int8 serving run must launch both.  The stochastic GEMM's serving
@@ -81,6 +95,7 @@ the sources of this checkout; imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -251,7 +266,7 @@ def wall_ms(fn, reps: int = 1) -> float:
 def _check_paged_decode(dev, g, pool, qdt, tol) -> None:
     """Paged decode (``decode.cu`` through the block table) against its
     plain version on a ``pool`` (float32, bf16 or int8) with ``qdt``
-    queries, at every head dim and block size ``PAGED_BLOCKS``: G 1, 4
+    queries, at every head dim and block size ``PAGED_BLOCKS``: G 1, 2, 4
     and 10, softcap 0 and 30, kv_len 0 (zeros), 1, BS, BS + 1 and the
     whole table, table entries at scratch block 0, several splits a slot.
     The output comes in ``qdt``, within ``tol``; each call counts one
@@ -277,7 +292,7 @@ def _check_paged_decode(dev, g, pool, qdt, tol) -> None:
                           for _ in range(2))
                 scales = []
             kw = dict(zip(("k_scale", "v_scale"), scales))
-            for grp in (1, 4, 10):  # 10: the 16-row tile
+            for grp in (1, 2, 4, 10):  # 2: granite's group; 10: the 16-row tile
                 for softcap in (0.0, 30.0):
                     q = torch.randn(5, kvh * grp, hd, generator=g, device=dev).to(qdt)
                     before = (fn.launches, fn.int8_launches)
@@ -291,7 +306,7 @@ def _check_paged_decode(dev, g, pool, qdt, tol) -> None:
                     assert err <= tol, (name, hd, bs, grp, softcap, err)
                     assert not got[0].any(), "kv_len 0 must give zeros"
                     worst, n = max(worst, err), n + 1
-        log(f"[paged decode] {name} hd={hd}: {n} cases (BS {PAGED_BLOCKS}, G 1/4/10, softcap "
+        log(f"[paged decode] {name} hd={hd}: {n} cases (BS {PAGED_BLOCKS}, G 1/2/4/10, softcap "
             f"0/30, kv_len 0 / 1 / BS / BS + 1 / W * BS, scratch-block entries, "
             f"{decode_splits(dev, 5, 8, 88)} splits at BS 8): max|kernel-plain| {worst:.2e} "
             f"<= {tol}")
@@ -299,22 +314,94 @@ def _check_paged_decode(dev, g, pool, qdt, tol) -> None:
 
 def check_kernels(dev, g) -> None:
     """Phases 2-4: every kernel against its plain version on the card."""
-    from repro_torch.kernels.int8_matmul import ops as i8
-    from repro_torch.kernels.int8_matmul.ref import int8_matmul_acc_ref
-
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
         _check_paged_decode(dev, g, dtype, dtype, tol)
     for m, k, n in [*DECODE_GEMMS, *PREFILL_GEMMS, *RG_DECODE_GEMMS, *RG_PREFILL_GEMMS,
                     *INT8_EDGES]:
-        x = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
-        w_t = torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
+        hold_int8_gemm(dev, g, m, k, n)
+
+
+def hold_int8_gemm(dev, g, m: int, k: int, n: int, batch: int = 0) -> str:
+    """The int8 GEMM (``batch == 0``) or its batched entry (``batch``
+    products) at one shape on random codes: int32 accumulators equal to
+    the plain version's bit for bit, and the kernel its plan picks (and
+    no other) launched.  Returns that kernel's path."""
+    from repro_torch.kernels.int8_matmul import ops as i8
+    from repro_torch.kernels.int8_matmul.ref import int8_matmul_acc_ref
+
+    lead = (batch,) if batch else ()
+    x = torch.randint(-127, 128, (*lead, m, k), generator=g, device=dev, dtype=torch.int8)
+    w_t = torch.randint(-127, 128, (*lead, n, k), generator=g, device=dev, dtype=torch.int8)
+    fn = i8.int8_gemm_batched if batch else i8.int8_gemm
+    if batch:
+        path, how = i8.int8_batched_plan(m, n, k), f"B={batch} "
+    else:
         plan = i8.int8_gemm_plan(m, n, k, n_sm(dev))
-        before = dict(i8.int8_gemm.paths)
-        assert torch.equal(i8.int8_gemm(x, w_t), int8_matmul_acc_ref(x, w_t)), (m, k, n)
-        moved = {p for p, c in i8.int8_gemm.paths.items() if c != before[p]}
-        assert moved == ({plan.path} if dev.type == "cuda" else set()), (m, k, n, plan, moved)
-        log(f"[int8 gemm] M={m} K={k} N={n} ({plan.path}, grid {plan.grid}, {plan.splits} K "
-            "splits): int32 accumulators equal the plain version bit for bit")
+        path, how = plan.path, ""
+    before = dict(fn.paths)
+    assert torch.equal(fn(x, w_t), int8_matmul_acc_ref(x, w_t)), (batch, m, k, n)
+    moved = {p for p, c in fn.paths.items() if c != before[p]}
+    assert moved == ({path} if dev.type == "cuda" else set()), (batch, m, k, n, path, moved)
+    detail = "" if batch else f", grid {plan.grid}, {plan.splits} K splits"
+    log(f"[int8 gemm{' batched' if batch else ''}] {how}M={m} K={k} N={n} ({path}{detail}): "
+        "int32 accumulators equal the plain version bit for bit")
+    return path
+
+
+class _ShapeLog:
+    """A kernel wrapper in its module's place that records each call's
+    operand shapes (``int8_gemm``: (M, K, N); ``int8_gemm_batched``: (B,
+    M, K, N)); its counters stay the wrapped function's."""
+
+    def __init__(self, fn, shapes: set):
+        object.__setattr__(self, "_fn", fn)
+        object.__setattr__(self, "_shapes", shapes)
+
+    def __call__(self, x, w_t):
+        self._shapes.add((*x.shape, w_t.shape[-2]))
+        return self._fn(x, w_t)
+
+    def __getattr__(self, name):
+        return getattr(self._fn, name)
+
+    def __setattr__(self, name, value):
+        setattr(self._fn, name, value)
+
+
+@contextlib.contextmanager
+def int8_shapes():
+    """Record the shapes the serving path gives the int8 GEMM and its
+    batched entry while the block runs: yields ``{"int8_gemm": set,
+    "int8_gemm_batched": set}``."""
+    from repro_torch.kernels.int8_matmul import ops as i8
+
+    seen = {"int8_gemm": set(), "int8_gemm_batched": set()}
+    saved = {name: getattr(i8, name) for name in seen}
+    for name, fn in saved.items():
+        setattr(i8, name, _ShapeLog(fn, seen[name]))
+    try:
+        yield seen
+    finally:
+        for name, fn in saved.items():
+            setattr(i8, name, fn)
+
+
+def hold_served_int8_shapes(dev, seen: dict, label: str) -> None:
+    """Every shape ``seen`` (:func:`int8_shapes`) held bit for bit on fresh
+    random codes, each on the kernel its plan picks."""
+    g = torch.Generator(device=dev).manual_seed(77)
+    paths = {}
+    for m, k, n in sorted(seen["int8_gemm"]):
+        p = hold_int8_gemm(dev, g, m, k, n)
+        paths[p] = paths.get(p, 0) + 1
+    for b, m, k, n in sorted(seen["int8_gemm_batched"]):
+        p = hold_int8_gemm(dev, g, m, k, n, batch=b)
+        paths[f"batched {p}"] = paths.get(f"batched {p}", 0) + 1
+    assert paths, (label, "no int8 product ran")
+    log(f"[int8 gemm {label}] every shape the run gave the int8 GEMM ({len(seen['int8_gemm'])}) "
+        f"and its batched entry ({len(seen['int8_gemm_batched'])}) held bit for bit, by "
+        f"kernel: {paths}")
+    _free(dev)
 
 
 def time_kernels(dev, g, timer=time_ms) -> dict:
@@ -1006,8 +1093,8 @@ def time_int8_pool(dev, g, timer=time_ms) -> dict:
 def check_paged_prefill(dev, g) -> None:
     """The causal prefill kernels (``paged_prefill.cu``) against their plain
     version on every pool (float32 and int8 within ``F32_TOL`` /
-    ``INT8_POOL_TOL``, bf16 within ``BF16_TOL``) and head dim, G 1, 4 and
-    10, block sizes ``PAGED_BLOCKS``, suffix lengths ``PREFILL_LENS``,
+    ``INT8_POOL_TOL``, bf16 within ``BF16_TOL``) and head dim, G 1, 2, 4
+    and 10, block sizes ``PAGED_BLOCKS``, suffix lengths ``PREFILL_LENS``,
     softcap 0 and 30, starts at 0, mid-block, on a block edge, past one
     and two blocks in, through tables with scratch-block entries; each
     call counts one launch (and one on the int8 branch for an int8
@@ -1036,7 +1123,7 @@ def check_paged_prefill(dev, g) -> None:
                               for _ in range(2))
                     scales = []
                 kw = dict(zip(("k_scale", "v_scale"), scales))
-                for grp in (1, 4, 10):
+                for grp in (1, 2, 4, 10):
                     for s in PREFILL_LENS:
                         for softcap in (0.0, 30.0):
                             q = torch.randn(5, kvh * grp, s, hd, generator=g,
@@ -1052,7 +1139,7 @@ def check_paged_prefill(dev, g) -> None:
                             err = (got.float() - want).abs().max().item()
                             assert err <= tol, (name, hd, bs, grp, s, softcap, err)
                             worst, n = max(worst, err), n + 1
-            log(f"[paged prefill] {name} pool hd={hd}: {n} cases (BS {PAGED_BLOCKS}, G 1/4/10, "
+            log(f"[paged prefill] {name} pool hd={hd}: {n} cases (BS {PAGED_BLOCKS}, G 1/2/4/10, "
                 f"S {PREFILL_LENS}, softcap 0/30, starts 0 / mid-block / block edge / past it "
                 f"/ 2 blocks): max|kernel-plain| {worst:.2e} <= {tol}")
 
@@ -1102,8 +1189,9 @@ def check_dense(dev, g) -> None:
     reduced shapes: flash at head dims 16 and 64, G = 1, 2, 4, causal with
     window 0 and 24, softcap 0 and 30, Sq = Sk not a multiple of the 64-row
     or 32/64-key tiles (and one non-causal case over 128 keys); dense decode
-    over S = 100 positions (not a multiple of the 64-key chunk) with
-    kv_len 0, 1, S and between, softcap 0 and 30.  Each is ``held`` to
+    over S = 100 positions (not a multiple of the 64-key chunk), G = 1, 2
+    (granite's), 4, 10, with kv_len 0, 1, S and between, softcap 0 and 30.
+    Each is ``held`` to
     ``F32_TOL`` in float32, flash to ``FLASH_BF16`` and dense decode to
     ``BF16_TOL`` in bf16; each call counts one launch."""
     from repro_torch.kernels.flash_attention import ops as fa
@@ -1146,7 +1234,7 @@ def check_dense(dev, g) -> None:
             f"{share:.3f} of the allowance")
         worst, share = 0.0, 0.0
         for hd in HEAD_DIMS_ALL:
-            for grp in (1, 4, 10):
+            for grp in (1, 2, 4, 10):
                 for softcap in (0.0, 30.0):
                     kvh, s = 4, 100
                     kv_len = torch.tensor([0, 1, 37, 64, 65, s], dtype=torch.int32, device=dev)
@@ -1160,7 +1248,7 @@ def check_dense(dev, g) -> None:
                     assert sh <= 1, ("dense decode", name, hd, grp, softcap, err, sh)
                     assert not got[0].any(), "kv_len 0 must give zeros"
                     worst, share = max(worst, err), max(share, sh)
-        log(f"[dense decode] {name} hd 16/64/128/256, G 1/4/10, softcap 0/30, S=100, kv_len "
+        log(f"[dense decode] {name} hd 16/64/128/256, G 1/2/4/10, softcap 0/30, S=100, kv_len "
             f"[0, 1, 37, 64, 65, 100]: max|kernel-plain| {worst:.2e}, {share:.3f} of the "
             "allowance")
 
@@ -1579,7 +1667,24 @@ PLAN_KERNELS = {
                        "dense_attention_decode"),
     # the open-loop replay of a mixed trace (stablelm, paged, prefix on)
     "traffic": ("paged_attention_decode", "paged_attention_prefill"),
+    # granite-moe-1b-a400m: the attention kernels at GQA 2 (its expert
+    # products are plain bf16 products under exact and int8: uniform int8
+    # leaves the MoE sites exact, as the reference's does; the plan that
+    # quantizes them runs the batched int8 entry, its stream kernel at
+    # decode and its tiles kernel at admission)
+    "moe-exact": ("paged_attention_decode", "paged_attention_prefill"),
+    "moe-int8": ("paged_attention_decode", "paged_attention_prefill") + INT8_KERNELS,
+    "moe-experts-int8": ("paged_attention_decode", "paged_attention_prefill",
+                         "int8_gemm_batched", "int8_gemm_batched_stream",
+                         "int8_gemm_batched_tiles"),
+    "moe-exact-dense": ("flash_attention", "dense_attention_decode"),
+    "moe-exact-chunked": ("paged_attention_decode", "paged_attention_prefill"),
+    # xlstm-125m: no attention layer; under int8 its projections
+    "xl-exact": (),
+    "xl-int8": INT8_KERNELS,
 }
+ATTENTION_KERNELS = ("paged_attention_decode", "paged_attention_prefill",
+                     "dense_attention_decode", "flash_attention")
 # kernels a plan's serving path must not launch: mixed's qk/pv (K % 16 ==
 # 0, K <= 4096 at every length it serves) never reach mma.sync; a dense
 # chunked run takes no full-sequence pass
@@ -1587,7 +1692,12 @@ PLAN_ABSENT = {"mixed": ("int8_gemm_batched_mma",),
                "rg-exact-paged": ("paged_attention_prefill",),
                "exact-dense-chunked": ("flash_attention", "rglru_scan"),
                "rg-exact-short": ("flash_attention", "rglru_scan"),
-               "rg-exact-chunked": ("flash_attention", "rglru_scan")}
+               "rg-exact-chunked": ("flash_attention", "rglru_scan"),
+               "moe-exact": ("int8_gemm", "int8_gemm_batched"),
+               "moe-int8": ("int8_gemm_batched",),
+               "moe-experts-int8": ("int8_gemm",),
+               "xl-exact": ATTENTION_KERNELS + ("int8_gemm", "rglru_scan"),
+               "xl-int8": ATTENTION_KERNELS + ("int8_gemm_batched", "rglru_scan")}
 # kernels of one KV layout, which a serving run on the other must not
 # launch: in the whole run, but for a stateful stack on the paged pool
 # inside its decode chunks only (its admission prefills dense before the
@@ -1738,6 +1848,10 @@ def serve(cfg, params, prompts, dev, runs, gen: int, max_len: int = 512,
                 if kind == "rglru":
                     assert isinstance(state, RGLRUState), label
                     assert state.h.shape == (8, cfg.d_rnn), label
+                elif kind in ("mlstm", "slstm"):  # slot-indexed float32 recurrent states
+                    assert type(state).__name__ == f"{kind[0].upper()}LSTMState", label
+                    assert all(t.shape[0] == 8 and t.dtype == torch.float32
+                               for t in state), label
                 else:
                     ring = min(max_len, cfg.window) if kind == "local" else max_len
                     shape = (8, cfg.n_kv_heads, ring, cfg.head_dim)
@@ -2128,7 +2242,8 @@ def profile_decode_chunk(cfg, params, prompts, dev, runs, kv_block_size: int = B
         # the device rows alone (kernels, memsets, copies: device_type CUDA),
         # so each device event counts once and not again in the CPU op above it
         on_dev = [r for e, r in zip(events, rows)
-                  if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+                  if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+                  and not r[1].startswith("moe.")]
         once_ms = sum(r[0] for r in on_dev) / 1e3
         top = sorted(rows, reverse=True)[:5]
         share = f"{once_ms / host_ms:.1%}" if once_ms > 0 else "not measured"
@@ -2168,6 +2283,14 @@ def profile_decode_chunk(cfg, params, prompts, dev, runs, kv_block_size: int = B
             if rs or label in ("sc", "mixed"):
                 detail += (f"; {what} {sum(r[0] for r in rs) / 1e3:.2f} ms over "
                            f"{sum(r[2] for r in rs)} launches")
+        # the MoE layer's parts under moe_ranges: the device time of the
+        # kernels each range launched, and the host time inside it
+        for e in events:
+            if e.key.startswith("moe.") and getattr(e, "device_type", None) != \
+                    torch.autograd.DeviceType.CUDA and once_ms > 0:
+                r_ms = getattr(e, "device_time_total", 0.0) / 1e3
+                detail += (f"; {e.key} device {r_ms:.2f} ms ({r_ms / once_ms:.1%} of the device "
+                           f"time), host {e.cpu_time_total / 1e3:.1f} ms over {e.count} calls")
         detail += f"; counted launches {{{', '.join(f'{k}: {v}' for k, v in counts.items() if v)}}}"
         detail += (f"; fill/memset kernels: {sum(r[2] for r in fills)} launches ("
                    + (", ".join(f"{r[1][:72]} x{r[2]}" for r in fills) or "none") + ")")
@@ -2302,25 +2425,7 @@ def serve_rg(cfg, dev, scan_ms: float, summary: dict) -> dict:
     logits, _ = model.prefill(model.prepare(params), {"tokens": probe}, max_len=cfg.window)
     assert logits.shape == (*probe.shape, cfg.vocab) and torch.isfinite(logits).all()
     del model, logits
-    # the int8 path at full width: the same prefill through the GEMM kernel
-    # and through its plain version in its place, logits equal bit for bit
-    from repro_torch.kernels.int8_matmul import ops as i8
-    from repro_torch.kernels.int8_matmul.ref import int8_matmul_acc_ref
-
-    model = _serving_model(cfg, dev, "int8")
-    prepared = model.prepare(params)
-    got, _ = model.prefill(prepared, {"tokens": probe}, max_len=cfg.window)
-    kernel, i8.int8_gemm = i8.int8_gemm, int8_matmul_acc_ref
-    try:
-        want, _ = model.prefill(prepared, {"tokens": probe}, max_len=cfg.window)
-    finally:
-        i8.int8_gemm = kernel
-    assert torch.isfinite(got).all() and torch.equal(got, want), \
-        (got.float() - want.float()).abs().max().item()
-    log(f"[rg-int8 prefill] recurrentgemma-2b {probe.shape[-1]} tokens under int8: logits "
-        "through the int8 GEMM kernel equal those through its plain version bit for bit")
-    del model, prepared, got, want
-    _free(dev)
+    int8_prefill_bit_for_bit(cfg, params, dev, probe, max_len=cfg.window)
     runs = [("rg-exact", "exact", "none"), ("rg-int8", "int8", "none")]
     launches, tokens = serve(cfg, params, prompts, dev, runs, gen=32, max_len=cfg.window,
                              kv_block_size=0)
@@ -2469,6 +2574,511 @@ def small_rg_card_vs_cpu(dev) -> None:
     assert agree == 1.0, agree
 
 
+# granite-moe-1b-a400m: 24 attn layers, 16 query heads over 8 KV heads of
+# 64 (GQA 2), a MoE MLP of 32 experts, top-8, expert width 512; one paged
+# admission packs 8 prompts of up to 384 tokens: 3072 tokens, 6 groups of
+# 512, each (group, expert) buffer 512 rows when drop-free
+GM_D, GM_H, GM_KVH, GM_E, GM_K, GM_F, GM_V = 1024, 16, 8, 32, 8, 512, 49155
+GM_ADMISSION = 8 * 384
+XL_D, XL_H, XL_V = 768, 4, 50304  # xlstm-125m
+# kernel rows timed at granite's shapes: their launches are the granite
+# runs' (the batched int8 entry's those of moe-experts-int8, the one run
+# whose plan quantizes the expert sites)
+MOE_ROWS = ("paged_attention_decode_moe", "paged_attention_prefill_moe",
+            "int8_gemm_batched_moe")
+MOE_EXPERTS_INT8 = {"*.expert_*": "int8", "default": "exact"}
+# the batched int8 entry's shape (B, M, K, N) at the first admission of
+# moe-experts-int8 (8 prompts padded to 384 tokens: 6 groups of 512, each
+# expert's 6 buffers of 512 rows in one product), the shape its row times
+GM_EXPERT_UP = (GM_E, GM_ADMISSION, GM_D, GM_F)
+
+
+def time_moe_kernels(dev, g, timer=time_ms) -> dict:
+    """The kernels at granite-moe-1b-a400m's shapes.  Paged decode: 8 slots
+    x 16 query heads over 8 KV heads of 64 (GQA 2: the group no stablelm
+    run takes), bf16, kv_len ``DECODE_FILLS`` through a 32-wide table of
+    16-position blocks.  Causal prefill: one cold admission of 8 x 384 at
+    the same heads.  Each held against its plain version (``BF16_TOL``,
+    ``SERVING_DRAWS`` draws for decode) and timed beside its bound, the
+    plain version and ``scaled_dot_product_attention`` (over the gathered
+    view with a length mask; causal over the gathered K/V; the gather
+    made before the timing, KV heads repeated to the query heads).  The
+    batched int8 entry at one admission's expert product
+    (``GM_EXPERT_UP``, the up projection, experts-major: ``[E, G * 512,
+    D]`` codes against ``[E, F, D]``, the 6 groups of each expert in one
+    product; ``moe-experts-int8`` gives it this shape at its first
+    admission, and its launches are that run's), held bit for bit and
+    timed beside its bound and the plain version; the down projection's
+    shape is held and logged."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from repro_torch.kernels.int8_matmul import ops as i8
+    from repro_torch.kernels.int8_matmul.ref import int8_matmul_acc_ref
+    from repro_torch.kernels.paged_attention import ops as pa
+    from repro_torch.kernels.paged_attention.ref import paged_decode_ref, paged_prefill_ref
+
+    out = {}
+    grp = GM_H // GM_KVH
+    fn = pa.paged_attention_decode
+    w = DENSE_S // BS
+    nb = 8 * w + 1
+    kv_len = torch.tensor(DECODE_FILLS, dtype=torch.int32, device=dev)
+    table = (torch.randperm(nb - 1, generator=g, device=dev).reshape(8, w) + 1).int()
+    errs = []
+    for _ in range(SERVING_DRAWS):
+        q = torch.randn(8, GM_H, HD, generator=g, device=dev).bfloat16()
+        kp, vp = (torch.randn(nb, GM_KVH, BS, HD, generator=g, device=dev).bfloat16()
+                  for _ in range(2))
+        before = fn.launches
+        err, sh = held(fn(q, kp, vp, table, kv_len), paged_decode_ref(q, kp, vp, table, kv_len),
+                       BF16_TOL)
+        assert sh <= 1 and fn.launches == before + (dev.type == "cuda"), \
+            ("paged decode at granite's shapes", err, sh)
+        errs.append(err)
+
+    def gathered(pool, tbl):  # [8, KVH, positions, hd], each KV head repeated G times
+        view = pool[tbl.long()].movedim(1, 2).reshape(8, GM_KVH, tbl.shape[1] * BS, HD)
+        return view.repeat_interleave(grp, dim=1)
+
+    ke, ve = gathered(kp, table), gathered(vp, table)
+    mask = (torch.arange(w * BS, device=dev)[None] < kv_len[:, None])[:, None, None]
+    k_ms = timer(lambda: fn(q, kp, vp, table, kv_len))
+    p_ms = timer(lambda: paged_decode_ref(q, kp, vp, table, kv_len))
+    l_ms = timer(lambda: sdpa(q[:, :, None], ke, ve, attn_mask=mask))
+    fill = sum(DECODE_FILLS)
+    live_blocks = sum(-(-n // BS) for n in DECODE_FILLS)
+    n_bytes = (2 * q.numel() * 2 + 2 * fill * GM_KVH * HD * 2 + live_blocks * 4
+               + kv_len.numel() * 4)
+    b_ms, b_by = bound_ms(n_bytes, 4 * fill * GM_H * HD, "bf16")
+    out["paged_attention_decode_moe"] = dict(
+        name="paged_attention_decode_moe", route="cuda", wrapper="paged_attention_decode",
+        source=SRC_DECODE, replaces="src/repro/kernels/paged_attention/kernel.py:146",
+        max_abs_err=max(errs), ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=l_ms)
+    log(f"[time paged decode moe] B=8 H={GM_H} KV={GM_KVH} hd={HD} bf16 kv_len {DECODE_FILLS}, "
+        f"{decode_splits(dev, 8, GM_KVH, w * BS)} splits: max|kernel-plain| per draw "
+        f"{', '.join(f'{e:.2e}' for e in errs)} (<= {BF16_TOL}); kernel_ms {k_ms:.4f} plain_ms "
+        f"{p_ms:.4f} bound_ms {b_ms:.4f} ({b_by}, {b_ms / k_ms:.1%} of it) library_ms "
+        f"{l_ms:.4f} (scaled_dot_product_attention over the gathered view, length mask)")
+
+    s = 384
+    tbl = table[:, : s // BS].contiguous()
+    start = torch.zeros(8, dtype=torch.int32, device=dev)
+    qs = torch.randn(8, GM_H, s, HD, generator=g, device=dev).bfloat16()
+
+    def kernel():
+        return pa.paged_attention_prefill(qs, kp, vp, tbl, start)
+
+    def plain():
+        return paged_prefill_ref(qs, kp, vp, tbl, start)
+
+    before = pa.paged_attention_prefill.launches
+    err, sh = held(kernel(), plain(), BF16_TOL)
+    assert sh <= 1 and pa.paged_attention_prefill.launches == before + (dev.type == "cuda"), \
+        ("paged prefill at granite's shapes", err, sh)
+    kd, vd = gathered(kp, tbl), gathered(vp, tbl)
+    k_ms, p_ms = timer(kernel, reps=5), timer(plain, reps=3)
+    l_ms = timer(lambda: sdpa(qs, kd, vd, is_causal=True), reps=5)
+    ops = 4 * 8 * s * (s + 1) // 2 * GM_H * HD
+    n_bytes = (2 * qs.numel() * 2 + 2 * torch.unique(tbl).numel() * GM_KVH * BS * HD * 2
+               + tbl.numel() * 4 + start.numel() * 4)
+    b_ms, b_by = bound_ms(n_bytes, ops, "bf16")
+    out["paged_attention_prefill_moe"] = dict(
+        name="paged_attention_prefill_moe", route="cuda", wrapper="paged_attention_prefill",
+        source=SRC_PREFILL, replaces="src/repro/kernels/paged_attention/kernel.py:146",
+        max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=l_ms)
+    log(f"[time paged prefill moe] cold: B=8 S={s} from position 0 H={GM_H} KV={GM_KVH} "
+        f"hd={HD} BS={BS}: max|kernel-plain| {err:.2e} <= {BF16_TOL}; kernel_ms {k_ms:.4f} "
+        f"plain_ms {p_ms:.4f} bound_ms {b_ms:.4f} ({b_by}, {b_ms / k_ms:.1%} of it) library_ms "
+        f"{l_ms:.4f} (scaled_dot_product_attention, is_causal, over the gathered K/V); kernel "
+        f"{ops / max(k_ms, 1e-9) / 1e9:.2f} TFLOP/s")
+    del kp, vp, ke, ve, kd, vd
+    _free(dev)
+
+    n_groups = GM_ADMISSION // 512
+    rows = n_groups * 512
+    for k, n, row in ((GM_D, GM_F, True), (GM_F, GM_D, False)):
+        x = torch.randint(-127, 128, (GM_E, rows, k), generator=g, device=dev, dtype=torch.int8)
+        w_t = torch.randint(-127, 128, (GM_E, n, k), generator=g, device=dev, dtype=torch.int8)
+        path = i8.int8_batched_plan(rows, n, k)
+        before = dict(i8.int8_gemm_batched.paths)
+        got = i8.int8_gemm_batched(x, w_t)
+        moved = {p for p, c in i8.int8_gemm_batched.paths.items() if c != before[p]}
+        assert moved == ({path} if dev.type == "cuda" else set()), (moved, path)
+        err = (got.long() - int8_matmul_acc_ref(x, w_t).long()).abs().max().item()
+        assert err == 0, ("batched int8 entry at the expert products", k, n, err)
+        del got
+        k_ms = timer(lambda: i8.int8_gemm_batched(x, w_t), reps=5)
+        p_ms = timer(lambda: int8_matmul_acc_ref(x, w_t), reps=3)
+        ops = 2 * GM_E * rows * n * k
+        b_ms, b_by = bound_ms(x.numel() + w_t.numel() + 4 * GM_E * rows * n, ops, "int8")
+        log(f"[time int8_gemm_batched moe] one admission's expert {'up' if row else 'down'} "
+            f"product: {GM_E} experts x [{rows}, {k}] x [{k}, {n}] ({n_groups} groups of 512 "
+            f"rows an expert, {path}): bit for bit; kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} "
+            f"bound_ms {b_ms:.4f} ({b_by}, {b_ms / k_ms:.1%} of it) library_ms none (no "
+            f"PyTorch call gives a batch of int8 products in int32); "
+            f"{ops / max(k_ms, 1e-9) / 1e9:.1f} TOPS")
+        if row:
+            out["int8_gemm_batched_moe"] = dict(
+                name="int8_gemm_batched_moe", route="cuda", wrapper="int8_gemm_batched",
+                source=SRC_INT8, replaces="src/repro/kernels/int8_matmul/kernel.py:38",
+                max_abs_err=float(err), ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+        del x, w_t
+        _free(dev)
+    return out
+
+
+@contextlib.contextmanager
+def moe_ranges():
+    """The MoE layer's parts under profiler ranges while the block runs:
+    ``moe.experts`` (each expert product) and ``moe.dispatch`` (the
+    router, the buffer positions, the dispatch and the combine)."""
+    from torch.profiler import record_function
+
+    from repro_torch.models import moe
+
+    saved = {n: getattr(moe, n) for n in ("astra_batched_matmul", "route", "positions",
+                                          "dispatch", "combine")}
+
+    def ranged(name, fn):
+        def call(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return call
+
+    for n, fn in saved.items():
+        setattr(moe, n, ranged("moe.experts" if n == "astra_batched_matmul" else "moe.dispatch",
+                               fn))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(moe, n, fn)
+
+
+def check_layer_launches(cfg, label: str, dev, kernel: str) -> None:
+    """Every decode chunk of run ``label`` launched ``kernel`` once per
+    attention layer and step (``PHASES``; the plain versions count
+    nothing on the CPU)."""
+    n_attn = sum(k in ("attn", "local") for k in cfg.layer_kinds)
+    chunks = PHASES[label]["decode"]
+    assert chunks, label
+    if dev.type == "cuda":
+        for steps, d in chunks:
+            assert d.get(kernel) == n_attn * steps, (label, kernel, steps, d)
+    log(f"[{label}] {len(chunks)} decode chunks: {kernel} {n_attn} x steps each "
+        + ("(held)" if dev.type == "cuda" else "(not held: plain versions on the CPU)"))
+
+
+def int8_prefill_bit_for_bit(cfg, params, dev, probe=None, max_len: int = 0) -> None:
+    """One prefill of ``probe`` (``[1, S]`` tokens; by default 64 made-up
+    ones) at full width under ``int8``, caches of ``max_len`` positions
+    (S by default): the logits through the int8 GEMM kernel equal those
+    through its plain version in its place, bit for bit."""
+    from repro_torch.kernels.int8_matmul import ops as i8
+    from repro_torch.kernels.int8_matmul.ref import int8_matmul_acc_ref
+
+    model = _serving_model(cfg, dev, "int8")
+    prepared = model.prepare(params)
+    if probe is None:
+        probe = torch.arange(64, device=dev, dtype=torch.int32)[None] * 7 % cfg.vocab
+    tokens = probe.shape[-1]
+    max_len = max_len or tokens
+    got, _ = model.prefill(prepared, {"tokens": probe}, max_len=max_len)
+    kernel, i8.int8_gemm = i8.int8_gemm, int8_matmul_acc_ref
+    try:
+        want, _ = model.prefill(prepared, {"tokens": probe}, max_len=max_len)
+    finally:
+        i8.int8_gemm = kernel
+    assert got.shape == (1, tokens, cfg.vocab) and torch.isfinite(got).all()
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max().item()
+    log(f"[{cfg.name} int8 prefill] {tokens} tokens: logits through the int8 GEMM kernel equal "
+        "those through its plain version bit for bit")
+    del model, prepared, got, want
+    _free(dev)
+
+
+def int8_logit_margins(cfg, params, prompts, dev, label: str) -> None:
+    """How near a greedy choice lies to a tie, beside how far the int8
+    plan moves the logits: one prefill of the first 8 prompts' first 96
+    tokens under ``exact`` and under ``int8``; at the last position the
+    exact logits' top-1 minus top-2 margin, their spread over the vocab
+    (std), max |int8 - exact| over the vocab, and the share of the 8
+    whose first greedy token the two plans agree on."""
+    probe = torch.as_tensor(np.stack([p[:96] for p in prompts[:8]]), device=dev)
+    last = {}
+    for plan in ("exact", "int8"):
+        model = _serving_model(cfg, dev, plan)
+        logits, _ = model.prefill(model.prepare(params), {"tokens": probe}, max_len=96)
+        assert torch.isfinite(logits).all(), plan
+        last[plan] = logits[:, -1].float()
+        del model, logits
+        _free(dev)
+    top2 = last["exact"].topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    moved = (last["int8"] - last["exact"]).abs().amax(-1)
+    agree = (last["int8"].argmax(-1) == last["exact"].argmax(-1)).float().mean().item()
+    log(f"[margin {label}] {cfg.name}, 8 prompts x 96 tokens, last position: exact top-1 minus "
+        f"top-2 median {margin.median().item():.4f} (min {margin.min().item():.4f}, max "
+        f"{margin.max().item():.4f}), exact logits' std over the vocab median "
+        f"{last['exact'].std(-1).median().item():.4f}; max|int8 - exact| over the vocab median "
+        f"{moved.median().item():.4f} (max {moved.max().item():.4f}); first greedy token equal "
+        f"in {agree:.0%} of the 8")
+
+
+def serve_moe(cfg, dev, summary: dict) -> dict:
+    """Full-width granite-moe-1b-a400m (bf16, random weights from seed 0),
+    ``max_len 512``, the 12 prompts of ``make_prompts`` (six share a
+    256-token prefix), 32 new each: ``moe-exact`` and ``moe-int8`` on the
+    paged pool (block 16, prefix cache on where the KV is deterministic),
+    ``moe-experts-int8`` (paged, the expert sites int8: the batched int8
+    entry at the expert products), ``moe-exact-dense`` on dense per-slot
+    caches and ``moe-exact-chunked`` (budget 256).  Every shape the int8
+    runs gave the int8 GEMM and its batched entry is then held bit for
+    bit (:func:`int8_shapes`).  Each decode chunk launches the decode kernel of its
+    layout once per layer and step; one decode chunk of ``moe-exact`` is
+    profiled with the MoE layer's parts under ranges.  Greedy agreement
+    with ``moe-exact`` is reported.
+    Returns each run's launches."""
+    from repro_torch.models.model import Model
+
+    params = Model(cfg, device=dev).init(seed=0)
+    prompts = make_prompts(cfg.vocab, np.random.default_rng(3))
+    int8_prefill_bit_for_bit(cfg, params, dev)
+    runs = [("moe-exact", "exact", "none"), ("moe-int8", "int8", "none")]
+    with int8_shapes() as seen:
+        launches, tokens = serve(cfg, params, prompts, dev, runs, gen=32, summary=summary)
+    hold_served_int8_shapes(dev, seen, "moe-int8")
+    with int8_shapes() as seen:
+        counts, toks = serve(cfg, params, prompts, dev,
+                             [("moe-experts-int8", MOE_EXPERTS_INT8, "none")], gen=32,
+                             summary=summary)
+    launches.update(counts)
+    tokens.update(toks)
+    assert dev.type != "cuda" or GM_EXPERT_UP in seen["int8_gemm_batched"], \
+        ("the timed expert product never ran", GM_EXPERT_UP, seen["int8_gemm_batched"])
+    hold_served_int8_shapes(dev, seen, "moe-experts-int8")
+    for label, bs, budget, kernel in (("moe-exact-dense", 0, 0, "dense_attention_decode"),
+                                      ("moe-exact-chunked", BS, 256, "paged_attention_decode")):
+        counts, toks = serve(cfg, params, prompts, dev, [(label, "exact", "none")], gen=32,
+                             kv_block_size=bs, chunk_tokens=budget, summary=summary)
+        launches.update(counts)
+        tokens.update(toks)
+        check_layer_launches(cfg, label, dev, kernel)
+    for label in ("moe-exact", "moe-int8", "moe-experts-int8"):
+        check_layer_launches(cfg, label, dev, "paged_attention_decode")
+    for label in ("moe-int8", "moe-experts-int8", "moe-exact-dense", "moe-exact-chunked"):
+        agree = (tokens[label] == tokens["moe-exact"]).mean()
+        log(f"[agreement {label}] greedy tokens equal to moe-exact: {agree:.1%} (reported, not "
+            "gated: random weights at bf16)")
+    chunked_beside_blocking(summary, "moe-exact-chunked", "moe-exact", tokens)
+    int8_logit_margins(cfg, params, prompts, dev, "moe")
+    with moe_ranges():
+        profile_decode_chunk(cfg, params, prompts, dev, runs[:1])
+    del params
+    _free(dev)
+    return launches
+
+
+def serve_xlstm(cfg, dev, summary: dict) -> dict:
+    """Full-width xlstm-125m (bf16, random weights from seed 0) on its
+    dense per-slot recurrent states (its only layout), ``max_len 512``:
+    8 prompts of 256 tokens (one full-sequence admission), then 4 of
+    64-160 (the masked scan), 32 new each, under ``exact`` (``xl-exact``:
+    no attention kernel launches) and ``int8`` (``xl-int8``: the int8
+    GEMM's ``stream`` and ``wgmma`` kernels, each shape it gave them held
+    bit for bit after the run).  One decode chunk of ``xl-exact`` is
+    profiled.  Returns each run's launches."""
+    from repro_torch.models.model import Model
+
+    params = Model(cfg, device=dev).init(seed=0)
+    prompts = make_rg_prompts(cfg.vocab, np.random.default_rng(4))
+    int8_prefill_bit_for_bit(cfg, params, dev)
+    runs = [("xl-exact", "exact", "none"), ("xl-int8", "int8", "none")]
+    with int8_shapes() as seen:
+        launches, tokens = serve(cfg, params, prompts, dev, runs, gen=32, kv_block_size=0,
+                                 summary=summary)
+    hold_served_int8_shapes(dev, seen, "xl-int8")
+    agree = (tokens["xl-int8"] == tokens["xl-exact"]).mean()
+    log(f"[agreement xl-int8] greedy tokens equal to xl-exact: {agree:.1%} (reported, not "
+        "gated: random weights at bf16)")
+    int8_logit_margins(cfg, params, prompts, dev, "xl")
+    profile_decode_chunk(cfg, params, prompts, dev, runs[:1], kv_block_size=0)
+    del params
+    _free(dev)
+    return launches
+
+
+def small_moe_card_vs_cpu(dev) -> None:
+    """A reduced float32 granite (2 layers, 4 experts, top-2) served with
+    the kernels on ``dev`` and their plain versions on the CPU, as the
+    stablelm ``[small ...]`` phase gates it: on the paged pool (block 8)
+    every token under exact, 90% under int8 and under the plan that
+    quantizes the expert sites (the batched int8 entry at the experts'
+    shapes: its launches asserted); on dense caches every token under
+    exact and int8."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.models.model import Model
+    from repro_torch.models.transformer import ModelOptions
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    small = get_arch("granite-moe-1b-a400m").reduced(dtype="float32", n_layers=2)
+    rng = np.random.default_rng(10)
+    prefix = rng.integers(0, small.vocab, 16, dtype=np.int32)
+    prompts = [np.concatenate([prefix, rng.integers(0, small.vocab, n, dtype=np.int32)])
+               for n in (5, 19, 2)] + [rng.integers(0, small.vocab, n, dtype=np.int32)
+                                       for n in (12, 33, 8)]
+    params = Model(small, device="cpu").init(seed=5)
+    runs = [("exact", "exact", 8), ("int8", "int8", 8), ("experts-int8", MOE_EXPERTS_INT8, 8),
+            ("exact-dense", "exact", 0), ("int8-dense", "int8", 0)]
+    for label, plan, bs in runs:
+        scfg = ServeConfig(max_slots=3, max_len=64, chunk_steps=4, kv_block_size=bs)
+        toks = {}
+        for where in ("cpu", dev):
+            m = Model(small, ModelOptions(plan=plan, attn_impl="flash"), device=where)
+            reset_launches()
+            outs = ServeEngine(m, _to(params, m.device), scfg,
+                               device=where).generate_batch(prompts, 10)
+            toks[str(where)] = np.stack([o.tokens for o in outs])
+        counts = launch_counts()
+        if label == "experts-int8" and dev.type == "cuda":
+            assert counts["int8_gemm_batched"] > 0, counts
+        agree = (toks["cpu"] == toks[str(dev)]).mean()
+        log(f"[small moe {label}] reduced granite float32 on {dev} (kernels) vs cpu (plain "
+            f"versions): {agree:.0%} of greedy tokens equal; card launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        assert agree == 1.0 if plan == "exact" or bs == 0 else agree >= 0.9, (label, agree)
+
+
+@contextlib.contextmanager
+def quantized_activations():
+    """Record every activation the GEMM sites quantize (``quantize`` with
+    a per-tensor scale) while the block runs: yields a list of
+    ``(input as float32, codes, scale)``, each on the CPU."""
+    from repro_torch.core import astra_layer
+
+    calls, fn = [], astra_layer.quantize
+
+    def logged(x, axis=None, scale=None):
+        q = fn(x, axis, scale)
+        if axis is None:
+            calls.append((x.detach().float().cpu(), q.q.cpu(), q.scale.float().cpu()))
+        return q
+
+    astra_layer.quantize = logged
+    try:
+        yield calls
+    finally:
+        astra_layer.quantize = fn
+
+
+def code_flip_witness(cpu_calls: list, card_calls: list) -> dict:
+    """Card and CPU quantized activations compared call by call (both
+    served the same requests, so the calls line up until a token
+    differs): the first call whose codes differ, how many moved and by
+    how much, how near their values lie to a rounding boundary (in code
+    units, from the CPU's values) and how far the float inputs of the
+    calls before it differ (max |card - cpu| over max |cpu|)."""
+    before = 0.0
+    for i, ((xa, qa, sa), (xb, qb, sb)) in enumerate(zip(cpu_calls, card_calls)):
+        assert xa.shape == xb.shape, (i, xa.shape, xb.shape)
+        if torch.equal(qa, qb):
+            before = max(before, ((xa - xb).abs().max() / xa.abs().max().clamp_min(1e-30)).item())
+            continue
+        moved = qa != qb
+        units = (xa / sa)[moved]
+        return dict(call=i, calls=len(cpu_calls), shape=tuple(xa.shape),
+                    moved=int(moved.sum()), of=qa.numel(),
+                    step=int((qa.int() - qb.int()).abs().max()),
+                    boundary=float(((units - units.floor()) - 0.5).abs().max()),
+                    rel_before=before,
+                    rel_here=((xa - xb).abs().max() / xa.abs().max()).item())
+    return dict(call=None, calls=len(cpu_calls), rel_before=before)
+
+
+def small_xlstm_card_vs_cpu(dev) -> None:
+    """A reduced float32 xlstm (one unit: mlstm x 3, slstm) served with the
+    kernels on ``dev`` and their plain versions on the CPU, on its dense
+    states under exact and int8, mixed prompt lengths (the masked scan)
+    and equal ones (the full-sequence pass).  Under exact every greedy
+    token is equal.  Under int8 the card also serves with the int8 GEMM's
+    plain version in the kernel's place, and every token must equal the
+    kernel's (the kernel is not where the card and the CPU part); and
+    every quantized activation of both sides is recorded
+    (:func:`quantized_activations`) and compared call by call
+    (:func:`code_flip_witness`): the float32 ops outside the GEMM round
+    otherwise on the card than on the CPU, and a value within a rounding
+    error of a half code moves one code, whose product then differs and
+    the greedy tokens with it.  So a group whose tokens differ must show
+    such a flip: before it every code equal and the float inputs within
+    1e-4 of each other (relative to the tensor's absmax), at it codes
+    moved by one only, each from a value within 1e-3 code units of the
+    half.  All tokens together are gated at 90%, as the quantized stablelm
+    ``[small ...]`` runs on the pool are."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.int8_matmul import ops as i8
+    from repro_torch.kernels.int8_matmul.ref import int8_matmul_acc_ref
+    from repro_torch.models.model import Model
+    from repro_torch.models.transformer import ModelOptions
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    small = get_arch("xlstm-125m").reduced(dtype="float32")
+    rng = np.random.default_rng(11)
+    params = Model(small, device="cpu").init(seed=6)
+    scfg = ServeConfig(max_slots=3, max_len=48, chunk_steps=4, kv_block_size=0)
+
+    def served(label, where, prompts):
+        m = Model(small, ModelOptions(plan=label, attn_impl="flash"), device=where)
+        outs = ServeEngine(m, _to(params, m.device), scfg, device=where).generate_batch(
+            prompts, 10)
+        return np.concatenate([o.tokens for o in outs])
+
+    for label in ("exact", "int8"):
+        agree, same, witness = [], [], []
+        for group in ((5, 19, 12, 33, 8), (16, 16)):
+            prompts = [rng.integers(0, small.vocab, n, dtype=np.int32) for n in group]
+            with quantized_activations() as cpu_calls:
+                cpu = served(label, "cpu", prompts)
+            with quantized_activations() as card_calls:
+                card = served(label, dev, prompts)
+            agree.append((cpu == card).mean())
+            if label == "int8":
+                kernel, i8.int8_gemm = i8.int8_gemm, int8_matmul_acc_ref
+                try:
+                    plain = served(label, dev, prompts)
+                finally:
+                    i8.int8_gemm = kernel
+                same.append((plain == card).mean())
+                w = code_flip_witness(cpu_calls, card_calls)
+                witness.append(w)
+                log(f"[small xlstm int8 witness] prompts {group}: {agree[-1]:.0%} of greedy "
+                    f"tokens equal; {w['calls']} quantized activations a side; "
+                    + (f"first code moved at call {w['call']} (input {w['shape']}): "
+                       f"{w['moved']} of {w['of']} codes, by at most {w['step']}, their values "
+                       f"at most {w['boundary']:.2e} code units from the half; float inputs "
+                       f"there max|card-cpu|/max|cpu| {w['rel_here']:.2e}, "
+                       if w["call"] is not None else "no code moved; ")
+                    + f"before it at most {w['rel_before']:.2e}")
+                assert w["rel_before"] <= 1e-4, w
+                if agree[-1] < 1.0:
+                    assert w["call"] is not None, ("tokens differ with every code equal", w)
+                if w["call"] is not None:
+                    assert w["step"] == 1 and w["boundary"] <= 1e-3, w
+            else:
+                assert not cpu_calls and not card_calls
+        total = sum(a * n for a, n in zip(agree, (5, 2))) / 7
+        log(f"[small xlstm {label}] reduced xlstm float32 on {dev} (kernels) vs cpu (plain "
+            f"versions), mixed / equal prompt lengths: "
+            f"{' / '.join(f'{a:.0%}' for a in agree)} of greedy tokens equal ({total:.1%} of "
+            "all)" + (f"; the card with the int8 GEMM's plain version in the kernel's place: "
+                      f"{' / '.join(f'{a:.0%}' for a in same)} equal to the kernel's"
+                      if same else ""))
+        assert (min(agree) == 1.0 if label == "exact" else total >= 0.9), (label, agree)
+        assert all(a == 1.0 for a in same), (label, same)
+
+
 def log_tiles() -> None:
     """Dynamic shared memory of the redesigned kernels at each head dim, as
     their launches request it (ptxas reports static shared memory only)."""
@@ -2587,7 +3197,8 @@ def main() -> None:
     kernels = {**time_kernels(dev, g), **time_int8_pool(dev, g), **time_dense(dev, g),
                **time_stochastic(dev, g, rates=rates), **time_rglru(dev, g),
                **time_wide_attention(dev, g), **time_rg_paged_decode(dev, g),
-               **time_int8_gemms(dev, g, "int8_gemm_rg", RG_DECODE_GEMMS, RG_PREFILL_GEMMS)}
+               **time_int8_gemms(dev, g, "int8_gemm_rg", RG_DECODE_GEMMS, RG_PREFILL_GEMMS),
+               **time_moe_kernels(dev, g)}
     elapsed("kernel timings")
 
     cfg = get_arch("stablelm-1.6b")
@@ -2657,16 +3268,29 @@ def main() -> None:
     assert rg.layer_kinds.count("rglru") == 18 and rg.layer_kinds.count("local") == 8
     rg_launches = serve_rg(rg, dev, kernels["rglru_scan"]["ms"], summary)
     elapsed("recurrentgemma-2b serving")
+    gm = get_arch("granite-moe-1b-a400m")
+    assert (gm.n_layers, gm.d_model, gm.n_heads, gm.n_kv_heads, gm.head_dim, gm.vocab,
+            gm.dtype, gm.tie_embeddings) == (24, GM_D, GM_H, GM_KVH, HD, GM_V, "bfloat16", True)
+    assert (gm.moe.n_experts, gm.moe.top_k, gm.moe.d_expert, gm.act) == (GM_E, GM_K, GM_F,
+                                                                         "swiglu")
+    moe_launches = serve_moe(gm, dev, summary)
+    elapsed("granite-moe-1b-a400m serving")
+    xl = get_arch("xlstm-125m")
+    assert (xl.n_layers, xl.d_model, xl.n_heads, xl.vocab, xl.dtype, xl.block_pattern) == (
+        12, XL_D, XL_H, XL_V, "bfloat16", ("mlstm", "mlstm", "mlstm", "slstm"))
+    serve_xlstm(xl, dev, summary)
+    elapsed("xlstm-125m serving")
     small_card_vs_cpu(dev)
     small_rg_card_vs_cpu(dev)
     small_rg_paged_card_vs_cpu(dev)
+    small_moe_card_vs_cpu(dev)
+    small_xlstm_card_vs_cpu(dev)
     elapsed("card against CPU")
 
     # launches: summed over the serving runs of the row's model (the rows
-    # at recurrentgemma's shapes over rg-exact and rg-int8, the others over
-    # the eight stablelm runs) and over the row's wrappers (the binary
-    # stochastic GEMM's two entries, counted by kernel); launches_by_plan:
-    # each run's own
+    # at recurrentgemma's shapes over its runs, those at granite's over the
+    # granite runs, the others over the stablelm runs) and over the row's wrappers (the binary stochastic GEMM's two
+    # entries, counted by kernel); launches_by_plan: each run's own
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_plan",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     def count(c, w):  # a length's key exists once a run launched the scan at it
@@ -2675,7 +3299,8 @@ def main() -> None:
     for name, rec in kernels.items():
         wrappers = rec.get("wrapper", name)
         wrappers = (wrappers,) if isinstance(wrappers, str) else wrappers
-        runs = rg_launches if name in RG_ROWS else launches
+        runs = (rg_launches if name in RG_ROWS else moe_launches if name in MOE_ROWS
+                else launches)
         rec["launches_by_plan"] = {label: sum(count(c, w) for w in wrappers)
                                    for label, c in runs.items()}
         rec["launches"] = sum(rec["launches_by_plan"].values())

@@ -109,6 +109,21 @@ def sc_weight_t(w: torch.Tensor, w_gen: str) -> WeightCodes:
     return WeightCodes(wq_t.q, wq_t.scale, w_gen)
 
 
+def batched_weight_t(w: torch.Tensor) -> QTensor:
+    """Per-batch weights ``w [B, K, N]`` (a MoE layer's experts) quantized
+    as the batched product quantizes its second operand, ``quantize(w,
+    axis=1)``, with the codes stored transposed: codes ``[B, N, K]``,
+    scales ``[B, 1, N]``."""
+    wq = quantize(w, axis=1)
+    return QTensor(wq.q.transpose(1, 2).contiguous(), wq.scale)
+
+
+def batched_sc_weight_t(w: torch.Tensor, w_gen: str) -> WeightCodes:
+    """``batched_weight_t(w)`` tagged with the weight streams' generator."""
+    wq = batched_weight_t(w)
+    return WeightCodes(wq.q, wq.scale, w_gen)
+
+
 def astra_matmul(x: torch.Tensor, w: torch.Tensor,
                  cc: Union[ComputeConfig, BoundSite] = EXACT, *,
                  wq_t: Optional[QTensor] = None,
@@ -137,7 +152,11 @@ def astra_matmul(x: torch.Tensor, w: torch.Tensor,
 
 
 def astra_batched_matmul(x: torch.Tensor, w: torch.Tensor,
-                         cc: Union[ComputeConfig, BoundSite]) -> torch.Tensor:
+                         cc: Union[ComputeConfig, BoundSite], *,
+                         fold_groups: bool = False,
+                         wq_t: Optional[QTensor] = None,
+                         wsc_t: Optional[WeightCodes] = None,
+                         wc: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Batched GEMM with a per-batch second operand: ``[..., M, K] @
     [..., K, N]`` with shared leading dims (the attention qk/pv products).
 
@@ -145,28 +164,51 @@ def astra_batched_matmul(x: torch.Tensor, w: torch.Tensor,
     element (each slot and KV head) its own per-tensor ``x`` scale and its
     own per-output-column ``w`` scale, as the reference's ``vmap`` of
     ``astra_matmul`` does, and runs every element's product in one launch
-    of the batched int8 or stochastic kernel."""
+    of the batched int8 or stochastic kernel.
+
+    ``fold_groups`` (the expert products of a MoE layer): ``x [E, G, M,
+    K]`` (group g's buffer rows for expert e) against ``w [E, K, N]`` ->
+    ``[E, G, M, N]``, the same function over every (group, expert) pair,
+    but each expert's G groups run as one product of G*M rows, so ``w`` is
+    read once and never broadcast over the groups: a row's products do
+    not depend on the rows beside it (int32 sums are exact, and the
+    scales are applied per pair afterwards).  Caches made once at load:
+    ``wc`` (``w`` in the model dtype), ``wq_t`` (:func:`batched_weight_t`)
+    and ``wsc_t`` (:func:`batched_sc_weight_t`)."""
+    m, k = x.shape[-2:]
+    n = w.shape[-1]
+    lead = x.shape[:-2]
+    w_lead = lead[:1] if fold_groups else lead  # the batch of distinct weights
+    reps = lead[1] if fold_groups else 1  # x batches sharing each weight
+
+    def plain(w_x):
+        if not fold_groups:
+            return torch.matmul(x, w_x)
+        return torch.matmul(x.reshape(-1, reps * m, k), w_x).reshape(*lead, m, n)
+
     if runs_exact(cc):
-        return torch.matmul(x, w.to(x.dtype))
+        return plain(wc if wc is not None and wc.dtype == x.dtype else w.to(x.dtype))
     _maybe_observe(cc, x)
     cc = resolve_cc(cc)
     if cc.mode == "exact":  # observed while calibrating
-        return torch.matmul(x, w.to(x.dtype))
-    lead = x.shape[:-2]
-    m, k = x.shape[-2:]
-    n = w.shape[-1]
-    xf = x.reshape(-1, m, k)
-    wf = w.broadcast_to(*lead, k, n).reshape(-1, k, n)
-    xq = quantize(xf, axis=(1, 2), scale=cc.act_scale)
-    wq = quantize(wf, axis=1)  # [B, 1, N]
-    w_t = wq.q.transpose(1, 2).contiguous()  # [B, N, K]
+        return plain(w.to(x.dtype))
+    wf = w.broadcast_to(*w_lead, k, n).reshape(-1, k, n)
+    b = wf.shape[0]
+    xq = quantize(x.reshape(-1, m, k), axis=(1, 2), scale=cc.act_scale)
+    xs = xq.scale.reshape(b, reps, 1, 1) if xq.scale.dim() else xq.scale
+    codes = xq.q.reshape(b, reps * m, k)
     if cc.mode == "int8":
         from repro_torch.kernels.int8_matmul.ops import int8_gemm_batched
 
-        out = (int8_gemm_batched(xq.q, w_t).to(torch.float32) * xq.scale) * wq.scale
+        wq = wq_t if wq_t is not None else batched_weight_t(wf)
+        acc = int8_gemm_batched(codes, wq.q).reshape(b, reps, m, n)
+        out = (acc.to(torch.float32) * xs) * wq.scale[:, None]
     else:
         from repro_torch.kernels.stoch_matmul.ops import stoch_matmul_codes_batched
 
-        acc = stoch_matmul_codes_batched(xq.q, w_t, cc.x_gen, cc.w_gen)
-        out = acc.to(torch.float32) * STREAM_LEN * xq.scale * wq.scale
+        if wsc_t is None or wsc_t.gen != cc.w_gen:
+            wsc_t = batched_sc_weight_t(wf, cc.w_gen)
+        acc = stoch_matmul_codes_batched(codes, wsc_t.q, cc.x_gen, cc.w_gen)
+        out = acc.reshape(b, reps, m, n).to(torch.float32) * STREAM_LEN * xs \
+            * wsc_t.scale[:, None]
     return out.reshape(*lead, m, n).to(x.dtype)

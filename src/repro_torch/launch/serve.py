@@ -22,7 +22,11 @@ decode) and prints its counters; ``--no-degraded-mode`` makes a paged
 engine raise where admission would wedge instead of shedding load.
 recurrentgemma serves on either layout: on the paged pool its local rings
 live in the blocks and its RG-LRU states stay by slot (prefix cache off,
-blocking admission).
+blocking admission).  granite-moe-1b-a400m (MoE MLPs, pure global
+attention) serves like the dense decoders, prefix reuse included;
+xlstm-125m (mLSTM and sLSTM blocks, no attention layer) has no KV to pool
+and serves on its dense per-slot recurrent states whatever
+``--kv-block-size`` says.
 
 ``--traffic-trace`` (a trace JSON, or an inline spec such as
 ``mixed:rate=4,n=32,seed=0``) replays an open-loop trace through
@@ -125,6 +129,11 @@ def dense_state_summary(states, cfg) -> str:
     for st, kind in zip(states["layers"], cfg.layer_kinds):
         if kind == "rglru":
             key = f"RG-LRU states h {tuple(st.h.shape)} + conv {tuple(st.conv.shape)} float32"
+        elif kind == "mlstm":
+            key = (f"mLSTM states c {tuple(st.c.shape)} + n {tuple(st.n.shape)} + m "
+                   f"{tuple(st.m.shape)} float32")
+        elif kind == "slstm":
+            key = f"sLSTM states c, n, m, h {tuple(st.c.shape)} float32"
         else:
             key = f"K and V {tuple(st.k.shape)} {cfg.dtype}" + (" (ring)" if kind == "local" else "")
         counts[key] = counts.get(key, 0) + 1
@@ -435,7 +444,10 @@ def main(argv=None):
           f"{n_tok / dt:.1f} tok/s, mean TTFT {ttft * 1e3:.1f} ms")
     kv = engine.kv_stats
     if not kv:
-        print(f"  kv cache: dense per-slot layout, {dense_state_summary(engine._states, cfg)}")
+        why = ("" if args.kv_block_size == 0 or engine._paged
+               else " (no attn/local layer: no KV to pool)")
+        print(f"  kv cache: dense per-slot layout{why}, "
+              f"{dense_state_summary(engine._states, cfg)}")
     else:
         line = (f"  kv pool: {kv['pool_blocks']} blocks x {kv['block_size']} tok, "
                 f"{kv['kv_quant']} storage ({kv['bytes_per_block']} B/block, "

@@ -1,5 +1,7 @@
 """The decoder stack, unrolled: global (``attn``) and sliding-window
-(``local``) attention blocks and RG-LRU (``rglru``) recurrent blocks.
+(``local``) attention blocks, RG-LRU (``rglru``) recurrent blocks and the
+xLSTM blocks (``mlstm``, ``slstm``), each attention or RG-LRU block
+followed by a dense MLP or a mixture of experts (``cfg.moe``).
 
 Port of ``repro.models.transformer``.  The reference stacks each pattern
 slot's parameters under a unit axis and runs ``lax.scan`` over units; the
@@ -9,15 +11,18 @@ GEMM sites resolve together across its units — so a plan means the same
 thing in both packages.
 
 Parameters: ``{"embedding": {"table"}, "head": {"w"} | {}, "final_norm",
-"layers": [{"pre_norm", "core", "post_norm", "mlp": {"up","gate","down"}},
-...]}``, float32 masters; an attention core is ``{"wq","wk","wv","wo"}``,
-an RG-LRU core ``{"w_in","conv_w","conv_b","w_a","w_x","lam","w_out"}``.
-Serving state: ``{"layers": [...]}`` with one entry per layer — a dense
-per-slot ``KVCache`` in the model dtype (a ``window``-sized ring for a
-local layer) or an ``RGLRUState`` — or, on the paged layout, one
-``PagedKVCache | QuantPagedKVCache`` block pool per ``attn``/``local``
-layer (int8 under ``kv_quant="int8"``) beside the slot-indexed
-``RGLRUState`` of each ``rglru`` layer.
+"layers": [{"pre_norm", "core", "post_norm", "mlp"}, ...]}``, float32
+masters; an attention core is ``{"wq","wk","wv","wo"}``, an RG-LRU core
+``{"w_in","conv_w","conv_b","w_a","w_x","lam","w_out"}``, the xLSTM cores
+those of ``models.xlstm``; a dense MLP is ``{"up","gate","down"}``, a
+MoE ``{"router","w_up","w_gate","w_down"}`` (``models.moe``); an xLSTM
+block has no MLP.  Serving state: ``{"layers": [...]}`` with one entry
+per layer — a dense per-slot ``KVCache`` in the model dtype (a
+``window``-sized ring for a local layer) or a slot-indexed recurrent
+state (``RGLRUState``, ``MLSTMState``, ``SLSTMState``, float32) — or, on
+the paged layout, one ``PagedKVCache | QuantPagedKVCache`` block pool
+per ``attn``/``local`` layer (int8 under ``kv_quant="int8"``) beside the
+recurrent states, still by slot.
 """
 from __future__ import annotations
 
@@ -28,11 +33,15 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.astra_layer import ComputeConfig, quantize_weight_t, sc_weight_t
+from repro_torch.core.astra_layer import (
+    ComputeConfig, batched_sc_weight_t, batched_weight_t, quantize_weight_t, sc_weight_t,
+)
 from repro_torch.core.plan import ExecutionPlan, SiteBinding
 from repro_torch.device import torch_dtype
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (
     embed_tokens, embedding_init, head_apply, head_init, mlp_apply, mlp_init,
     norm_apply, norm_init,
@@ -47,11 +56,15 @@ class ModelOptions:
     on the paged layout); ``flash`` = the kernels: flash attention on the
     full-sequence pass, the paged or dense decode kernel on decode, the
     paged kernel on suffix prefill.  ``kv_quant``: ``int8`` stores the
-    paged pools as int8 against the plan's calibrated per-KV-head scales."""
+    paged pools as int8 against the plan's calibrated per-KV-head scales.
+    ``capacity_factor``: a MoE layer's expert capacity on the sequence
+    paths (decode is always drop-free; the serving prefills raise it to
+    ``n_experts``, drop-free too)."""
 
     plan: Optional[Union[ExecutionPlan, str, dict, ComputeConfig]] = None
     attn_impl: str = "naive"
     kv_quant: str = "none"
+    capacity_factor: float = 1.25
 
     ATTN_IMPLS = ("naive", "flash")
     KV_QUANTS = ("none", "int8")
@@ -75,14 +88,14 @@ def _has_mlp(cfg: ArchConfig, kind: str) -> bool:
     return kind in ("attn", "local", "xattn", "rglru") and (cfg.d_ff > 0 or cfg.moe is not None)
 
 
-PORTED_KINDS = ("attn", "local", "rglru")
+PORTED_KINDS = ("attn", "local", "rglru", "mlstm", "slstm")
+ATTN_KINDS = ("attn", "local", "xattn")  # the kinds that run attention kernels
 
 
 def _check_supported(cfg: ArchConfig) -> None:
-    if (any(k not in PORTED_KINDS for k in cfg.layer_kinds) or cfg.moe is not None
-            or cfg.n_codebooks):
+    if any(k not in PORTED_KINDS for k in cfg.layer_kinds) or cfg.n_codebooks:
         raise NotImplementedError(
-            f"{cfg.name}: only dense stacks of {'/'.join(PORTED_KINDS)} blocks are ported "
+            f"{cfg.name}: only stacks of {'/'.join(PORTED_KINDS)} blocks are ported "
             "yet (ROADMAP queue 1: other block kinds)")
 
 
@@ -113,13 +126,17 @@ _layer_sites_cached = functools.lru_cache(maxsize=64)(_layer_sites_uncached)
 
 
 # ------------------------------------------------------------------ params
+_CORE_INIT = {"rglru": rglru_mod.rglru_init, "mlstm": xlstm_mod.mlstm_init,
+              "slstm": xlstm_mod.slstm_init}
+
+
 def block_init(gen: torch.Generator, cfg: ArchConfig, kind: str, device=None):
-    core = (rglru_mod.rglru_init(gen, cfg, device) if kind == "rglru"
-            else attn.attn_init(gen, cfg, device))
+    core = _CORE_INIT.get(kind, attn.attn_init)(gen, cfg, device)
     p: Dict[str, Any] = {"pre_norm": norm_init(cfg.d_model, cfg.norm, device), "core": core}
     if _has_mlp(cfg, kind):
         p["post_norm"] = norm_init(cfg.d_model, cfg.norm, device)
-        p["mlp"] = mlp_init(gen, cfg, device)
+        p["mlp"] = (moe_mod.moe_init(gen, cfg, device) if cfg.moe is not None
+                    else mlp_init(gen, cfg, device))
     return p
 
 
@@ -149,7 +166,8 @@ def prepare_params(params: Dict[str, Any], cfg: ArchConfig,
     shared with ``params``; nothing is mutated."""
     dt = torch_dtype(cfg.dtype)
 
-    def cached(p: Dict[str, torch.Tensor], site_group: Tuple[str, ...], w_key="w"):
+    def cached(p: Dict[str, torch.Tensor], site_group: Tuple[str, ...], w_key="w",
+               cast=True):
         cc = plan.resolve_group(site_group)
         w = p[w_key] if w_key == "w" else p[w_key].t()
         extra = {}
@@ -157,9 +175,24 @@ def prepare_params(params: Dict[str, Any], cfg: ArchConfig,
             extra["wq_t"] = quantize_weight_t(w)
         elif cc.mode == "sc":
             extra["wsc_t"] = sc_weight_t(w, cc.w_gen)
-        elif dt != torch.float32:
+        elif dt != torch.float32 and cast:
             extra["wc"] = w.to(dt)
         return extra
+
+    def expert_cached(w: torch.Tensor, site_group: Tuple[str, ...]):
+        cc = plan.resolve_group(site_group)
+        if cc.mode == "int8":
+            return {"wq_t": batched_weight_t(w)}
+        if cc.mode == "sc":
+            return {"wsc_t": batched_sc_weight_t(w, cc.w_gen)}
+        return {"wc": w.to(dt)} if dt != torch.float32 else {}
+
+    def moe_cached(p: Dict[str, Any], sites) -> Dict[str, Any]:
+        caches = {name: expert_cached(p[name], sites(op))
+                  for name, op in moe_mod.EXPERT_WEIGHTS if name in p}
+        return {**p, "router": {**p["router"], **cached(p["router"], sites("router"),
+                                                         cast=False)},
+                "caches": caches}
 
     layers = []
     for li, (blk, kind) in enumerate(zip(params["layers"], cfg.layer_kinds)):
@@ -172,7 +205,9 @@ def prepare_params(params: Dict[str, Any], cfg: ArchConfig,
         core.update({name: {**blk["core"][name], **cached(blk["core"][name], sites(op))}
                      for name, op in _CORE_GEMMS[kind]})
         new = {**blk, "core": core}
-        if "mlp" in blk:
+        if "mlp" in blk and cfg.moe is not None:
+            new["mlp"] = moe_cached(blk["mlp"], sites)
+        elif "mlp" in blk:
             new["mlp"] = {name: {**d, **cached(d, sites("down" if name == "down" else "up"))}
                           for name, d in blk["mlp"].items()}
         layers.append(new)
@@ -190,15 +225,29 @@ def prepare_params(params: Dict[str, Any], cfg: ArchConfig,
 _ATTN_GEMMS = (("wq", "q_proj"), ("wk", "kv_proj"), ("wv", "kv_proj"), ("wo", "o_proj"))
 _CORE_GEMMS = {"attn": _ATTN_GEMMS, "local": _ATTN_GEMMS,
                "rglru": (("w_in", "in_proj"), ("w_a", "gates"), ("w_x", "gates"),
-                         ("w_out", "out_proj"))}
+                         ("w_out", "out_proj")),
+               "mlstm": (("w_up", "up_proj"), ("w_q", "qkv"), ("w_k", "qkv"), ("w_v", "qkv"),
+                         ("w_if", "gates"), ("w_down", "down_proj")),
+               "slstm": (("w_gates", "gates_in"), ("w_up", "up"), ("w_down", "down"))}
 
 
 # ------------------------------------------------------------------ blocks
-def _mlp(p, x, cfg, sites):
+def _mlp(p, x, cfg, sites, capacity_factor: float = 1.25, full_capacity: bool = False):
+    """The block's MLP or MoE with its residual (the MoE's load-balance
+    loss is dropped: no serving path reads it)."""
     if "mlp" not in p:
         return x
     h2 = norm_apply(p["post_norm"], x, cfg.norm, cfg.norm_eps)
+    if cfg.moe is not None:
+        return x + moe_mod.moe_apply(p["mlp"], h2, cfg, sites, capacity_factor,
+                                     full_capacity)[0]
     return x + mlp_apply(p["mlp"], h2, cfg, sites)
+
+
+_CORE_SEQ = {"rglru": rglru_mod.rglru_seq, "mlstm": xlstm_mod.mlstm_seq,
+             "slstm": xlstm_mod.slstm_seq}
+_CORE_DECODE = {"rglru": rglru_mod.rglru_decode, "mlstm": xlstm_mod.mlstm_decode,
+                "slstm": xlstm_mod.slstm_decode}
 
 
 def _head(params, x, cfg, opts):
@@ -209,19 +258,20 @@ def _head(params, x, cfg, opts):
 def forward(params, tokens: torch.Tensor, cfg: ArchConfig, opts: ModelOptions,
             return_states: bool = False, max_len: Optional[int] = None):
     """Full-sequence pass.  Returns (logits [B, S, V], per-layer serving
-    states | None: dense ``KVCache``s and ``RGLRUState``s)."""
+    states | None: dense ``KVCache``s and recurrent states).  A MoE layer
+    runs at ``opts.capacity_factor``."""
     _check_supported(cfg)
     x = embed_tokens(params["embedding"], tokens, cfg)
     states: List[Any] = []
     for p, kind, sites in zip(params["layers"], cfg.layer_kinds, _layer_sites(opts.plan, cfg)):
         h = norm_apply(p["pre_norm"], x, cfg.norm, cfg.norm_eps)
-        if kind == "rglru":
-            out, st = rglru_mod.rglru_seq(p["core"], h, cfg, sites, return_state=return_states)
+        if kind in _CORE_SEQ:
+            out, st = _CORE_SEQ[kind](p["core"], h, cfg, sites, return_state=return_states)
         else:
             out, st = attn.attn_seq(p["core"], h, cfg, kind=kind, sites=sites,
                                     use_flash=(opts.attn_impl == "flash"),
                                     return_cache=return_states, max_len=max_len)
-        x = _mlp(p, x + out, cfg, sites)
+        x = _mlp(p, x + out, cfg, sites, opts.capacity_factor)
         states.append(st)
     return _head(params, x, cfg, opts), (states if return_states else None)
 
@@ -234,8 +284,8 @@ def decode_step(params, token: torch.Tensor, states, pos: torch.Tensor, cfg: Arc
     ``block_tables``, the paged pools.  ``write [B]`` bool: the slots
     whose in-place dense cache writes are kept (None = all); the others
     attend with their new entry, which is then put back as it was.
-    Recurrent states are returned new, never written in place.
-    Returns (logits [B, 1, V], states)."""
+    Recurrent states are returned new, never written in place.  A MoE
+    layer runs drop-free.  Returns (logits [B, 1, V], states)."""
     glob = next((st for st, kind in zip(states["layers"], cfg.layer_kinds)
                  if kind == "attn" and isinstance(st, attn.KVCache)), None)
     if glob is not None:
@@ -254,13 +304,13 @@ def decode_step(params, token: torch.Tensor, states, pos: torch.Tensor, cfg: Arc
     for p, st, kind, sites in zip(params["layers"], states["layers"], cfg.layer_kinds,
                                   _layer_sites(opts.plan, cfg)):
         h = norm_apply(p["pre_norm"], x, cfg.norm, cfg.norm_eps)
-        if kind == "rglru":
-            out, st = rglru_mod.rglru_decode(p["core"], h, st, cfg, sites)
+        if kind in _CORE_DECODE:
+            out, st = _CORE_DECODE[kind](p["core"], h, st, cfg, sites)
         else:
             out, st = attn.attn_decode(p["core"], h, st, pos, cfg, kind=kind, sites=sites,
                                        tables=block_tables, use_kernel=use_kernel,
                                        write=write)
-        x = _mlp(p, x + out, cfg, sites)
+        x = _mlp(p, x + out, cfg, sites, full_capacity=True)
         new_layers.append(st)
     return _head(params, x, cfg, opts), {**states, "layers": new_layers}
 
@@ -270,7 +320,8 @@ def suffix_forward(params, tokens: torch.Tensor, cfg: ArchConfig, opts: ModelOpt
     """Prefix-aware packed prefill: the unmatched suffixes (``tokens
     [B, S_suf]``, right-padded) in one pass against prefix KV resident in
     the pool, writing the suffix KV into each slot's blocks; a cold
-    request is ``start == 0``.  Returns (logits [B, S_suf, V], states)."""
+    request is ``start == 0``.  A MoE layer runs at
+    ``opts.capacity_factor``.  Returns (logits [B, S_suf, V], states)."""
     if any(k != "attn" for k in cfg.layer_kinds):
         raise ValueError(
             f"suffix_forward needs a pure global-attention stack, got "
@@ -283,7 +334,7 @@ def suffix_forward(params, tokens: torch.Tensor, cfg: ArchConfig, opts: ModelOpt
         h = norm_apply(p["pre_norm"], x, cfg.norm, cfg.norm_eps)
         out, st = attn.attn_prefill_paged(p["core"], h, st, table, start, cfg, sites=sites,
                                           ctx_blocks=ctx_blocks, use_kernel=use_kernel)
-        x = _mlp(p, x + out, cfg, sites)
+        x = _mlp(p, x + out, cfg, sites, opts.capacity_factor)
         new_layers.append(st)
     return _head(params, x, cfg, opts), {**states, "layers": new_layers}
 
@@ -294,6 +345,10 @@ def _dense_state(cfg: ArchConfig, kind: str, batch: int, max_len: int, device):
             torch.zeros((batch, cfg.d_rnn), dtype=torch.float32, device=device),
             torch.zeros((batch, cfg.conv_width - 1, cfg.d_rnn), dtype=torch.float32,
                         device=device))
+    if kind == "mlstm":
+        return xlstm_mod.mlstm_state_init(cfg, batch, device)
+    if kind == "slstm":
+        return xlstm_mod.slstm_state_init(cfg, batch, device)
     return attn.init_cache(cfg, batch, max_len, device, kind=kind)
 
 
@@ -306,12 +361,15 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
                       kv_quant: str = "none", plan: Optional[ExecutionPlan] = None):
     """Zeroed serving state.  Without ``paged``: per layer, one dense
     ``[batch, n_kv, max_len, hd]`` cache in the model dtype (a local
-    layer's ring clamped to ``min(max_len, window)``) or an ``RGLRUState``
-    (``h [batch, d_rnn]``, ``conv [batch, conv_width - 1, d_rnn]``, both
-    float32).  ``paged = (n_blocks, block_size)`` gives each ``attn`` and
-    ``local`` layer one block pool instead (no batch axis: block tables
-    carry slot identity; a local layer's ring lives in it) while an
-    ``rglru`` layer keeps its slot-indexed ``RGLRUState``;
+    layer's ring clamped to ``min(max_len, window)``) or a float32
+    recurrent state: ``RGLRUState`` (``h [batch, d_rnn]``, ``conv [batch,
+    conv_width - 1, d_rnn]``), ``MLSTMState`` (``c [batch, H, dh, dh]``,
+    ``n [batch, H, dh]``, ``m [batch, H]`` at -1e30) or ``SLSTMState``
+    (``c, n, m, h [batch, H, dh]``, ``m`` at -1e30).  ``paged =
+    (n_blocks, block_size)`` gives each ``attn`` and ``local`` layer one
+    block pool instead (no batch axis: block tables carry slot identity; a
+    local layer's ring lives in it) while a recurrent layer keeps its
+    slot-indexed state;
     ``kv_quant="int8"`` makes each pool int8 with the per-head scales
     ``plan.kv_group_scale`` gives over the layer's group (the reference's
     one pool per scanned group).  Dense caches stay in the model dtype:
@@ -328,7 +386,7 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
     n_blocks, block_size = paged
     layers = []
     for li, kind in enumerate(cfg.layer_kinds):
-        if kind == "rglru":
+        if kind not in ("attn", "local"):
             layers.append(_dense_state(cfg, kind, batch, max_len, device))
         elif kv_quant == "none":
             layers.append(attn.init_paged_cache(cfg, n_blocks, block_size, device))

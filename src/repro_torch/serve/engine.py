@@ -5,19 +5,24 @@ decode, retirement with each request's modeled ASTRA cost, the
 exactly-once outbox and the degraded-mode ladder, on two KV layouts.
 ``kv_block_size=0`` (the default, as in the reference) keeps one dense
 per-slot state per layer — a ``[max_slots, n_kv, max_len, hd]`` cache
-(global attention), a ``window``-sized ring (local attention) or an
-RG-LRU state — so it serves every ported block kind: blocking admission
+(global attention), a ``window``-sized ring (local attention) or a
+recurrent state (RG-LRU, mLSTM, sLSTM) — so it serves every ported block
+kind: blocking admission
 runs one packed prefill of the admitted prompts (the full-sequence pass
 where it is exact, else the masked token-by-token scan;
 ``packed_prefill``) and scatters each one's states into its slot.
 ``kv_block_size > 0`` stores every ``attn``/``local`` layer's KV in a
 block pool (a local layer's ring of ``min(max_len, window)`` positions
 through the table) with radix-tree prefix reuse for pure global-attention
-stacks; a stateful stack (recurrent or windowed layers) keeps its
-``RGLRUState``s by slot, admits through a dense packed prefill whose
+stacks (MoE ones included); a stateful stack (recurrent or windowed
+layers) keeps its recurrent states by slot, admits through a dense packed
+prefill whose
 caches and rings block-scatter into the pools
 (``slots.paged_scatter_states``), and runs with the prefix cache off and
-blocking admission, as the reference does.  Requests flow
+blocking admission, as the reference does.  A stack with no ``attn`` or
+``local`` layer (xLSTM) has no KV to pool: it serves on its dense
+per-slot states whatever ``kv_block_size`` says, as the reference's
+does, and ``kv_stats`` is empty.  Requests flow
 
   queue -> [admit: claim a free slot; paged: reserve blocks (reusing
             interned prefix blocks)]
@@ -72,8 +77,8 @@ default) each output carries ``hardware``, its request's modeled cost on
 the ASTRA photonic chip (``serve/accounting.py``; not a measurement of
 the card), prompt tokens served from the prefix cache billed at zero.  On
 the card the attention kernels exist for the head dims ``HEAD_DIMS``; a
-model of another head dim is refused when the engine is built
-(:func:`attn_kernel_reject_reason`).
+model with attention layers of another head dim is refused when the
+engine is built (:func:`attn_kernel_reject_reason`).
 """
 from __future__ import annotations
 
@@ -91,7 +96,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels._build import HEAD_DIMS
 from repro_torch.models.attention import BlockTables, PagedKVCache, QuantPagedKVCache
 from repro_torch.models.model import Model
-from repro_torch.models.transformer import DENSE_KV_QUANT_REASON, PORTED_KINDS
+from repro_torch.models.transformer import ATTN_KINDS, DENSE_KV_QUANT_REASON, PORTED_KINDS
 from repro_torch.serve.accounting import (
     RequestHardwareReport, RequestTiming, request_hardware_report, request_timing,
 )
@@ -237,7 +242,8 @@ def attn_kernel_reject_reason(head_dim: int, attn_impl: str,
     """Why the attention kernels cannot serve this model (None = they
     can): on the card, ``attn_impl="flash"`` launches kernels built for
     ``HEAD_DIMS`` only; the plain versions on the CPU and the
-    ``naive`` path take any head dim."""
+    ``naive`` path take any head dim.  The engine asks only for a stack
+    with attention layers: the others launch no attention kernel."""
     if attn_impl == "flash" and device_type == "cuda" and head_dim not in HEAD_DIMS:
         return (f"head_dim {head_dim}: the CUDA attention kernels are built for head dims "
                 f"{HEAD_DIMS}; serve with attn_impl='naive' or add the head dim to "
@@ -277,7 +283,9 @@ class ServeEngine:
         if any(k not in PORTED_KINDS for k in cfg.layer_kinds):
             raise NotImplementedError(f"{cfg.name}: serving ports {'/'.join(PORTED_KINDS)} "
                                       "stacks only (ROADMAP queue 1: other block kinds)")
-        reason = attn_kernel_reject_reason(cfg.head_dim, model.opts.attn_impl, self.device.type)
+        reason = (attn_kernel_reject_reason(cfg.head_dim, model.opts.attn_impl,
+                                            self.device.type)
+                  if any(k in ATTN_KINDS for k in cfg.layer_kinds) else None)
         if reason is not None:
             raise NotImplementedError(f"{cfg.name}: {reason}")
         if config.prefill_chunk_tokens < 0:

@@ -26,9 +26,15 @@ The chunked-prefill scheduler adds :func:`prefill_window`, the masked
 scan windowed over the engine's own state with a start per slot; the
 paged layout chunks through :func:`prefill_paged_suffix`, whose starts may
 sit anywhere inside a block.
+
+MoE: every prefill here runs drop-free (:func:`_drop_free`: the capacity
+factor raised to ``n_experts``, so a group's buffers hold ``g * k`` pairs,
+as decode's ``full_capacity`` does): padded rows must not compete real
+tokens out of an expert's capacity, and serving never drops a token.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -71,11 +77,22 @@ def full_seq_packable(cfg: ArchConfig, lengths: Sequence[int]) -> bool:
     return all(k in FULL_SEQ_KINDS for k in cfg.layer_kinds)
 
 
+def _drop_free(model):
+    """``model`` with a MoE's capacity factor raised to ``n_experts``
+    (capacity ``g * k``: no pair can drop); any other model as it is."""
+    cfg = model.cfg
+    if cfg.moe is not None and model.opts.capacity_factor < cfg.moe.n_experts:
+        opts = dataclasses.replace(model.opts, capacity_factor=float(cfg.moe.n_experts))
+        return dataclasses.replace(model, opts=opts)
+    return model
+
+
 def prefill_full_seq(model, params, tokens: torch.Tensor, lengths: torch.Tensor,
                      max_len: int):
     """One parallel prefill over the packed grid.  Returns (last_logits
     [B, 1, V], per-layer serving states: dense caches padded to
     ``max_len``, rings, recurrent states)."""
+    model = _drop_free(model)
     logits, states = model.prefill(params, {"tokens": tokens}, max_len=max_len)
     return _last_logits(logits, lengths), {"layers": states}
 
@@ -106,6 +123,7 @@ def prefill_window(model, params, tokens: torch.Tensor, starts: torch.Tensor,
     L]`` is right-padded per row.  Returns (logits at each row's ``t ==
     lengths[b] - 1`` ``[B, 1, V]``, meaningful only where a chunk ends
     there; the states, updated in place where they can be)."""
+    model = _drop_free(model)
     b, s = tokens.shape
     dev = tokens.device
     starts = starts.to(dev).long()
@@ -140,5 +158,6 @@ def prefill_paged_suffix(model, params, tokens: torch.Tensor, lengths: torch.Ten
     [n, S_suf]`` are the admitted requests' unprefilled suffixes, ``rows
     [n, W]`` their block-table rows, ``starts [n]`` the prefix lengths
     already resident.  Returns (last_logits [n, 1, V], states)."""
+    model = _drop_free(model)
     logits, states = model.prefill_suffix(params, tokens, states, rows, starts, ctx_blocks)
     return _last_logits(logits, lengths), states

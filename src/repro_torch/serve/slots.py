@@ -7,7 +7,10 @@ pools through the admitted slots' table rows, recurrent states by slot),
 the per-slot select used by the masked-scan prefill, and the finiteness
 check the decode loop reduces over a chunk.  A pure global-attention
 stack never takes the paged scatter: its suffix prefill writes the pools
-directly.
+directly.  The helpers walk state trees generically: a recurrent state is
+any NamedTuple of tensors with the slot on axis 0 (``RGLRUState``,
+``MLSTMState``, ``SLSTMState``), scattered, selected and checked by slot
+like a dense cache.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ class SlotState(enum.Enum):
 
 def scatter_states(big, small, slot_ids: torch.Tensor):
     """Install a prefill's per-layer states ``small = {"layers": [...]}``
-    (batch k: ``KVCache``s, rings, ``RGLRUState``s) into the engine's
+    (batch k: ``KVCache``s, rings, slot-indexed recurrent states) into the engine's
     ``big`` (batch B, same structure) at ``slot_ids [k]``, in place: each
     slot's whole row of every leaf is overwritten, cast to the engine's
     dtype (the cast the decode path applies on every cache write).
@@ -64,7 +67,7 @@ def paged_scatter_states(big, small, slot_ids: torch.Tensor, rows: torch.Tensor)
     attn/local layer's dense cache or ring block-scatters into its pool
     through ``rows [n, W]`` (the admitted slots' table rows), its first
     ``nb = min(W, ceil(L / bs))`` blocks, quantized first against an int8
-    pool's scales; every other leaf (``RGLRUState``) scatters at
+    pool's scales; every other leaf (a recurrent state) scatters at
     ``slot_ids [n]`` as :func:`scatter_states` does.  Returns ``big``."""
     from repro_torch.models.attention import (
         KVCache, PagedKVCache, QuantPagedKVCache, kv_quantize,

@@ -123,7 +123,7 @@ def test_mapping_and_photonics_equal_reference():
 
 
 @pytest.mark.parametrize("name", ["stablelm-1.6b", "qwen1.5-0.5b", "recurrentgemma-2b",
-                                  "opt-350m"])
+                                  "opt-350m", "granite-moe-1b-a400m", "xlstm-125m"])
 def test_request_hardware_report_equals_reference(name):
     cfg, jcfg = _cfgs(name, False)
     for prompt, gen, cached in ((1, 0, 0), (17, 9, 0), (384, 32, 256), (64, 16, 64),

@@ -27,7 +27,7 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 
 from repro_torch import serve as tserve  # noqa: E402
-from test_torch_supervisor import (  # noqa: E402
+from torch_serve_stacks import (  # noqa: E402
     make_side, prompts, run_both, stack,
 )
 

@@ -400,7 +400,12 @@ def test_rglru_scan_kernel_matches_plain_on_card(cuda, b, s, d):
     # 64 / 512 and one 16-byte chunk past a 64-byte step, N ragged and
     # past a chunk of weight rows (two stages in flight)
     (5, 1, 64, 5, "stream"), (4, 3, 512, 513, "stream"), (3, 16, 512, 512, "stream"),
-    (3, 16, 80, 5, "stream"), (2, 9, 4096, 40, "stream"), (2, 1, 100, 512, "mma")])
+    (3, 16, 80, 5, "stream"), (2, 9, 4096, 40, "stream"), (2, 1, 100, 512, "mma"),
+    # granite-moe-1b-a400m's expert products, experts-major: a decode step's
+    # (8 slots, drop-free) up and down projections, and two groups of an
+    # admission
+    (32, 8, 1024, 512, "stream"), (32, 8, 512, 1024, "stream"),
+    (32, 1024, 1024, 512, "tiles"), (32, 1024, 512, 1024, "tiles")])
 def test_int8_batched_kernel_bit_exact_on_card(cuda, b, m, k, n, path):
     """The batch on the kernel :func:`int8_batched_plan` picks: int32
     accumulators equal the plain version's, that kernel's counter moved;
@@ -527,3 +532,65 @@ def test_stoch_codes_batched_kernel_bit_exact_on_card(cuda, x_gen, w_gen, b, m, 
     xs, sx = bts_encode_ref(xq, x_gen)
     ws, sw = bts_encode_ref(wq, w_gen)
     assert torch.equal(got, stoch_matmul_packed_ref(xs, sx, ws, sw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["exact", "int8", "sc"])
+def test_moe_block_on_card_matches_cpu(cuda, mode):
+    """A reduced granite MoE block (4 experts, top-2) on the card against
+    the CPU's plain versions, the expert sites under ``mode``: float32
+    within 1e-5 (exact; cuBLAS against the CPU's products) or 2e-4 (a
+    last-bit difference in an activation may move one code); the expert
+    products themselves, codes against codes, bit for bit against the
+    batched products over every (group, expert) pair on the card."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.astra_layer import astra_batched_matmul
+    from repro_torch.core.plan import ExecutionPlan
+    from repro_torch.models import moe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch("granite-moe-1b-a400m").reduced(dtype="float32")
+    gen = torch.Generator().manual_seed(3)
+    p = moe.moe_init(gen, cfg)
+    x = torch.randn(3, 200, cfg.d_model, generator=gen)  # 600 tokens: 2 groups of 300
+    sites = ExecutionPlan.from_spec({"*.expert_*": mode}).binding("attn", (0,))
+    want, _ = moe.moe_apply(p, x, cfg, sites)
+    on_card = {k: (v.to(cuda) if isinstance(v, torch.Tensor) else {"w": v["w"].to(cuda)})
+               for k, v in p.items()}
+    got, _ = moe.moe_apply(on_card, x.to(cuda), cfg, sites)
+    tol = 1e-5 if mode == "exact" else 2e-4
+    torch.testing.assert_close(got.cpu(), want, rtol=tol, atol=tol)
+    xe = torch.randn(4, 2, 40, 64, generator=gen).to(cuda)
+    w = torch.randn(4, 64, 32, generator=gen).to(cuda)
+    if mode != "exact":
+        cc = sites("expert_up")
+        assert torch.equal(astra_batched_matmul(xe, w, cc, fold_groups=True),
+                           astra_batched_matmul(xe.transpose(0, 1), w, cc).transpose(0, 1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["mlstm", "slstm"])
+def test_xlstm_blocks_on_card_match_cpu(cuda, kind):
+    """A reduced xLSTM block's sequence path (with its state) and one
+    decode step on the card against the CPU, float32 within 1e-5."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import xlstm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch("xlstm-125m").reduced(dtype="float32")
+    gen = torch.Generator().manual_seed(4)
+    init, seq, dec = {"mlstm": (xlstm.mlstm_init, xlstm.mlstm_seq, xlstm.mlstm_decode),
+                      "slstm": (xlstm.slstm_init, xlstm.slstm_seq, xlstm.slstm_decode)}[kind]
+    p = init(gen, cfg)
+    x = torch.randn(3, 17, cfg.d_model, generator=gen)
+
+    def run(params, xx):
+        out, st = seq(params, xx[:, :16], cfg, return_state=True)
+        step, st = dec(params, xx[:, 16:], st, cfg)
+        return [out, step, *st]
+
+    def to(tree):
+        return {k: to(v) if isinstance(v, dict) else v.to(cuda) for k, v in tree.items()}
+
+    for g, w in zip(run(to(p), x.to(cuda)), run(p, x)):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-5, atol=1e-5)

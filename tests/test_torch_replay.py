@@ -19,7 +19,7 @@ import numpy as np  # noqa: E402
 from repro import traffic as jtraffic  # noqa: E402
 from repro_torch import traffic as ttraffic  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
-from test_torch_supervisor import make_side, run_both  # noqa: E402
+from torch_serve_stacks import make_side, run_both  # noqa: E402
 
 
 @pytest.fixture(scope="module")
