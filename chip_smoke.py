@@ -531,6 +531,8 @@ def time_int8_gemms(dev, g, name: str, decode: dict, prefill: dict, timer=time_m
 
     rows = {}
     for phase, shapes in (("decode", decode), ("admission", prefill)):
+        if not shapes:  # a row of one phase only
+            continue
         k_ms = p_ms = l_ms = 0.0
         n_bytes = ops = err = 0
         paths = set()
@@ -1186,12 +1188,12 @@ def check_prefill_padding(dev, g) -> None:
 
 def check_dense(dev, g) -> None:
     """Flash attention and dense decode against their plain versions at
-    reduced shapes: flash at head dims 16 and 64, G = 1, 2, 4, causal with
-    window 0 and 24, softcap 0 and 30, Sq = Sk not a multiple of the 64-row
-    or 32/64-key tiles (and one non-causal case over 128 keys); dense decode
-    over S = 100 positions (not a multiple of the 64-key chunk), G = 1, 2
-    (granite's), 4, 10, with kv_len 0, 1, S and between, softcap 0 and 30.
-    Each is ``held`` to
+    reduced shapes: flash at head dims 16, 64, 128 and 256, G = 1, 2, 4, 8
+    (llama-3.2-vision's), causal with window 0 and 24, softcap 0 and 30, Sq
+    = Sk not a multiple of the 64-row or 32/64-key tiles (and one
+    non-causal case over 128 keys); dense decode over S = 100 positions
+    (not a multiple of the 64-key chunk), G = 1, 2 (granite's), 4, 10, with
+    kv_len 0, 1, S and between, softcap 0 and 30.  Each is ``held`` to
     ``F32_TOL`` in float32, flash to ``FLASH_BF16`` and dense decode to
     ``BF16_TOL`` in bf16; each call counts one launch."""
     from repro_torch.kernels.flash_attention import ops as fa
@@ -1207,10 +1209,10 @@ def check_dense(dev, g) -> None:
         name = str(dtype).split(".")[-1]
         worst, share, n = 0.0, 0.0, 0
         for hd in HEAD_DIMS_ALL:
-            for grp in (1, 2, 4):
+            for grp in (1, 2, 4, 8):
                 for window in (0, 24):
                     for softcap in (0.0, 30.0):
-                        kvh, s = 3, (37 if grp == 4 else 100)
+                        kvh, s = 3, (37 if grp >= 4 else 100)
                         q = randn(2, kvh * grp, s, hd, dtype=dtype)
                         k, v = randn(2, kvh, s, hd, dtype=dtype), randn(2, kvh, s, hd, dtype=dtype)
                         before = fa.flash_attention.launches
@@ -1229,7 +1231,7 @@ def check_dense(dev, g) -> None:
                            flash_attention_ref(q, k, v, causal=False), *fa_tol)
             assert sh <= 1, ("flash non-causal", name, hd, err, sh)
             worst, share, n = max(worst, err), max(share, sh), n + 1
-        log(f"[flash] {name} {n} cases (hd 16/64/128/256, G 1/2/4, causal window 0/24, softcap "
+        log(f"[flash] {name} {n} cases (hd 16/64/128/256, G 1/2/4/8, causal window 0/24, softcap "
             f"0/30, S 37/100; non-causal Sk 128): max|kernel-plain| {worst:.2e}, "
             f"{share:.3f} of the allowance")
         worst, share = 0.0, 0.0
@@ -1682,6 +1684,23 @@ PLAN_KERNELS = {
     # xlstm-125m: no attention layer; under int8 its projections
     "xl-exact": (),
     "xl-int8": INT8_KERNELS,
+    # llama-3.2-vision-90b, one period, served text-only: every admission
+    # is the masked scan (dense decode steps on the 4 attn layers; the
+    # xattn layer runs plain attention over its zeroed cross cache), its
+    # caches block-scattered into the pool; decode through the pool.  All
+    # its int8 products have 8 rows or fewer (the scan's steps, decode): the
+    # stream kernel only
+    "vlm-exact": ("paged_attention_decode", "dense_attention_decode"),
+    "vlm-int8": ("paged_attention_decode", "dense_attention_decode", "int8_gemm",
+                 "int8_gemm_stream"),
+    "vlm-exact-dense": ("dense_attention_decode",),
+    "vlm-exact-dense-chunked": ("dense_attention_decode",),
+    # musicgen-large: a pure attn stack, served like stablelm on its
+    # [4, S] codebook grids
+    "mg-exact": ("paged_attention_decode", "paged_attention_prefill"),
+    "mg-int8": ("paged_attention_decode", "paged_attention_prefill") + INT8_KERNELS,
+    "mg-exact-dense": ("flash_attention", "dense_attention_decode"),
+    "mg-exact-chunked": ("paged_attention_decode", "paged_attention_prefill"),
 }
 ATTENTION_KERNELS = ("paged_attention_decode", "paged_attention_prefill",
                      "dense_attention_decode", "flash_attention")
@@ -1697,7 +1716,14 @@ PLAN_ABSENT = {"mixed": ("int8_gemm_batched_mma",),
                "moe-int8": ("int8_gemm_batched",),
                "moe-experts-int8": ("int8_gemm",),
                "xl-exact": ATTENTION_KERNELS + ("int8_gemm", "rglru_scan"),
-               "xl-int8": ATTENTION_KERNELS + ("int8_gemm_batched", "rglru_scan")}
+               "xl-int8": ATTENTION_KERNELS + ("int8_gemm_batched", "rglru_scan"),
+               "vlm-exact": ("paged_attention_prefill", "flash_attention", "int8_gemm"),
+               "vlm-int8": ("paged_attention_prefill", "flash_attention", "int8_gemm_wgmma",
+                            "int8_gemm_batched"),
+               "vlm-exact-dense": ("flash_attention", "int8_gemm"),
+               "vlm-exact-dense-chunked": ("flash_attention", "int8_gemm"),
+               "mg-exact": ("int8_gemm", "int8_gemm_batched"),
+               "mg-int8": ("int8_gemm_batched",)}
 # kernels of one KV layout, which a serving run on the other must not
 # launch: in the whole run, but for a stateful stack on the paged pool
 # inside its decode chunks only (its admission prefills dense before the
@@ -1852,8 +1878,9 @@ def serve(cfg, params, prompts, dev, runs, gen: int, max_len: int = 512,
                     assert type(state).__name__ == f"{kind[0].upper()}LSTMState", label
                     assert all(t.shape[0] == 8 and t.dtype == torch.float32
                                for t in state), label
-                else:
-                    ring = min(max_len, cfg.window) if kind == "local" else max_len
+                else:  # a cross cache holds the vision positions, a ring the window
+                    ring = (cfg.vision_tokens if kind == "xattn" else
+                            min(max_len, cfg.window) if kind == "local" else max_len)
                     shape = (8, cfg.n_kv_heads, ring, cfg.head_dim)
                     assert isinstance(state, KVCache) and tuple(state.k.shape) == shape, label
             kv_line = "dense " + dense_state_summary(engine._states, cfg)
@@ -2182,6 +2209,9 @@ def calibrate(cfg, params, prompts, dev):
     return plan
 
 
+RANGES = ("moe.", "xattn.")  # the profiler ranges moe_ranges and xattn_ranges open
+
+
 def profile_decode_chunk(cfg, params, prompts, dev, runs, kv_block_size: int = BS,
                          max_len: int = 512, scan_ms=None) -> None:
     """Where a decode chunk's time goes: one engine round of 8 decode steps
@@ -2243,7 +2273,7 @@ def profile_decode_chunk(cfg, params, prompts, dev, runs, kv_block_size: int = B
         # so each device event counts once and not again in the CPU op above it
         on_dev = [r for e, r in zip(events, rows)
                   if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
-                  and not r[1].startswith("moe.")]
+                  and not r[1].startswith(RANGES)]
         once_ms = sum(r[0] for r in on_dev) / 1e3
         top = sorted(rows, reverse=True)[:5]
         share = f"{once_ms / host_ms:.1%}" if once_ms > 0 else "not measured"
@@ -2283,10 +2313,11 @@ def profile_decode_chunk(cfg, params, prompts, dev, runs, kv_block_size: int = B
             if rs or label in ("sc", "mixed"):
                 detail += (f"; {what} {sum(r[0] for r in rs) / 1e3:.2f} ms over "
                            f"{sum(r[2] for r in rs)} launches")
-        # the MoE layer's parts under moe_ranges: the device time of the
-        # kernels each range launched, and the host time inside it
+        # the MoE layer's parts under moe_ranges, the cross-attention
+        # layers under xattn_ranges: the device time of the kernels each
+        # range launched, and the host time inside it
         for e in events:
-            if e.key.startswith("moe.") and getattr(e, "device_type", None) != \
+            if e.key.startswith(RANGES) and getattr(e, "device_type", None) != \
                     torch.autograd.DeviceType.CUDA and once_ms > 0:
                 r_ms = getattr(e, "device_time_total", 0.0) / 1e3
                 detail += (f"; {e.key} device {r_ms:.2f} ms ({r_ms / once_ms:.1%} of the device "
@@ -2594,107 +2625,21 @@ GM_EXPERT_UP = (GM_E, GM_ADMISSION, GM_D, GM_F)
 
 
 def time_moe_kernels(dev, g, timer=time_ms) -> dict:
-    """The kernels at granite-moe-1b-a400m's shapes.  Paged decode: 8 slots
-    x 16 query heads over 8 KV heads of 64 (GQA 2: the group no stablelm
-    run takes), bf16, kv_len ``DECODE_FILLS`` through a 32-wide table of
-    16-position blocks.  Causal prefill: one cold admission of 8 x 384 at
-    the same heads.  Each held against its plain version (``BF16_TOL``,
-    ``SERVING_DRAWS`` draws for decode) and timed beside its bound, the
-    plain version and ``scaled_dot_product_attention`` (over the gathered
-    view with a length mask; causal over the gathered K/V; the gather
-    made before the timing, KV heads repeated to the query heads).  The
-    batched int8 entry at one admission's expert product
+    """The kernels at granite-moe-1b-a400m's shapes: paged decode and one
+    cold causal admission of 8 x 384 at 16 query heads over 8 KV heads of
+    64 (GQA 2: the group no stablelm run takes; :func:`time_attention_rows`).
+    The batched int8 entry at one admission's expert product
     (``GM_EXPERT_UP``, the up projection, experts-major: ``[E, G * 512,
     D]`` codes against ``[E, F, D]``, the 6 groups of each expert in one
     product; ``moe-experts-int8`` gives it this shape at its first
     admission, and its launches are that run's), held bit for bit and
     timed beside its bound and the plain version; the down projection's
     shape is held and logged."""
-    from torch.nn.functional import scaled_dot_product_attention as sdpa
-
     from repro_torch.kernels.int8_matmul import ops as i8
     from repro_torch.kernels.int8_matmul.ref import int8_matmul_acc_ref
-    from repro_torch.kernels.paged_attention import ops as pa
-    from repro_torch.kernels.paged_attention.ref import paged_decode_ref, paged_prefill_ref
 
-    out = {}
-    grp = GM_H // GM_KVH
-    fn = pa.paged_attention_decode
-    w = DENSE_S // BS
-    nb = 8 * w + 1
-    kv_len = torch.tensor(DECODE_FILLS, dtype=torch.int32, device=dev)
-    table = (torch.randperm(nb - 1, generator=g, device=dev).reshape(8, w) + 1).int()
-    errs = []
-    for _ in range(SERVING_DRAWS):
-        q = torch.randn(8, GM_H, HD, generator=g, device=dev).bfloat16()
-        kp, vp = (torch.randn(nb, GM_KVH, BS, HD, generator=g, device=dev).bfloat16()
-                  for _ in range(2))
-        before = fn.launches
-        err, sh = held(fn(q, kp, vp, table, kv_len), paged_decode_ref(q, kp, vp, table, kv_len),
-                       BF16_TOL)
-        assert sh <= 1 and fn.launches == before + (dev.type == "cuda"), \
-            ("paged decode at granite's shapes", err, sh)
-        errs.append(err)
-
-    def gathered(pool, tbl):  # [8, KVH, positions, hd], each KV head repeated G times
-        view = pool[tbl.long()].movedim(1, 2).reshape(8, GM_KVH, tbl.shape[1] * BS, HD)
-        return view.repeat_interleave(grp, dim=1)
-
-    ke, ve = gathered(kp, table), gathered(vp, table)
-    mask = (torch.arange(w * BS, device=dev)[None] < kv_len[:, None])[:, None, None]
-    k_ms = timer(lambda: fn(q, kp, vp, table, kv_len))
-    p_ms = timer(lambda: paged_decode_ref(q, kp, vp, table, kv_len))
-    l_ms = timer(lambda: sdpa(q[:, :, None], ke, ve, attn_mask=mask))
-    fill = sum(DECODE_FILLS)
-    live_blocks = sum(-(-n // BS) for n in DECODE_FILLS)
-    n_bytes = (2 * q.numel() * 2 + 2 * fill * GM_KVH * HD * 2 + live_blocks * 4
-               + kv_len.numel() * 4)
-    b_ms, b_by = bound_ms(n_bytes, 4 * fill * GM_H * HD, "bf16")
-    out["paged_attention_decode_moe"] = dict(
-        name="paged_attention_decode_moe", route="cuda", wrapper="paged_attention_decode",
-        source=SRC_DECODE, replaces="src/repro/kernels/paged_attention/kernel.py:146",
-        max_abs_err=max(errs), ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=l_ms)
-    log(f"[time paged decode moe] B=8 H={GM_H} KV={GM_KVH} hd={HD} bf16 kv_len {DECODE_FILLS}, "
-        f"{decode_splits(dev, 8, GM_KVH, w * BS)} splits: max|kernel-plain| per draw "
-        f"{', '.join(f'{e:.2e}' for e in errs)} (<= {BF16_TOL}); kernel_ms {k_ms:.4f} plain_ms "
-        f"{p_ms:.4f} bound_ms {b_ms:.4f} ({b_by}, {b_ms / k_ms:.1%} of it) library_ms "
-        f"{l_ms:.4f} (scaled_dot_product_attention over the gathered view, length mask)")
-
-    s = 384
-    tbl = table[:, : s // BS].contiguous()
-    start = torch.zeros(8, dtype=torch.int32, device=dev)
-    qs = torch.randn(8, GM_H, s, HD, generator=g, device=dev).bfloat16()
-
-    def kernel():
-        return pa.paged_attention_prefill(qs, kp, vp, tbl, start)
-
-    def plain():
-        return paged_prefill_ref(qs, kp, vp, tbl, start)
-
-    before = pa.paged_attention_prefill.launches
-    err, sh = held(kernel(), plain(), BF16_TOL)
-    assert sh <= 1 and pa.paged_attention_prefill.launches == before + (dev.type == "cuda"), \
-        ("paged prefill at granite's shapes", err, sh)
-    kd, vd = gathered(kp, tbl), gathered(vp, tbl)
-    k_ms, p_ms = timer(kernel, reps=5), timer(plain, reps=3)
-    l_ms = timer(lambda: sdpa(qs, kd, vd, is_causal=True), reps=5)
-    ops = 4 * 8 * s * (s + 1) // 2 * GM_H * HD
-    n_bytes = (2 * qs.numel() * 2 + 2 * torch.unique(tbl).numel() * GM_KVH * BS * HD * 2
-               + tbl.numel() * 4 + start.numel() * 4)
-    b_ms, b_by = bound_ms(n_bytes, ops, "bf16")
-    out["paged_attention_prefill_moe"] = dict(
-        name="paged_attention_prefill_moe", route="cuda", wrapper="paged_attention_prefill",
-        source=SRC_PREFILL, replaces="src/repro/kernels/paged_attention/kernel.py:146",
-        max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=l_ms)
-    log(f"[time paged prefill moe] cold: B=8 S={s} from position 0 H={GM_H} KV={GM_KVH} "
-        f"hd={HD} BS={BS}: max|kernel-plain| {err:.2e} <= {BF16_TOL}; kernel_ms {k_ms:.4f} "
-        f"plain_ms {p_ms:.4f} bound_ms {b_ms:.4f} ({b_by}, {b_ms / k_ms:.1%} of it) library_ms "
-        f"{l_ms:.4f} (scaled_dot_product_attention, is_causal, over the gathered K/V); kernel "
-        f"{ops / max(k_ms, 1e-9) / 1e9:.2f} TFLOP/s")
-    del kp, vp, ke, ve, kd, vd
-    _free(dev)
-
+    out = time_attention_rows(dev, g, "moe", GM_H, GM_KVH, HD,
+                              ("paged_decode", "paged_prefill"), timer)
     n_groups = GM_ADMISSION // 512
     rows = n_groups * 512
     for k, n, row in ((GM_D, GM_F, True), (GM_F, GM_D, False)):
@@ -2954,17 +2899,18 @@ def small_moe_card_vs_cpu(dev) -> None:
 
 @contextlib.contextmanager
 def quantized_activations():
-    """Record every activation the GEMM sites quantize (``quantize`` with
-    a per-tensor scale) while the block runs: yields a list of
-    ``(input as float32, codes, scale)``, each on the CPU."""
+    """Record every ``quantize`` call while the block runs: the activations
+    the GEMM sites quantize (per tensor), the batched qk/pv products'
+    operands (per product and per output column) and the weights' at
+    ``prepare``; yields a list of ``(input as float32, codes, scale)``,
+    each on the CPU."""
     from repro_torch.core import astra_layer
 
     calls, fn = [], astra_layer.quantize
 
     def logged(x, axis=None, scale=None):
         q = fn(x, axis, scale)
-        if axis is None:
-            calls.append((x.detach().float().cpu(), q.q.cpu(), q.scale.float().cpu()))
+        calls.append((x.detach().float().cpu(), q.q.cpu(), q.scale.float().cpu()))
         return q
 
     astra_layer.quantize = logged
@@ -3077,6 +3023,609 @@ def small_xlstm_card_vs_cpu(dev) -> None:
                       if same else ""))
         assert (min(agree) == 1.0 if label == "exact" else total >= 0.9), (label, agree)
         assert all(a == 1.0 for a in same), (label, same)
+
+# llama-3.2-vision-90b at its published widths, cut to one pattern period
+# (attn x 4, xattn): float32 masters and a bf16 copy are ~5.1 GB a layer and
+# 10.5 GB of embedding and head, so one period is ~36 GB under exact (~42 GB
+# with int8's codes beside it) and two would be ~62 GB before activations
+LL_D, LL_H, LL_KVH, LL_HD, LL_F, LL_V, LL_T = 8192, 64, 8, 128, 28672, 128256, 6404
+LL_LAYERS = 5
+# musicgen-large whole: 48 attn layers, 32 heads over 32 KV heads of 64, 4
+# codebooks of 2048 (4 embedding tables summed, 4 heads)
+MG_D, MG_H, MG_HD, MG_F, MG_V, MG_C = 2048, 32, 64, 8192, 2048, 4
+# kernel rows timed at these models' shapes: their launches are the
+# model's serving runs'
+VLM_ROWS = ("paged_attention_decode_vlm", "dense_attention_decode_vlm", "flash_attention_vlm",
+            "int8_gemm_vlm")
+MG_ROWS = ("paged_attention_decode_mg", "paged_attention_prefill_mg", "int8_gemm_mg")
+# the stream kernel's decode-step products timed as rows (M = 8 slots):
+# llama's MLP (up and gate, down; 5 layers) and musicgen's 4 codebook heads
+VLM_DECODE_GEMMS = {(8, LL_D, LL_F): 2 * LL_LAYERS, (8, LL_F, LL_D): LL_LAYERS}
+MG_DECODE_GEMMS = {(8, MG_D, MG_V): MG_C}
+# [vision prefill]: 4 prompts of mixed lengths with bf16 embeddings, caches
+# of VISION_MAX_LEN positions, 8 greedy steps; each step against a full
+# forward over the row's prompt and fed tokens, as a relative L2 of the
+# logits over the vocab and of the cross-attention layer's output over
+# d_model.  exact: both sides carry bf16 activations, and the decode kernel
+# and flash (or cuBLAS at another M) round at different places, as in
+# [flash vs naive].  int8: besides, every activation takes a dynamic
+# per-tensor scale over the rows of its own call (4 rows in a decode step,
+# the whole row in the forward), so the two are two quantizations of one
+# function.  The limits are constants, set between the sound runs' largest
+# reading and the smallest that a fault of the cross-attention path gives
+# (VISION_FAULTS, measured in every run beside the sound one).  On the H100
+# the sound runs' cross output reads at most 1.311e-02 (exact) and 0.1534
+# (int8), every fault 1.000 or more, and the logits 1.381e-02 and 0.1905.
+# With random weights the cross layer moves the logits by 2-3% only, so a
+# cross fault leaves them inside their limits (0.022-0.028 under exact,
+# 0.162 under int8): the layer's output is the gate that sees it.
+VISION_LENS = (160, 64, 128, 96)
+VISION_MAX_LEN = 256
+VISION_STEPS = 8
+VISION_LOGIT_TOL = {"exact": 5e-2, "int8": 0.25}
+VISION_XATTN_TOL = {"exact": 0.1, "int8": 0.5}
+# faults of the cross caches the decode steps read, each a bug the path
+# could have: the cache never written (a text-only prefill), K and V
+# swapped (the projections bound to the wrong site), V at twice its scale
+# (a wrong per-tensor scale), another row's image (a wrong slot index)
+VISION_FAULTS = {
+    "zeroed": lambda k, v: (torch.zeros_like(k), torch.zeros_like(v)),
+    "k/v swapped": lambda k, v: (v, k),
+    "v x2": lambda k, v: (k, 2 * v),
+    "rows rolled": lambda k, v: (k.roll(1, 0), v.roll(1, 0)),
+}
+
+
+def make_vlm_prompts(vocab: int, rng) -> list:
+    """8 text prompts of 64-160 tokens (one blocking admission of all 8)."""
+    return [rng.integers(0, vocab, n, dtype=np.int32)
+            for n in (160, 64, 128, 96, 144, 80, 112, 72)]
+
+
+def make_mg_prompts(vocab: int, rng) -> list:
+    """``make_prompts``' 12 requests as ``[4, n]`` codebook grids: six share
+    a 256-position prefix grid, three of those admitted after the first
+    retirements (prefix hits)."""
+    prefix = rng.integers(0, vocab, (MG_C, 256), dtype=np.int32)
+    lens = [384, 96, 300, 128, 352, 200, 272, 160, 320, 288, 368, 112]
+    shared = {0, 2, 4, 8, 9, 10}
+    return [np.concatenate([prefix, rng.integers(0, vocab, (MG_C, n - 256), dtype=np.int32)],
+                           axis=1)
+            if i in shared else rng.integers(0, vocab, (MG_C, n), dtype=np.int32)
+            for i, n in enumerate(lens)]
+
+
+def time_attention_rows(dev, g, tag: str, h: int, kvh: int, hd: int, kinds,
+                        timer=time_ms) -> dict:
+    """The attention kernels at one model's heads (``h`` query heads over
+    ``kvh`` KV heads of ``hd``, bf16), each held against its plain version
+    (``BF16_TOL``; decode on ``SERVING_DRAWS`` draws, the launch counter
+    moved once a call on the card) and timed beside its bound, the plain
+    version and ``scaled_dot_product_attention`` (KV heads repeated to the
+    query heads and the gather made before the timing).  ``kinds`` from
+    ``paged_decode`` (8 slots at ``DECODE_FILLS`` through a table of
+    ``BS``-position blocks, ``DENSE_S`` wide), ``dense_decode`` (the same
+    fills over ``DENSE_S``-position caches), ``paged_prefill`` (one cold
+    admission of 8 x 384 from position 0) and ``flash`` (causal over the
+    ``[vision prefill]`` pass's padded batch, ``len(VISION_LENS)`` x
+    ``max(VISION_LENS)``, held to ``FLASH_BF16``).  Returns the rows
+    ``<kernel>_<tag>``."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.paged_attention import ops as pa
+    from repro_torch.kernels.paged_attention.ref import (
+        dense_decode_ref, paged_decode_ref, paged_prefill_ref,
+    )
+
+    out = {}
+    grp = h // kvh
+    w = DENSE_S // BS
+    nb = 8 * w + 1
+    kv_len = torch.tensor(DECODE_FILLS, dtype=torch.int32, device=dev)
+    table = (torch.randperm(nb - 1, generator=g, device=dev).reshape(8, w) + 1).int()
+    mask = (torch.arange(DENSE_S, device=dev)[None] < kv_len[:, None])[:, None, None]
+    fill = sum(DECODE_FILLS)
+    decode_shape = (f"B=8 H={h} KV={kvh} hd={hd} bf16 kv_len {DECODE_FILLS}, "
+                    f"{decode_splits(dev, 8, kvh, DENSE_S)} splits")
+
+    def gathered(pool, tbl):  # [8, H, positions, hd]: each KV head repeated
+        view = pool[tbl.long()].movedim(1, 2).reshape(8, kvh, tbl.shape[1] * BS, hd)
+        return view.repeat_interleave(grp, dim=1)
+
+    def row(name, wrapper, src, replaces, errs, k_ms, p_ms, l_ms, n_bytes, ops, what, shape,
+            lib, tol=f"{BF16_TOL}"):
+        b_ms, b_by = bound_ms(n_bytes, ops, "bf16")
+        out[name] = dict(name=name, route="cuda", wrapper=wrapper, source=src,
+                         replaces=replaces, max_abs_err=max(errs), ms=k_ms, plain_ms=p_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=l_ms)
+        log(f"[time {what} {tag}] {shape}: max|kernel-plain| per "
+            f"draw {', '.join(f'{e:.2e}' for e in errs)} (<= {tol}); kernel_ms {k_ms:.4f} "
+            f"plain_ms {p_ms:.4f} bound_ms {b_ms:.4f} ({b_by}, {b_ms / k_ms:.1%} of it) "
+            f"library_ms {l_ms:.4f} ({lib})")
+
+    kp = vp = None
+    if "paged_decode" in kinds or "paged_prefill" in kinds:
+        fn, errs = pa.paged_attention_decode, []
+        for _ in range(SERVING_DRAWS):
+            q = torch.randn(8, h, hd, generator=g, device=dev).bfloat16()
+            kp, vp = (torch.randn(nb, kvh, BS, hd, generator=g, device=dev).bfloat16()
+                      for _ in range(2))
+            before = fn.launches
+            err, sh = held(fn(q, kp, vp, table, kv_len),
+                           paged_decode_ref(q, kp, vp, table, kv_len), BF16_TOL)
+            assert sh <= 1 and fn.launches == before + (dev.type == "cuda"), \
+                (f"paged decode at {tag}'s shapes", err, sh)
+            errs.append(err)
+    if "paged_decode" in kinds:
+        ke, ve = gathered(kp, table), gathered(vp, table)
+        live_blocks = sum(-(-n // BS) for n in DECODE_FILLS)
+        row(f"paged_attention_decode_{tag}", "paged_attention_decode", SRC_DECODE,
+            "src/repro/kernels/paged_attention/kernel.py:146", errs,
+            timer(lambda: fn(q, kp, vp, table, kv_len)),
+            timer(lambda: paged_decode_ref(q, kp, vp, table, kv_len)),
+            timer(lambda: sdpa(q[:, :, None], ke, ve, attn_mask=mask)),
+            2 * q.numel() * 2 + 2 * fill * kvh * hd * 2 + live_blocks * 4 + kv_len.numel() * 4,
+            4 * fill * h * hd, "paged decode", decode_shape,
+            "scaled_dot_product_attention over the gathered view, length mask")
+        del ke, ve
+    if "dense_decode" in kinds:
+        fn, errs = pa.dense_attention_decode, []
+        for _ in range(SERVING_DRAWS):
+            qd = torch.randn(8, h, hd, generator=g, device=dev).bfloat16()
+            kc, vc = (torch.randn(8, kvh, DENSE_S, hd, generator=g, device=dev).bfloat16()
+                      for _ in range(2))
+            before = fn.launches
+            err, sh = held(fn(qd, kc, vc, kv_len), dense_decode_ref(qd, kc, vc, kv_len),
+                           BF16_TOL)
+            assert sh <= 1 and fn.launches == before + (dev.type == "cuda"), \
+                (f"dense decode at {tag}'s shapes", err, sh)
+            errs.append(err)
+        kr, vr = kc.repeat_interleave(grp, dim=1), vc.repeat_interleave(grp, dim=1)
+        row(f"dense_attention_decode_{tag}", "dense_attention_decode", SRC_DECODE,
+            "src/repro/kernels/paged_attention/kernel.py:212", errs,
+            timer(lambda: fn(qd, kc, vc, kv_len)),
+            timer(lambda: dense_decode_ref(qd, kc, vc, kv_len)),
+            timer(lambda: sdpa(qd[:, :, None], kr, vr, attn_mask=mask)),
+            2 * qd.numel() * 2 + 2 * fill * kvh * hd * 2 + kv_len.numel() * 4,
+            4 * fill * h * hd, "dense decode", decode_shape,
+            "scaled_dot_product_attention over the whole cache, length mask")
+        del kc, vc, kr, vr
+    if "paged_prefill" in kinds:
+        s = 384
+        tbl = table[:, : s // BS].contiguous()
+        start = torch.zeros(8, dtype=torch.int32, device=dev)
+        qs = torch.randn(8, h, s, hd, generator=g, device=dev).bfloat16()
+        fn = pa.paged_attention_prefill
+        before = fn.launches
+        err, sh = held(fn(qs, kp, vp, tbl, start), paged_prefill_ref(qs, kp, vp, tbl, start),
+                       BF16_TOL)
+        assert sh <= 1 and fn.launches == before + (dev.type == "cuda"), \
+            (f"paged prefill at {tag}'s shapes", err, sh)
+        kd, vd = gathered(kp, tbl), gathered(vp, tbl)
+        row(f"paged_attention_prefill_{tag}", "paged_attention_prefill", SRC_PREFILL,
+            "src/repro/kernels/paged_attention/kernel.py:146", [err],
+            timer(lambda: fn(qs, kp, vp, tbl, start), reps=5),
+            timer(lambda: paged_prefill_ref(qs, kp, vp, tbl, start), reps=3),
+            timer(lambda: sdpa(qs, kd, vd, is_causal=True), reps=5),
+            2 * qs.numel() * 2 + 2 * torch.unique(tbl).numel() * kvh * BS * hd * 2
+            + tbl.numel() * 4 + start.numel() * 4,
+            4 * 8 * s * (s + 1) // 2 * h * hd, "paged prefill",
+            f"cold: B=8 S={s} from position 0 H={h} KV={kvh} hd={hd} BS={BS}",
+            "scaled_dot_product_attention, is_causal, over the gathered K/V")
+        del qs, kd, vd
+    if "flash" in kinds:
+        fb, fs = len(VISION_LENS), max(VISION_LENS)
+        fn, errs = fa.flash_attention, []
+        for _ in range(SERVING_DRAWS):
+            qf = torch.randn(fb, h, fs, hd, generator=g, device=dev).bfloat16()
+            kf, vf = (torch.randn(fb, kvh, fs, hd, generator=g, device=dev).bfloat16()
+                      for _ in range(2))
+            before = fn.launches
+            err, sh = held(fn(qf, kf, vf, causal=True),
+                           flash_attention_ref(qf, kf, vf, causal=True), *FLASH_BF16)
+            assert sh <= 1 and fn.launches == before + (dev.type == "cuda"), \
+                (f"flash at {tag}'s shapes", err, sh)
+            errs.append(err)
+        kr, vr = kf.repeat_interleave(grp, dim=1), vf.repeat_interleave(grp, dim=1)
+        row(f"flash_attention_{tag}", "flash_attention", SRC_FLASH,
+            "src/repro/kernels/flash_attention/kernel.py:85", errs,
+            timer(lambda: fn(qf, kf, vf, causal=True)),
+            timer(lambda: flash_attention_ref(qf, kf, vf, causal=True), reps=3),
+            timer(lambda: sdpa(qf, kr, vr, is_causal=True)),
+            2 * qf.numel() * 2 + 2 * kf.numel() * 2,
+            4 * fb * fs * (fs + 1) // 2 * h * hd, "flash",
+            f"causal: B={fb} S={fs} H={h} KV={kvh} hd={hd} bf16 (the vision prefill's padded "
+            "pass)", "scaled_dot_product_attention, is_causal, K/V repeated to the query heads",
+            tol=f"{FLASH_BF16[0]} + {FLASH_BF16[1]} x |plain|")
+        del qf, kf, vf, kr, vr
+    del kp, vp
+    _free(dev)
+    return out
+
+
+def time_vlm_mg_kernels(dev, g, timer=time_ms, plain_timer=time_ms) -> dict:
+    """The ported kernels at llama-3.2-vision-90b's and musicgen-large's
+    shapes: paged and dense decode at 64 heads over 8 KV heads of 128
+    (GQA 8) and flash over ``[vision prefill]``'s padded batch at the same
+    heads, paged decode and a cold causal prefill at musicgen's 32 heads
+    over 32 of 64, and the int8 GEMM's stream kernel at one decode step's
+    llama MLP products and musicgen's 4 codebook heads (``[8, 2048] x
+    [2048, 2048]``), held bit for bit."""
+    out = time_attention_rows(dev, g, "vlm", LL_H, LL_KVH, LL_HD,
+                              ("paged_decode", "dense_decode", "flash"), timer)
+    out.update(time_int8_gemms(dev, g, "int8_gemm_vlm", VLM_DECODE_GEMMS, {}, timer,
+                               plain_timer))
+    out.update(time_attention_rows(dev, g, "mg", MG_H, MG_H, MG_HD,
+                                   ("paged_decode", "paged_prefill"), timer))
+    out.update(time_int8_gemms(dev, g, "int8_gemm_mg", MG_DECODE_GEMMS, {}, timer, plain_timer))
+    return out
+
+
+@contextlib.contextmanager
+def xattn_ranges():
+    """Each cross-attention layer's decode under an ``xattn.decode``
+    profiler range while the block runs."""
+    from torch.profiler import record_function
+
+    from repro_torch.models import attention
+
+    fn = attention.attn_decode
+
+    def ranged(*a, **kw):
+        if kw.get("kind") != "xattn":
+            return fn(*a, **kw)
+        with record_function("xattn.decode"):
+            return fn(*a, **kw)
+
+    attention.attn_decode = ranged
+    try:
+        yield
+    finally:
+        attention.attn_decode = fn
+
+
+def check_scan_admissions(cfg, label: str, dev) -> None:
+    """Every blocking admission of run ``label`` was the masked scan: the
+    dense decode kernel once per attention layer and scan step (the
+    padded prompt's length), no flash and no paged prefill (``PHASES``)."""
+    n_attn = sum(k in ("attn", "local") for k in cfg.layer_kinds)
+    adm = PHASES[label]["admission"]
+    assert adm, label
+    if dev.type == "cuda":
+        for lens, d in adm:
+            assert d.get("dense_attention_decode") == n_attn * max(lens), (label, lens, d)
+            assert not d.get("flash_attention") and not d.get("paged_attention_prefill"), d
+    log(f"[{label}] {len(adm)} admissions ({', '.join(str(max(l)) for l, _ in adm)} scan "
+        f"steps): dense_attention_decode {n_attn} x steps, no flash, no paged prefill "
+        + ("(held)" if dev.type == "cuda" else "(not held: plain versions on the CPU)"))
+
+
+@contextlib.contextmanager
+def xattn_outputs():
+    """Each cross-attention layer's output (``attn_seq`` or ``attn_decode``
+    with ``kind="xattn"``), float32, in call order."""
+    from repro_torch.models import attention
+
+    fns, seen = (attention.attn_seq, attention.attn_decode), []
+
+    def recorded(fn):
+        def call(*a, **kw):
+            out = fn(*a, **kw)
+            if kw.get("kind") == "xattn":
+                seen.append(out[0].float())
+            return out
+        return call
+
+    attention.attn_seq, attention.attn_decode = (recorded(fn) for fn in fns)
+    try:
+        yield seen
+    finally:
+        attention.attn_seq, attention.attn_decode = fns
+
+
+def vision_prefill(cfg, params, dev) -> dict:
+    """The vision entry point at full width: ``packed_prefill`` of 4 prompts
+    of mixed lengths (``VISION_LENS``) with seeded bf16 embeddings ``[4,
+    vision_tokens, d_model]`` under ``exact`` and ``int8``: the
+    full-sequence pass (flash once per ``attn`` layer, the cross caches of
+    all the vision positions), then ``VISION_STEPS`` greedy steps through
+    ``Model.decode`` on its states.  Each step is held against one full
+    forward per row over its prompt and fed tokens with its embeddings:
+    the logits (and the prefill's last) to ``VISION_LOGIT_TOL``, the cross
+    layer's output to ``VISION_XATTN_TOL``.  Then each of
+    ``VISION_FAULTS`` is put into the cross caches and the same tokens
+    are fed again: every fault must break the cross layer's limit.  Logs
+    how far the int8 forward lies from the exact one, and how far the
+    embeddings move the last logits from a text-only pass (the same
+    forward with zero embeddings: zero cross K and V, what the engine's
+    zeroed cross caches hold).  Under ``int8`` every int8 GEMM shape it
+    gave (the cross K/V projection at M = 4 x vision_tokens among them) is
+    held bit for bit.  Returns each plan's launches (``vision-<plan>``:
+    the prefill and the sound decode steps)."""
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.models.transformer import forward
+    from repro_torch.serve import pack_prompts, packed_prefill
+
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab, n, dtype=np.int32) for n in VISION_LENS]
+    g = torch.Generator(device=dev).manual_seed(8)
+    b = len(prompts)
+    vis = torch.randn(b, cfg.vision_tokens, cfg.d_model, generator=g, device=dev).bfloat16()
+    n_attn = cfg.layer_kinds.count("attn")
+    cross = cfg.layer_kinds.index("xattn")
+    assert cfg.layer_kinds.count("xattn") == 1, cfg.layer_kinds
+    exact = _serving_model(cfg, dev, "exact")
+    exact_prm = exact.prepare(params)
+    launches = {}
+
+    def rel(got, want):
+        return ((got.float() - want).norm() / want.norm()).item()
+
+    def rows_of(model, prm, seqs):  # each row's logits and cross output at the compared positions
+        logits, xs = [], []
+        for i, (n, seq) in enumerate(zip(VISION_LENS, seqs)):
+            with xattn_outputs() as x:
+                full, _ = forward(prm, seq[None], cfg, model.opts, vision_embeds=vis[i:i + 1])
+            logits.append(full[0, n - 1:n + VISION_STEPS].float())
+            xs.append(x[0][0, n:n + VISION_STEPS])
+            del full, x
+        return logits, xs
+
+    def decode(model, prm, states, tokens):  # steps fed ``tokens`` [b, steps] or greedy
+        pos, tok, logits, xs = lengths.long(), tokens[:, :1], [], []
+        fed = []
+        for t in range(VISION_STEPS):
+            fed.append(tok)
+            with xattn_outputs() as x:
+                lg, states = model.decode(prm, tok, states, pos)
+            assert torch.isfinite(lg).all()
+            logits.append(lg)
+            xs.append(x[0])
+            pos = pos + 1
+            tok = (tokens[:, t + 1:t + 2] if t + 1 < tokens.shape[1]
+                   else lg[:, -1].argmax(-1)[:, None].int())
+        return torch.cat(fed, dim=-1), logits, xs, states
+
+    def readings(logits, xs, full, xfull):  # per (step, row): logits, cross output
+        lr = [rel(lg[i, -1], full[i][t + 1]) for t, lg in enumerate(logits) for i in range(b)]
+        xr = [rel(x[i, 0], xfull[i][t]) for t, x in enumerate(xs) for i in range(b)]
+        return lr, xr
+
+    for plan in ("exact", "int8"):
+        model = exact if plan == "exact" else _serving_model(cfg, dev, plan)
+        prm = exact_prm if plan == "exact" else model.prepare(params)
+        toks, lengths = pack_prompts(prompts, cfg, device=dev)
+        with int8_shapes() as seen:
+            reset_launches()
+            _sync(dev)
+            t0 = time.perf_counter()
+            last, states = packed_prefill(model, prm, toks, lengths, VISION_MAX_LEN,
+                                          vision_embeds=vis)
+            _sync(dev)
+            pre_s = time.perf_counter() - t0
+            counts = launch_counts()
+            c = states["layers"][cross]
+            assert tuple(c.k.shape) == (b, cfg.n_kv_heads, cfg.vision_tokens, cfg.head_dim)
+            assert c.k.abs().amax() > 0
+            if dev.type == "cuda":
+                assert counts["flash_attention"] == n_attn, counts
+            first = last[:, -1].argmax(-1)[:, None].int()
+            fed, logits, xs, states = decode(model, prm, states, first)
+            launches[f"vision-{plan}"] = after = launch_counts()  # the prefill's and the steps'
+            if dev.type == "cuda":
+                assert after["flash_attention"] == n_attn, after
+                assert after["dense_attention_decode"] == n_attn * VISION_STEPS, after
+            seqs = [torch.cat([toks[i, :n], fed[i]]) for i, n in enumerate(VISION_LENS)]
+            full, xfull = rows_of(model, prm, seqs)
+            lr, xr = readings(logits, xs, full, xfull)
+            lr = [rel(last[i, -1], full[i][0]) for i in range(b)] + lr
+            text, _ = forward(prm, toks, cfg, model.opts, vision_embeds=torch.zeros_like(vis))
+            text_last = text[torch.arange(b, device=dev), lengths.long() - 1].float()
+            moved = ((last[:, -1].float() - text_last).norm(dim=-1)
+                     / text_last.norm(dim=-1))
+            same = (last[:, -1].argmax(-1) == text_last.argmax(-1)).float().mean().item()
+            del text, text_last
+        faults = {}
+        for name, fault in VISION_FAULTS.items():
+            bad = {**states, "layers": list(states["layers"])}
+            bad["layers"][cross] = type(c)(*fault(c.k, c.v))
+            _, f_logits, f_xs, _ = decode(model, prm, bad, fed)
+            faults[name] = readings(f_logits, f_xs, full, xfull)
+            del bad, f_logits, f_xs
+        own = ""
+        if plan != "exact":  # the int8 forward's distance from the exact function, logged
+            ref, _ = rows_of(exact, exact_prm, seqs)
+            q = [rel(f, r) for fi, ri in zip(full, ref) for f, r in zip(fi, ri)]
+            own = (f"; the int8 forward lies {max(q):.3e} (median {float(np.median(q)):.3e}) "
+                   "from the exact forward over the same tokens")
+            del ref
+        log(f"[vision prefill {plan}] {cfg.name} ({cfg.n_layers}L d{cfg.d_model}), "
+            f"{b} prompts {list(VISION_LENS)} with bf16 embeddings {tuple(vis.shape)}: "
+            f"full-sequence prefill {pre_s:.3f} s, flash x{n_attn}, cross caches of "
+            f"{cfg.vision_tokens} positions; {VISION_STEPS} greedy steps (dense decode "
+            f"x{n_attn} a step) against a full forward per row: relative L2 of the logits max "
+            f"{max(lr):.3e}, median {float(np.median(lr)):.3e} (< {VISION_LOGIT_TOL[plan]}), "
+            f"of the cross layer's output max {max(xr):.3e}, median "
+            f"{float(np.median(xr)):.3e} (< {VISION_XATTN_TOL[plan]}){own}; the embeddings "
+            f"move the last logits from a text-only pass (zero embeddings) by a relative L2 "
+            f"of {', '.join(f'{m:.3f}' for m in moved.tolist())}, greedy first token "
+            f"unchanged in {same:.0%} of the {b}")
+        log(f"[vision faults {plan}] the same tokens fed with a fault in the cross caches, max "
+            "relative L2 of the cross layer's output / of the logits: "
+            + "; ".join(f"{k} {max(x):.3e} / {max(lg):.3e}" for k, (lg, x) in faults.items())
+            + f" (each must pass the cross limit {VISION_XATTN_TOL[plan]})")
+        assert max(lr) < VISION_LOGIT_TOL[plan], (plan, max(lr))
+        assert max(xr) < VISION_XATTN_TOL[plan], (plan, max(xr))
+        for name, (_, x) in faults.items():
+            assert max(x) > VISION_XATTN_TOL[plan], (plan, name, max(x))
+        del states, logits, last, full, xfull, c
+        if plan != "exact":
+            del model, prm
+        _free(dev)
+        if plan == "int8":
+            shape = (b * cfg.vision_tokens, cfg.d_model, cfg.kv_dim)
+            assert shape in seen["int8_gemm"], (shape, sorted(seen["int8_gemm"]))
+            hold_served_int8_shapes(dev, seen, "vision-int8")
+    del exact, exact_prm
+    _free(dev)
+    return launches
+
+
+def serve_vlm(cfg, dev, summary: dict) -> dict:
+    """llama-3.2-vision-90b at its published widths, one period (bf16,
+    random weights from seed 0), served text-only as the reference engine
+    serves it, ``max_len 512``, 8 prompts of 64-160 tokens, 16 new each:
+    ``vlm-exact`` and ``vlm-int8`` on the paged pool (the stack is stateful
+    there: prefix cache off with the reference's reason, blocking
+    admission through the masked scan and a block scatter; decode through
+    the pool on the 4 attn layers, plain attention over the zeroed cross
+    cache), ``vlm-exact-dense`` and ``vlm-exact-dense-chunked`` (budget
+    64).  Asserts each run's kernels by phase (:func:`check_scan_admissions`,
+    :func:`check_layer_launches`), holds every int8 shape ``vlm-int8``
+    gave bit for bit, runs :func:`vision_prefill` and profiles one
+    ``vlm-exact`` decode chunk with the cross-attention layer under a
+    range.  Returns each run's launches."""
+    from repro_torch.models.model import Model
+
+    params = Model(cfg, device=dev).init(seed=0)
+    prompts = make_vlm_prompts(cfg.vocab, np.random.default_rng(5))
+    runs = [("vlm-exact", "exact", "none"), ("vlm-int8", "int8", "none")]
+    with int8_shapes() as seen:
+        launches, tokens = serve(cfg, params, prompts, dev, runs, gen=16, summary=summary)
+    hold_served_int8_shapes(dev, seen, "vlm-int8")
+    for label, budget in (("vlm-exact-dense", 0), ("vlm-exact-dense-chunked", 64)):
+        counts, toks = serve(cfg, params, prompts, dev, [(label, "exact", "none")], gen=16,
+                             kv_block_size=0, chunk_tokens=budget, summary=summary)
+        launches.update(counts)
+        tokens.update(toks)
+    for label in ("vlm-exact", "vlm-int8", "vlm-exact-dense"):
+        check_scan_admissions(cfg, label, dev)
+    for label, kernel in (("vlm-exact", "paged_attention_decode"),
+                          ("vlm-int8", "paged_attention_decode"),
+                          ("vlm-exact-dense", "dense_attention_decode"),
+                          ("vlm-exact-dense-chunked", "dense_attention_decode")):
+        check_layer_launches(cfg, label, dev, kernel)
+    for label in ("vlm-int8", "vlm-exact-dense", "vlm-exact-dense-chunked"):
+        agree = (tokens[label] == tokens["vlm-exact"]).mean()
+        log(f"[agreement {label}] greedy tokens equal to vlm-exact: {agree:.1%} (reported, not "
+            "gated: random weights at bf16)")
+    chunked_beside_blocking(summary, "vlm-exact-dense-chunked", "vlm-exact-dense", tokens)
+    kv = summary["vlm-exact"]["kv"]
+    log(f"[vlm-exact] kv_stats: bytes_per_block {kv['bytes_per_block']} (4 attn layers x K and "
+        f"V x {BS} x {LL_KVH} x {LL_HD} x 2 B), {kv['pool_blocks']} blocks; prefix cache off: "
+        f"{kv['prefix_cache_off_reason']}; cross caches dense by slot, 2 x 8 x {LL_KVH} x "
+        f"{cfg.vision_tokens} x {LL_HD} x 2 B = "
+        f"{2 * 8 * LL_KVH * cfg.vision_tokens * LL_HD * 2 / 1e6:.1f} MB")
+    launches.update(vision_prefill(cfg, params, dev))
+    with xattn_ranges():
+        profile_decode_chunk(cfg, params, prompts, dev, runs[:1])
+    del params
+    _free(dev)
+    return launches
+
+
+def serve_mg(cfg, dev, summary: dict) -> dict:
+    """musicgen-large whole (bf16, random weights from seed 0), ``max_len
+    512``, the 12 ``[4, 96-384]`` grids of :func:`make_mg_prompts`, 32 new
+    each (``[4, 32]`` grids): ``mg-exact`` (prefix hits asserted) and
+    ``mg-int8`` on the paged pool, ``mg-exact-dense`` and
+    ``mg-exact-chunked`` (paged, budget 256).  Each decode chunk launches
+    its layout's decode kernel once per layer and step; every int8 shape
+    ``mg-int8`` gave is held bit for bit, the 4 codebook heads' ``[8,
+    2048] x [2048, 2048]`` among them.  Returns each run's launches."""
+    from repro_torch.models.model import Model
+
+    params = Model(cfg, device=dev).init(seed=0)
+    prompts = make_mg_prompts(cfg.vocab, np.random.default_rng(7))
+    runs = [("mg-exact", "exact", "none"), ("mg-int8", "int8", "none")]
+    with int8_shapes() as seen:
+        launches, tokens = serve(cfg, params, prompts, dev, runs, gen=32, summary=summary)
+    assert tokens["mg-exact"].shape == (len(prompts), MG_C, 32), tokens["mg-exact"].shape
+    assert dev.type != "cuda" or (8, cfg.d_model, cfg.vocab) in seen["int8_gemm"], \
+        sorted(seen["int8_gemm"])
+    hold_served_int8_shapes(dev, seen, "mg-int8")
+    for label, bs, budget, kernel in (("mg-exact-dense", 0, 0, "dense_attention_decode"),
+                                      ("mg-exact-chunked", BS, 256, "paged_attention_decode")):
+        counts, toks = serve(cfg, params, prompts, dev, [(label, "exact", "none")], gen=32,
+                             kv_block_size=bs, chunk_tokens=budget, summary=summary)
+        launches.update(counts)
+        tokens.update(toks)
+        check_layer_launches(cfg, label, dev, kernel)
+    for label in ("mg-exact", "mg-int8"):
+        check_layer_launches(cfg, label, dev, "paged_attention_decode")
+    for label in ("mg-int8", "mg-exact-dense", "mg-exact-chunked"):
+        agree = (tokens[label] == tokens["mg-exact"]).mean()
+        log(f"[agreement {label}] greedy tokens equal to mg-exact: {agree:.1%} (reported, not "
+            "gated: random weights at bf16)")
+    chunked_beside_blocking(summary, "mg-exact-chunked", "mg-exact", tokens)
+    log_astra(cfg, summary, "mg-exact")
+    del params
+    _free(dev)
+    return launches
+
+
+def small_vlm_mg_card_vs_cpu(dev) -> None:
+    """Reduced float32 llama-3.2-vision (one period) and musicgen (2
+    layers, ``[4, n]`` grids sharing a prefix) served with the kernels on
+    ``dev`` and their plain versions on the CPU, under all four plans, on
+    the paged pool (block 8) and on dense caches.  Under exact every greedy
+    token is equal.  Under a quantized plan the integer products are exact
+    given the codes, but a float32 op outside them can round otherwise on
+    the card, and a value within a rounding error of a half code then
+    moves that code, and every greedy token after it may differ: where
+    tokens differ, every quantized tensor of both sides (the qk/pv
+    operands included) is compared call by call
+    (:func:`code_flip_witness`) and the difference must have
+    that witness: before the first moved code the float inputs within 1e-4
+    (relative to the tensor's absmax), at it codes moved by one, each from
+    a value within 1e-3 code units of the half.  The share of equal tokens
+    is reported."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import Model
+    from repro_torch.models.transformer import ModelOptions
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    for name, tag, red in (("llama-3.2-vision-90b", "vlm", {}),
+                           ("musicgen-large", "mg", dict(n_layers=2))):
+        small = get_arch(name).reduced(dtype="float32", **red)
+        rng = np.random.default_rng(12)
+        lead = small.token_lead
+        prefix = rng.integers(0, small.vocab, lead + (16,), dtype=np.int32)
+        prompts = [np.concatenate([prefix, rng.integers(0, small.vocab, lead + (n,),
+                                                        dtype=np.int32)], axis=-1)
+                   for n in (5, 19)] + [rng.integers(0, small.vocab, lead + (n,), dtype=np.int32)
+                                        for n in (12, 33, 8)]
+        params = Model(small, device="cpu").init(seed=8)
+        for plan in ("exact", "int8", "sc", "mixed"):
+            for bs in (8, 0):
+                scfg = ServeConfig(max_slots=3, max_len=64, chunk_steps=4, kv_block_size=bs)
+                toks, calls = {}, {}
+                for where in ("cpu", dev):
+                    m = Model(small, ModelOptions(plan=plan, attn_impl="flash"), device=where)
+                    with quantized_activations() as calls[str(where)]:
+                        outs = ServeEngine(m, _to(params, m.device), scfg,
+                                           device=where).generate_batch(prompts, 10)
+                    toks[str(where)] = np.stack([o.tokens for o in outs])
+                agree = (toks["cpu"] == toks[str(dev)]).mean()
+                label = f"{plan}{'-dense' if bs == 0 else ''}"
+                line = (f"[small {tag} {label}] reduced {name} float32 on {dev} (kernels) vs "
+                        f"cpu (plain versions): {agree:.0%} of greedy tokens equal")
+                if agree < 1.0:
+                    w = code_flip_witness(calls["cpu"], calls[str(dev)])
+                    line += ("; " + (f"first code moved at call {w['call']} of {w['calls']} "
+                                     f"(input {w['shape']}): {w['moved']} of {w['of']} codes, by "
+                                     f"at most {w['step']}, their values at most "
+                                     f"{w['boundary']:.2e} code units from the half; float "
+                                     f"inputs before it within {w['rel_before']:.2e}"
+                                     if w["call"] is not None else "no code moved"))
+                    log(line)
+                    assert plan != "exact", (tag, label, agree)
+                    assert w["call"] is not None and w["step"] == 1 and \
+                        w["boundary"] <= 1e-3 and w["rel_before"] <= 1e-4, (tag, label, w)
+                else:
+                    log(line)
 
 
 def log_tiles() -> None:
@@ -3199,6 +3748,8 @@ def main() -> None:
                **time_wide_attention(dev, g), **time_rg_paged_decode(dev, g),
                **time_int8_gemms(dev, g, "int8_gemm_rg", RG_DECODE_GEMMS, RG_PREFILL_GEMMS),
                **time_moe_kernels(dev, g)}
+    elapsed("kernel timings, all but llama-3.2-vision's and musicgen's")
+    kernels.update(time_vlm_mg_kernels(dev, g))
     elapsed("kernel timings")
 
     cfg = get_arch("stablelm-1.6b")
@@ -3280,16 +3831,36 @@ def main() -> None:
         12, XL_D, XL_H, XL_V, "bfloat16", ("mlstm", "mlstm", "mlstm", "slstm"))
     serve_xlstm(xl, dev, summary)
     elapsed("xlstm-125m serving")
+    ll = dataclasses.replace(get_arch("llama-3.2-vision-90b"), n_layers=LL_LAYERS)
+    assert (ll.d_model, ll.n_heads, ll.n_kv_heads, ll.head_dim, ll.d_ff, ll.vocab,
+            ll.vision_tokens, ll.dtype) == (LL_D, LL_H, LL_KVH, LL_HD, LL_F, LL_V, LL_T,
+                                            "bfloat16")
+    assert ll.layer_kinds == ("attn",) * 4 + ("xattn",)
+    vlm_launches = serve_vlm(ll, dev, summary)
+    elapsed("llama-3.2-vision-90b serving")
+    mg = get_arch("musicgen-large")
+    assert (mg.n_layers, mg.d_model, mg.n_heads, mg.n_kv_heads, mg.head_dim, mg.d_ff, mg.vocab,
+            mg.n_codebooks, mg.norm, mg.act, mg.dtype) == (48, MG_D, MG_H, MG_H, MG_HD, MG_F,
+                                                           MG_V, MG_C, "layernorm", "gelu",
+                                                           "bfloat16")
+    mg_launches = serve_mg(mg, dev, summary)
+    elapsed("musicgen-large serving")
+    log("[decode beside stablelm] decode tok/s in this call: "
+        + ", ".join(f"{k} {summary[k]['decode_tps']:.1f} (TTFT {summary[k]['ttft_ms']:.1f} ms)"
+                    for k in ("exact", "vlm-exact", "vlm-exact-dense", "mg-exact")))
     small_card_vs_cpu(dev)
     small_rg_card_vs_cpu(dev)
     small_rg_paged_card_vs_cpu(dev)
     small_moe_card_vs_cpu(dev)
     small_xlstm_card_vs_cpu(dev)
+    elapsed("card against CPU, all but llama-3.2-vision and musicgen")
+    small_vlm_mg_card_vs_cpu(dev)
     elapsed("card against CPU")
 
     # launches: summed over the serving runs of the row's model (the rows
-    # at recurrentgemma's shapes over its runs, those at granite's over the
-    # granite runs, the others over the stablelm runs) and over the row's wrappers (the binary stochastic GEMM's two
+    # at recurrentgemma's shapes over its runs, those at granite's,
+    # llama-3.2-vision's and musicgen's over theirs, the others over the
+    # stablelm runs) and over the row's wrappers (the binary stochastic GEMM's two
     # entries, counted by kernel); launches_by_plan: each run's own
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_plan",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -3300,6 +3871,7 @@ def main() -> None:
         wrappers = rec.get("wrapper", name)
         wrappers = (wrappers,) if isinstance(wrappers, str) else wrappers
         runs = (rg_launches if name in RG_ROWS else moe_launches if name in MOE_ROWS
+                else vlm_launches if name in VLM_ROWS else mg_launches if name in MG_ROWS
                 else launches)
         rec["launches_by_plan"] = {label: sum(count(c, w) for w in wrappers)
                                    for label, c in runs.items()}

@@ -106,6 +106,12 @@ class ArchConfig:
         return self.n_kv_heads * self.head_dim
 
     @property
+    def token_lead(self) -> Tuple[int, ...]:
+        """The axes before a token sequence's length: ``(n_codebooks,)``
+        for a multi-codebook model (``[C, S]`` grids), else ``()``."""
+        return (self.n_codebooks,) if self.n_codebooks else ()
+
+    @property
     def is_subquadratic(self) -> bool:
         """True if decode state is bounded (no full-seq KV cache)."""
         return all(k in ("rglru", "mlstm", "slstm", "local") for k in self.layer_kinds)

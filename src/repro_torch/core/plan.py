@@ -216,7 +216,8 @@ class ExecutionPlan:
 
     # ---------------------------------------------------------- calibration
     def calibrate(self, model, params, batch) -> "ExecutionPlan":
-        """One exact forward over ``batch`` (``{"tokens": [B, S]}`` or the
+        """One exact forward over ``batch`` (``{"tokens": [B, S]}``, with
+        ``"vision_embeds"`` for a stack with cross-attention, or the
         tokens) with an observer on every site; returns this plan with
         per-site static ``act_scales`` and per-KV-head ``kv_scales``.  A
         tap records into every site of its layer group, so each scale is
@@ -228,8 +229,12 @@ class ExecutionPlan:
         observe_plan = ExecutionPlan(name="calibrate", _observer=obs)
         opts = dataclasses.replace(model.opts, plan=observe_plan)
         tokens = batch["tokens"] if isinstance(batch, Mapping) else batch
+        vis = batch.get("vision_embeds") if isinstance(batch, Mapping) else None
+        if vis is not None:
+            vis = torch.as_tensor(vis, device=model.device)
         with torch.no_grad():
-            forward(params, torch.as_tensor(tokens, device=model.device), model.cfg, opts)
+            forward(params, torch.as_tensor(tokens, device=model.device), model.cfg, opts,
+                    vision_embeds=vis)
         amax, vec = obs.host()
         scales = tuple(sorted((site, (a / MAG_MAX) if a > 0 else 1.0)
                               for site, a in amax.items()))

@@ -26,7 +26,12 @@ blocking admission).  granite-moe-1b-a400m (MoE MLPs, pure global
 attention) serves like the dense decoders, prefix reuse included;
 xlstm-125m (mLSTM and sLSTM blocks, no attention layer) has no KV to pool
 and serves on its dense per-slot recurrent states whatever
-``--kv-block-size`` says.
+``--kv-block-size`` says.  llama-3.2-vision-90b (cross-attention every
+fifth layer) serves text-only, as the reference's engine does: admission
+is the masked scan against zeroed cross caches of ``vision_tokens``
+positions, kept dense by slot (on the pool too, where the prefix cache
+is then off and admission blocking).  musicgen-large takes ``[4, n]``
+codebook grids (random, from ``--seed``) and gives ``[4, gen]`` tokens.
 
 ``--traffic-trace`` (a trace JSON, or an inline spec such as
 ``mixed:rate=4,n=32,seed=0``) replays an open-loop trace through
@@ -57,6 +62,10 @@ the replay only.
       --prefill-chunk-tokens 8 --prompt-mix 5,12,20 --batch 5 --max-slots 3
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b --reduced \
       --device cpu --kv-block-size 4 --prompt-mix 5,12,20 --batch 5 --max-slots 3
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama-3.2-vision-90b --reduced \
+      --device cpu --mode exact --prompt-mix 5,12,20 --batch 5 --max-slots 3
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch musicgen-large --reduced \
+      --device cpu --mode exact --prompt-mix 5,12,20 --batch 5 --max-slots 3
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
       --traffic-trace 'mixed:rate=8,n=8' --virtual-step 0.05
   PYTHONPATH=src python -m repro_torch.launch.serve --mode exact --max-slots 8 \
@@ -76,12 +85,13 @@ from repro_torch.configs import get_arch
 from repro_torch.core.plan import PRESET_PLANS, ExecutionPlan
 from repro_torch.core.astra_layer import MODES
 from repro_torch.kernels import _build, launch_counts, reset_launches
+from repro_torch.models.attention import KVCache
 from repro_torch.models.model import Model
 from repro_torch.models.transformer import ModelOptions
 from repro_torch.serve import (
     FAULT_KINDS, GREEDY, EngineSupervisor, FrontendConfig, SamplerConfig, ServeConfig,
     ServeEngine, ServeFaultInjector, ServeFrontend, kv_quant_reject_reason,
-    make_fused_decode, prefill_full_seq, sample_next_token,
+    make_fused_decode, packed_prefill, sample_next_token,
 )
 from repro_torch.serve.prefill import pack_prompts
 from repro_torch.traffic import (
@@ -93,18 +103,21 @@ from repro_torch.traffic import (
 def generate(model: Model, params, prompts, gen_len: int, max_len: int,
              sampler: SamplerConfig = GREEDY, gen=None):
     """Uniform-length batch decode on dense per-slot caches: one packed
-    prefill, then one fused decode of ``gen_len - 1`` steps.  ``prompts``
-    ``[B, S0]``; ``gen`` an optional ``torch.Generator`` for sampling.
-    Returns (prompt + generated tokens ``[B, S0 + gen_len]``, decode tok/s
-    of the fused decode on the host's clock, ended by a device sync)."""
+    prefill (``packed_prefill``: the full-sequence pass, or for a vision
+    model the masked scan against zeroed cross caches), then one fused
+    decode of ``gen_len - 1`` steps.  ``prompts`` ``[B, S0]`` (``[B, C,
+    S0]`` multi-codebook); ``gen`` an optional ``torch.Generator`` for
+    sampling.  Returns (prompt + generated tokens ``[B, S0 + gen_len]``
+    (``[B, C, S0 + gen_len]``), decode tok/s of the fused decode on the
+    host's clock, ended by a device sync)."""
     dev = model.device
     prompts = torch.as_tensor(np.asarray(prompts, np.int32), device=dev)
-    b, s0 = prompts.shape
+    b, s0 = prompts.shape[0], prompts.shape[-1]
     if gen_len == 0:
         return prompts, 0.0
     params = model.prepare(params)
     lengths = torch.full((b,), s0, dtype=torch.int32, device=dev)
-    last_logits, state = prefill_full_seq(model, params, prompts, lengths, max_len)
+    last_logits, state = packed_prefill(model, params, prompts, lengths, max_len)
     first = sample_next_token(last_logits, sampler, gen, model.cfg)
     pieces, tps = [prompts, first], 0.0
     if gen_len > 1:
@@ -124,10 +137,17 @@ def generate(model: Model, params, prompts, gen_len: int, max_len: int,
 
 def dense_state_summary(states, cfg) -> str:
     """One line on the engine's dense per-slot states: each distinct
-    cache shape with its layer count, and the recurrent states."""
+    cache shape with its layer count, the cross caches with their vision
+    positions, and the recurrent states (on the paged layout, what stays
+    dense beside the pools)."""
     counts: dict = {}
     for st, kind in zip(states["layers"], cfg.layer_kinds):
-        if kind == "rglru":
+        if kind in ("attn", "local") and not isinstance(st, KVCache):
+            continue  # a block pool
+        if kind == "xattn":
+            key = (f"cross K and V {tuple(st.k.shape)} {cfg.dtype} ({cfg.vision_tokens} "
+                   "vision positions)")
+        elif kind == "rglru":
             key = f"RG-LRU states h {tuple(st.h.shape)} + conv {tuple(st.conv.shape)} float32"
         elif kind == "mlstm":
             key = (f"mLSTM states c {tuple(st.c.shape)} + n {tuple(st.n.shape)} + m "
@@ -148,8 +168,10 @@ def prompt_lengths(args) -> list:
 
 
 def make_prompts(cfg, lengths, seed: int) -> list:
+    """Random prompts of ``lengths``: ``[n]`` tokens, or ``[C, n]`` grids
+    for a multi-codebook model."""
     rng = np.random.default_rng(seed)
-    return [rng.integers(0, cfg.vocab, (n,), dtype=np.int32) for n in lengths]
+    return [rng.integers(0, cfg.vocab, cfg.token_lead + (n,), dtype=np.int32) for n in lengths]
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -295,7 +317,7 @@ def load_trace(ap: argparse.ArgumentParser, spec: str, cfg) -> TrafficTrace:
         kw = parse_trace_spec(spec)
     except ValueError as e:
         ap.error(f"--traffic-trace: {spec!r} is neither a file nor a valid spec: {e}")
-    return generate_trace(vocab=cfg.vocab, **kw)
+    return generate_trace(vocab=cfg.vocab, n_codebooks=cfg.n_codebooks, **kw)
 
 
 def run_traffic(model: Model, params, trace: TrafficTrace, args,
@@ -454,6 +476,8 @@ def main(argv=None):
                 f"{kv['pool_bytes'] / 1e6:.2f} MB)")
         if not kv["prefix_cache"]:
             line += f"; prefix cache off: {kv['prefix_cache_off_reason']}"
+        if "xattn" in cfg.layer_kinds:
+            line += f"; dense beside it: {dense_state_summary(engine._states, cfg)}"
         print(line)
     ps = engine.prefix_stats
     if ps:

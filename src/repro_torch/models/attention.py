@@ -1,14 +1,19 @@
-"""Causal GQA attention over dense or paged KV: global (``attn``) and
-sliding-window (``local``) kinds.
+"""GQA attention over dense or paged KV: global causal (``attn``),
+sliding-window (``local``) and cross-attention to frontend embeddings
+(``xattn``).
 
-Port of ``repro.models.attention`` for this slice:
+Port of ``repro.models.attention``:
 
 * ``attn_seq``           — full-sequence pass (``_sdpa``, or the flash
   kernel when qk/pv are exact), optionally emitting a dense per-slot
-  cache: padded to the serving length (global) or the ``window``-sized
-  ring (local);
+  cache: padded to the serving length (global), the ``window``-sized
+  ring (local) or the cross K/V of the ``kv_src`` embeddings, unpadded
+  (``xattn``: K and V projected from ``kv_src``, no RoPE, non-causal,
+  always ``_sdpa``, as the reference keeps cross-attention off flash);
 * ``attn_decode``        — one token per slot against dense per-slot
   caches (``KVCache``) or the paged pool, a local layer's ring included;
+  an ``xattn`` layer reads its static cross cache (``cfg.vision_tokens``
+  positions, zeros when no embeddings were given) and never writes it;
 * ``attn_prefill_paged`` — packed multi-token suffixes against the pool,
   starts anywhere inside a block (the prefix-cache admission path).
 
@@ -198,40 +203,44 @@ def _sdpa(q, k, v, *, causal: bool, window: int, q_offset=0,
 
 def attn_seq(p, x: torch.Tensor, cfg: ArchConfig, *, kind: str = "attn",
              sites: Union[ComputeConfig, SiteBinding] = EXACT, use_flash: bool = False,
-             positions: Optional[torch.Tensor] = None, return_cache: bool = False,
+             positions: Optional[torch.Tensor] = None, kv_src: Optional[torch.Tensor] = None,
+             return_cache: bool = False,
              max_len: Optional[int] = None) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Full-sequence causal attention (within ``cfg.window`` for a
     ``local`` layer): the flash kernel when ``use_flash`` and qk/pv are
-    exact, else ``_sdpa``.  ``return_cache`` gives the dense per-slot
-    ``KVCache`` (see :func:`_make_cache`)."""
-    _check_kind(kind)
+    exact, else ``_sdpa``.  An ``xattn`` layer attends, non-causally and
+    through ``_sdpa`` only, to K and V projected from ``kv_src [B, T,
+    D]`` (no RoPE, no KV calibration tap).  ``return_cache`` gives the
+    dense per-slot ``KVCache`` (see :func:`_make_cache`)."""
+    cross = kind == "xattn"
+    if cross and kv_src is None:
+        raise ValueError("an xattn layer's full-sequence pass needs kv_src (the vision "
+                         "embeddings); without them serve through the masked scan")
     window = cfg.window if kind == "local" else 0
     b, s, _ = x.shape
     sites = as_binding(sites)
-    if positions is None:
-        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    src = kv_src if cross else x
     q = _split_heads(dense(p["wq"], x, sites("q_proj")), cfg.n_heads, cfg.head_dim)
-    k = _split_heads(dense(p["wk"], x, sites("kv_proj")), cfg.n_kv_heads, cfg.head_dim)
-    v = _split_heads(dense(p["wv"], x, sites("kv_proj")), cfg.n_kv_heads, cfg.head_dim)
-    q = apply_rope(q, positions, cfg.rope_pct, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_pct, cfg.rope_theta)
-    observe_kv(sites, k, v)  # calibration tap: what the pool would store
+    k = _split_heads(dense(p["wk"], src, sites("kv_proj")), cfg.n_kv_heads, cfg.head_dim)
+    v = _split_heads(dense(p["wv"], src, sites("kv_proj")), cfg.n_kv_heads, cfg.head_dim)
+    if not cross:
+        if positions is None:
+            positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        q = apply_rope(q, positions, cfg.rope_pct, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_pct, cfg.rope_theta)
+        observe_kv(sites, k, v)  # calibration tap: what the pool would store
     qk_b, pv_b = sites("qk"), sites("pv")
-    if use_flash and _dyn_exact(qk_b) and _dyn_exact(pv_b):
+    if use_flash and not cross and _dyn_exact(qk_b) and _dyn_exact(pv_b):
         from repro_torch.kernels.flash_attention import flash_attention
 
         o = flash_attention(q, k, v, causal=True, window=window, softcap=cfg.logit_softcap)
     else:
-        o = _sdpa(q, k, v, causal=True, window=window, softcap=cfg.logit_softcap,
+        o = _sdpa(q, k, v, causal=not cross, window=window, softcap=cfg.logit_softcap,
                   qk=qk_b, pv=pv_b)
     out = dense(p["wo"], _merge_heads(o), sites("o_proj"))
-    return out, (_make_cache(k, v, s, max_len, window) if return_cache else None)
-
-
-def _check_kind(kind: str) -> None:
-    if kind not in ("attn", "local"):
-        raise NotImplementedError(f"{kind!r} blocks are not ported yet "
-                                  "(ROADMAP queue 1: other block kinds)")
+    if not return_cache:
+        return out, None
+    return out, (KVCache(k, v) if cross else _make_cache(k, v, s, max_len, window))
 
 
 def _make_cache(k: torch.Tensor, v: torch.Tensor, s: int, max_len: Optional[int],
@@ -240,7 +249,8 @@ def _make_cache(k: torch.Tensor, v: torch.Tensor, s: int, max_len: Optional[int]
     == 0``): zero-padded to ``max(max_len, s + 1)`` (decode writes at
     ``pos``).  Local: the ring of ``window`` positions where absolute
     position ``t`` lives at ``t % window`` — the last ``window`` positions
-    rolled by ``s % window`` when ``s >= window``, else zero-padded."""
+    rolled by ``s % window`` when ``s >= window``, else zero-padded.  (A
+    cross cache is its K/V as they are: ``attn_seq`` returns it unpadded.)"""
     if window:
         if s >= window:
             shift = s % window
@@ -258,9 +268,12 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None,
     """Zeroed dense decode cache, ``[batch, n_kv, max_len, hd]`` in the
     model dtype (what a full-sequence prefill emits, so the two agree bit
     for bit); a ``local`` layer's ring holds ``min(max_len, window)``
-    positions."""
+    positions, an ``xattn`` layer's cross cache ``cfg.vision_tokens``
+    whatever ``max_len`` is."""
     if kind == "local" and cfg.window:
         max_len = min(max_len, cfg.window)
+    if kind == "xattn":
+        max_len = cfg.vision_tokens
     shape = (batch, cfg.n_kv_heads, max_len, cfg.head_dim)
     dt = torch_dtype(cfg.dtype)
     return KVCache(torch.zeros(shape, dtype=dt, device=device),
@@ -364,13 +377,20 @@ def attn_decode(p, x: torch.Tensor, cache, pos: torch.Tensor, cfg: ArchConfig, *
     through the table, written at ``pos % ring_len``, ``kv_len = min(pos +
     1, ring_len)``).  ``write [B]`` bool, on dense caches:
     only those rows keep their token's entry; the others attend with it
-    and then get their old entry back (None = all keep it).  Returns
-    (out [B, 1, D], cache)."""
-    _check_kind(kind)
+    and then get their old entry back (None = all keep it).  An ``xattn``
+    layer attends to its static cross cache ``[B, n_kv, vision_tokens,
+    hd]`` (a ``KVCache`` on either layout), every position visible, no
+    RoPE, through ``_sdpa``, and leaves it as it was.  Returns (out [B, 1,
+    D], cache)."""
+    sites = as_binding(sites)
+    if kind == "xattn":
+        q = _split_heads(dense(p["wq"], x, sites("q_proj")), cfg.n_heads, cfg.head_dim)
+        o = _sdpa(q, cache.k, cache.v, causal=False, window=0, softcap=cfg.logit_softcap,
+                  qk=sites("qk"), pv=sites("pv"))
+        return dense(p["wo"], _merge_heads(o), sites("o_proj")), cache
     dense_cache = isinstance(cache, KVCache)
     assert dense_cache or tables is not None, "paged decode needs a BlockTables"
     b = x.shape[0]
-    sites = as_binding(sites)
     pos = torch.as_tensor(pos, device=x.device).to(torch.int64)
     if pos.dim() == 0:
         pos = pos.expand(b)

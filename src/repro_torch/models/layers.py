@@ -115,30 +115,48 @@ def mlp_apply(p, x: torch.Tensor, cfg: ArchConfig,
 
 # ----------------------------------------------------------------- embeddings
 def embedding_init(gen: torch.Generator, cfg: ArchConfig, device=None):
-    if cfg.n_codebooks:
-        raise NotImplementedError("multi-codebook embeddings are not ported yet "
-                                  "(ROADMAP queue 1: other block kinds)")
-    return {"table": torch.randn(cfg.vocab, cfg.d_model, generator=gen, device=device) * 0.02}
+    """``table [V, D]``, or ``[C, V, D]`` for a multi-codebook model (one
+    table per codebook)."""
+    shape = cfg.token_lead + (cfg.vocab, cfg.d_model)
+    return {"table": torch.randn(*shape, generator=gen, device=device) * 0.02}
 
 
 def embed_tokens(p, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """tokens [B, S] -> [B, S, D] in the model dtype."""
-    return p["table"][tokens.long()].to(torch_dtype(cfg.dtype))
+    """tokens [B, S] (or [B, C, S] multi-codebook) -> [B, S, D] in the
+    model dtype.  Codebook rows are summed in float32 in codebook order
+    (``sum`` starts at ``0 + row_0``, as the reference's does), then cast."""
+    tokens = tokens.long()
+    if cfg.n_codebooks:
+        x = sum(p["table"][c][tokens[:, c]] for c in range(cfg.n_codebooks))
+        return x.to(torch_dtype(cfg.dtype))
+    return p["table"][tokens].to(torch_dtype(cfg.dtype))
 
 
 def head_init(gen: torch.Generator, cfg: ArchConfig, device=None):
+    """``w [D, V]``, or ``[C, D, V]`` (one head per codebook); {} when tied."""
     if cfg.tie_embeddings:
         return {}
-    w = torch.randn(cfg.d_model, cfg.vocab, generator=gen, device=device) / math.sqrt(cfg.d_model)
+    shape = cfg.token_lead + (cfg.d_model, cfg.vocab)
+    w = torch.randn(*shape, generator=gen, device=device) / math.sqrt(cfg.d_model)
     return {"w": w}
 
 
 def head_apply(p, emb_p, x: torch.Tensor, cfg: ArchConfig, cc: SiteOrCC = EXACT) -> torch.Tensor:
-    """x [B, S, D] -> float32 logits [B, S, V]; tied heads use the
+    """x [B, S, D] -> float32 logits [B, S, V], or [B, S, C, V] for a
+    multi-codebook model (its C heads all run under the ``lm_head`` site;
+    ``prepare`` caches one entry per head in lists).  Tied heads use the
     embedding table transposed (its cached codes live beside it)."""
     if cfg.tie_embeddings:
         return astra_matmul(x, emb_p["table"].t(), cc, wq_t=emb_p.get("head_wq_t"),
                             wsc_t=emb_p.get("head_wsc_t"),
                             wc=emb_p.get("head_wc")).to(torch.float32)
+    if cfg.n_codebooks:
+        def nth(key, c):
+            caches = p.get(key)
+            return None if caches is None else caches[c]
+
+        return torch.stack([astra_matmul(x, p["w"][c], cc, wq_t=nth("wq_t", c),
+                                         wsc_t=nth("wsc_t", c), wc=nth("wc", c))
+                            for c in range(cfg.n_codebooks)], dim=2).to(torch.float32)
     return astra_matmul(x, p["w"], cc, wq_t=p.get("wq_t"), wsc_t=p.get("wsc_t"),
                         wc=p.get("wc")).to(torch.float32)

@@ -35,9 +35,9 @@ class Model:
             self, opts=dataclasses.replace(self.opts, plan=ExecutionPlan.from_spec(plan)))
 
     def calibrate(self, params, batch) -> "Model":
-        """PTQ calibration: one exact forward over ``batch`` with per-site
-        observers; returns the model with static activation and KV scales
-        baked into its plan."""
+        """PTQ calibration: one exact forward over ``batch`` (``{"tokens"[,
+        "vision_embeds"]}``) with per-site observers; returns the model with
+        static activation and KV scales baked into its plan."""
         return self.with_plan(self.plan.calibrate(self, params, batch))
 
     # ------------------------------------------------------------- params
@@ -50,12 +50,15 @@ class Model:
 
     # ------------------------------------------------------------- serve
     def prefill(self, params, batch, max_len: Optional[int] = None):
-        """Full-sequence pass; returns (logits, per-layer serving states:
-        dense KV caches padded to ``max_len``, local rings, recurrent
-        states)."""
-        tokens = batch["tokens"] if isinstance(batch, dict) else batch
+        """Full-sequence pass over ``batch`` (``{"tokens"[,
+        "vision_embeds"]}`` or the tokens); returns (logits, per-layer
+        serving states: dense KV caches padded to ``max_len``, local rings,
+        the cross caches of the vision embeddings, recurrent states)."""
+        tokens, vis = batch, None
+        if isinstance(batch, dict):
+            tokens, vis = batch["tokens"], batch.get("vision_embeds")
         return forward(params, tokens, self.cfg, self.opts, return_states=True,
-                       max_len=max_len)
+                       max_len=max_len, vision_embeds=vis)
 
     def decode(self, params, token, states, pos, block_tables=None, write=None):
         """One step; ``write [B]`` gates each slot's dense cache write."""

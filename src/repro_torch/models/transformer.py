@@ -1,7 +1,10 @@
-"""The decoder stack, unrolled: global (``attn``) and sliding-window
-(``local``) attention blocks, RG-LRU (``rglru``) recurrent blocks and the
-xLSTM blocks (``mlstm``, ``slstm``), each attention or RG-LRU block
-followed by a dense MLP or a mixture of experts (``cfg.moe``).
+"""The decoder stack, unrolled: global (``attn``), sliding-window
+(``local``) and cross-attention (``xattn``) blocks, RG-LRU (``rglru``)
+recurrent blocks and the xLSTM blocks (``mlstm``, ``slstm``), each
+attention or RG-LRU block followed by a dense MLP or a mixture of experts
+(``cfg.moe``).  A multi-codebook model (``cfg.n_codebooks = C``) takes
+``[B, C, S]`` token grids, sums its C embeddings and gives ``[B, S, C,
+V]`` logits from C heads.
 
 Port of ``repro.models.transformer``.  The reference stacks each pattern
 slot's parameters under a unit axis and runs ``lax.scan`` over units; the
@@ -12,7 +15,9 @@ thing in both packages.
 
 Parameters: ``{"embedding": {"table"}, "head": {"w"} | {}, "final_norm",
 "layers": [{"pre_norm", "core", "post_norm", "mlp"}, ...]}``, float32
-masters; an attention core is ``{"wq","wk","wv","wo"}``, an RG-LRU core
+masters (``table [V, D]`` or ``[C, V, D]``, ``w [D, V]`` or ``[C, D,
+V]``); an attention core (cross-attention's too) is
+``{"wq","wk","wv","wo"}``, an RG-LRU core
 ``{"w_in","conv_w","conv_b","w_a","w_x","lam","w_out"}``, the xLSTM cores
 those of ``models.xlstm``; a dense MLP is ``{"up","gate","down"}``, a
 MoE ``{"router","w_up","w_gate","w_down"}`` (``models.moe``); an xLSTM
@@ -22,7 +27,8 @@ per layer — a dense per-slot ``KVCache`` in the model dtype (a
 state (``RGLRUState``, ``MLSTMState``, ``SLSTMState``, float32) — or, on
 the paged layout, one ``PagedKVCache | QuantPagedKVCache`` block pool
 per ``attn``/``local`` layer (int8 under ``kv_quant="int8"``) beside the
-recurrent states, still by slot.
+recurrent states and the ``xattn`` layers' cross caches (``KVCache [B,
+n_kv, vision_tokens, hd]``), still by slot.
 """
 from __future__ import annotations
 
@@ -88,12 +94,12 @@ def _has_mlp(cfg: ArchConfig, kind: str) -> bool:
     return kind in ("attn", "local", "xattn", "rglru") and (cfg.d_ff > 0 or cfg.moe is not None)
 
 
-PORTED_KINDS = ("attn", "local", "rglru", "mlstm", "slstm")
+PORTED_KINDS = ("attn", "local", "xattn", "rglru", "mlstm", "slstm")
 ATTN_KINDS = ("attn", "local", "xattn")  # the kinds that run attention kernels
 
 
 def _check_supported(cfg: ArchConfig) -> None:
-    if any(k not in PORTED_KINDS for k in cfg.layer_kinds) or cfg.n_codebooks:
+    if any(k not in PORTED_KINDS for k in cfg.layer_kinds):
         raise NotImplementedError(
             f"{cfg.name}: only stacks of {'/'.join(PORTED_KINDS)} blocks are ported "
             "yet (ROADMAP queue 1: other block kinds)")
@@ -212,18 +218,22 @@ def prepare_params(params: Dict[str, Any], cfg: ArchConfig,
                           for name, d in blk["mlp"].items()}
         layers.append(new)
     out = {**params, "layers": layers}
+    head = params["head"]
     if cfg.tie_embeddings:
         extra = cached(params["embedding"], ("lm_head",), w_key="table")
         out["embedding"] = {**params["embedding"],
                             **{f"head_{k}": v for k, v in extra.items()}}
+    elif cfg.n_codebooks:  # one entry per codebook head, in lists
+        per = [cached({"w": w_c}, ("lm_head",)) for w_c in head["w"]]
+        out["head"] = {**head, **{k: [e[k] for e in per] for k in per[0]}}
     else:
-        out["head"] = {**params["head"], **cached(params["head"], ("lm_head",))}
+        out["head"] = {**head, **cached(head, ("lm_head",))}
     return out
 
 
 # the GEMM weights of a block's core, with the site each resolves under
 _ATTN_GEMMS = (("wq", "q_proj"), ("wk", "kv_proj"), ("wv", "kv_proj"), ("wo", "o_proj"))
-_CORE_GEMMS = {"attn": _ATTN_GEMMS, "local": _ATTN_GEMMS,
+_CORE_GEMMS = {"attn": _ATTN_GEMMS, "local": _ATTN_GEMMS, "xattn": _ATTN_GEMMS,
                "rglru": (("w_in", "in_proj"), ("w_a", "gates"), ("w_x", "gates"),
                          ("w_out", "out_proj")),
                "mlstm": (("w_up", "up_proj"), ("w_q", "qkv"), ("w_k", "qkv"), ("w_v", "qkv"),
@@ -256,10 +266,14 @@ def _head(params, x, cfg, opts):
 
 
 def forward(params, tokens: torch.Tensor, cfg: ArchConfig, opts: ModelOptions,
-            return_states: bool = False, max_len: Optional[int] = None):
-    """Full-sequence pass.  Returns (logits [B, S, V], per-layer serving
-    states | None: dense ``KVCache``s and recurrent states).  A MoE layer
-    runs at ``opts.capacity_factor``."""
+            return_states: bool = False, max_len: Optional[int] = None,
+            vision_embeds: Optional[torch.Tensor] = None):
+    """Full-sequence pass over ``tokens [B, S]`` (``[B, C, S]``
+    multi-codebook).  Returns (logits [B, S, V] (``[B, S, C, V]``),
+    per-layer serving states | None: dense ``KVCache``s, the ``xattn``
+    layers' cross caches of ``vision_embeds [B, T, D]``'s K/V, and
+    recurrent states).  A stack with ``xattn`` layers needs
+    ``vision_embeds``.  A MoE layer runs at ``opts.capacity_factor``."""
     _check_supported(cfg)
     x = embed_tokens(params["embedding"], tokens, cfg)
     states: List[Any] = []
@@ -270,7 +284,8 @@ def forward(params, tokens: torch.Tensor, cfg: ArchConfig, opts: ModelOptions,
         else:
             out, st = attn.attn_seq(p["core"], h, cfg, kind=kind, sites=sites,
                                     use_flash=(opts.attn_impl == "flash"),
-                                    return_cache=return_states, max_len=max_len)
+                                    kv_src=vision_embeds, return_cache=return_states,
+                                    max_len=max_len)
         x = _mlp(p, x + out, cfg, sites, opts.capacity_factor)
         states.append(st)
     return _head(params, x, cfg, opts), (states if return_states else None)
@@ -279,13 +294,16 @@ def forward(params, tokens: torch.Tensor, cfg: ArchConfig, opts: ModelOptions,
 def decode_step(params, token: torch.Tensor, states, pos: torch.Tensor, cfg: ArchConfig,
                 opts: ModelOptions, block_tables: Optional[attn.BlockTables] = None,
                 write: Optional[torch.Tensor] = None):
-    """One serving step: token [B, 1] at per-slot positions ``pos [B]`` (or
-    one position for all) against the dense states or, with
+    """One serving step: token [B, 1] (``[B, C, 1]`` multi-codebook) at
+    per-slot positions ``pos [B]`` (or one position for all) against the
+    dense states or, with
     ``block_tables``, the paged pools.  ``write [B]`` bool: the slots
     whose in-place dense cache writes are kept (None = all); the others
     attend with their new entry, which is then put back as it was.
     Recurrent states are returned new, never written in place.  A MoE
-    layer runs drop-free.  Returns (logits [B, 1, V], states)."""
+    layer runs drop-free.  An ``xattn`` layer reads its cross cache and
+    never writes it.  Returns (logits [B, 1, V] (``[B, 1, C, V]``),
+    states)."""
     glob = next((st for st, kind in zip(states["layers"], cfg.layer_kinds)
                  if kind == "attn" and isinstance(st, attn.KVCache)), None)
     if glob is not None:
@@ -318,10 +336,12 @@ def decode_step(params, token: torch.Tensor, states, pos: torch.Tensor, cfg: Arc
 def suffix_forward(params, tokens: torch.Tensor, cfg: ArchConfig, opts: ModelOptions,
                    states, table: torch.Tensor, start: torch.Tensor, ctx_blocks: int):
     """Prefix-aware packed prefill: the unmatched suffixes (``tokens
-    [B, S_suf]``, right-padded) in one pass against prefix KV resident in
+    [B, S_suf]`` or ``[B, C, S_suf]``, right-padded) in one pass against
+    prefix KV resident in
     the pool, writing the suffix KV into each slot's blocks; a cold
     request is ``start == 0``.  A MoE layer runs at
-    ``opts.capacity_factor``.  Returns (logits [B, S_suf, V], states)."""
+    ``opts.capacity_factor``.  Returns (logits [B, S_suf, V] or [B, S_suf,
+    C, V], states)."""
     if any(k != "attn" for k in cfg.layer_kinds):
         raise ValueError(
             f"suffix_forward needs a pure global-attention stack, got "
@@ -361,7 +381,8 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
                       kv_quant: str = "none", plan: Optional[ExecutionPlan] = None):
     """Zeroed serving state.  Without ``paged``: per layer, one dense
     ``[batch, n_kv, max_len, hd]`` cache in the model dtype (a local
-    layer's ring clamped to ``min(max_len, window)``) or a float32
+    layer's ring clamped to ``min(max_len, window)``, an ``xattn`` layer's
+    cross cache ``[batch, n_kv, vision_tokens, hd]``, zeros) or a float32
     recurrent state: ``RGLRUState`` (``h [batch, d_rnn]``, ``conv [batch,
     conv_width - 1, d_rnn]``), ``MLSTMState`` (``c [batch, H, dh, dh]``,
     ``n [batch, H, dh]``, ``m [batch, H]`` at -1e30) or ``SLSTMState``
@@ -369,7 +390,7 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
     (n_blocks, block_size)`` gives each ``attn`` and ``local`` layer one
     block pool instead (no batch axis: block tables carry slot identity; a
     local layer's ring lives in it) while a recurrent layer keeps its
-    slot-indexed state;
+    slot-indexed state and an ``xattn`` layer its dense cross cache;
     ``kv_quant="int8"`` makes each pool int8 with the per-head scales
     ``plan.kv_group_scale`` gives over the layer's group (the reference's
     one pool per scanned group).  Dense caches stay in the model dtype:

@@ -5,7 +5,8 @@ one ``lax.scan``; here ``make_fused_decode`` is a Python loop that keeps
 every token and the per-slot finite flag on the device until the chunk
 ends (one host sync per chunk), and ``unfused_decode`` — its oracle —
 brings each step's tokens to the host as it goes.  Both return
-``(toks [B, steps], finite [B], (next_tok, states, pos, gen))``.
+``(toks [B, steps], finite [B], (next_tok, states, pos, gen))``, tokens
+``[B, C, steps]`` for a multi-codebook model.
 Positions advance for every slot, free ones included, as in the
 reference: their writes land in the scratch block.
 
@@ -61,7 +62,7 @@ def make_fused_decode(model):
             finite &= fin
             out.append(tok)
             pos = pos + 1
-        toks = torch.cat(out, dim=-1) if out else tok.new_zeros((tok.shape[0], 0))
+        toks = torch.cat(out, dim=-1) if out else tok.new_zeros(tok.shape[:-1] + (0,))
         return toks, finite, (tok, states, pos, gen)
 
     return fused
@@ -80,5 +81,5 @@ def unfused_decode(model, params, tok, states, pos, gen, steps: int,
         out.append(tok.cpu())
         pos = pos + 1
     toks = (torch.cat(out, dim=-1) if out
-            else torch.zeros((tok.shape[0], 0), dtype=torch.int32))
+            else torch.zeros(tok.shape[:-1] + (0,), dtype=torch.int32))
     return toks.to(tok.device), finite, (tok, states, pos, gen)

@@ -5,8 +5,9 @@ decode, retirement with each request's modeled ASTRA cost, the
 exactly-once outbox and the degraded-mode ladder, on two KV layouts.
 ``kv_block_size=0`` (the default, as in the reference) keeps one dense
 per-slot state per layer — a ``[max_slots, n_kv, max_len, hd]`` cache
-(global attention), a ``window``-sized ring (local attention) or a
-recurrent state (RG-LRU, mLSTM, sLSTM) — so it serves every ported block
+(global attention), a ``window``-sized ring (local attention), a
+cross cache of ``vision_tokens`` positions (``xattn``) or a recurrent
+state (RG-LRU, mLSTM, sLSTM) — so it serves every ported block
 kind: blocking admission
 runs one packed prefill of the admitted prompts (the full-sequence pass
 where it is exact, else the masked token-by-token scan;
@@ -22,7 +23,13 @@ caches and rings block-scatter into the pools
 blocking admission, as the reference does.  A stack with no ``attn`` or
 ``local`` layer (xLSTM) has no KV to pool: it serves on its dense
 per-slot states whatever ``kv_block_size`` says, as the reference's
-does, and ``kv_stats`` is empty.  Requests flow
+does, and ``kv_stats`` is empty.  A vision model (``xattn`` layers) is
+served text-only, as the reference's engine serves it: the engine takes
+no vision input, so admission is the masked scan against zeroed cross
+caches (kept dense by slot beside the pools on the paged layout, where
+the stack counts as stateful).  A multi-codebook model (musicgen) takes
+``[C, S]`` prompts and gives ``[C, G]`` tokens; EOS is never looked for
+over codebook grids, as in the reference.  Requests flow
 
   queue -> [admit: claim a free slot; paged: reserve blocks (reusing
             interned prefix blocks)]
@@ -111,7 +118,7 @@ from repro_torch.serve.prefill import (
     pack_prompts, packed_prefill, prefill_paged_suffix, prefill_window,
 )
 from repro_torch.serve.prefix_tree import RadixPrefixTree
-from repro_torch.serve.sampling import GREEDY, SamplerConfig, sample_next_token
+from repro_torch.serve.sampling import GREEDY, SamplerConfig, empty_tokens, sample_next_token
 from repro_torch.serve.scheduler import (
     DegradedLadder, SchedulerConfig, TokenBudgetScheduler, pow2_bucket,
 )
@@ -142,7 +149,7 @@ class ServeConfig:
 @dataclasses.dataclass
 class Request:
     id: int
-    prompt: np.ndarray  # [S] int32
+    prompt: np.ndarray  # [S] or [C, S] multi-codebook, int32
     max_new_tokens: int
     eos_id: Optional[int] = None
     t_submit: float = 0.0
@@ -156,7 +163,7 @@ class Request:
 class RequestOutput:
     request_id: int
     prompt: np.ndarray
-    tokens: np.ndarray  # generated tokens [G]
+    tokens: np.ndarray  # generated tokens [G] (or [C, G])
     wall_time_s: float
     # the request's modeled cost on the ASTRA photonic chip (None without
     # astra_accounting); not a measurement of the serving device
@@ -308,7 +315,7 @@ class ServeEngine:
         self._next_id = 0
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(config.seed)
-        self._cur_tok = torch.zeros((config.max_slots, 1), dtype=torch.int32,
+        self._cur_tok = torch.zeros((config.max_slots,) + cfg.token_lead + (1,), dtype=torch.int32,
                                     device=self.device)
         # host-clock seconds and tokens of admission prefills (each chunk
         # dispatch under chunked prefill) and decode chunks; a phase that
@@ -322,7 +329,8 @@ class ServeEngine:
         self._n_shed = 0  # queue heads shed by the degraded ladder
         self._fault_ended: Tuple[int, ...] = ()  # slots the last raised fault ended
         # the suffix prefill (prefix reuse, paged chunking) rebuilds every
-        # layer's state from pooled blocks: pure global attention only
+        # layer's state from pooled blocks: pure global attention only (a
+        # cross cache is no pooled KV, so an xattn stack is stateful here)
         self._suffix_path = all(k == "attn" for k in cfg.layer_kinds)
         self._paged = (config.kv_block_size > 0
                        and any(k in ("attn", "local") for k in cfg.layer_kinds))
@@ -390,9 +398,14 @@ class ServeEngine:
 
     # ------------------------------------------------------------- intake
     def check_request(self, prompt, max_new_tokens: int) -> np.ndarray:
+        """The int32 prompt, ``[S]`` or, for a multi-codebook model, ``[C,
+        S]``; raises on any other shape, an empty prompt, a negative
+        budget or a request past ``max_len``."""
         prompt = np.asarray(prompt, np.int32)
-        if prompt.ndim != 1:
-            raise ValueError(f"prompt must be 1-D tokens, got shape {prompt.shape}")
+        c = self.model.cfg.n_codebooks
+        if (prompt.ndim != (2 if c else 1)) or (c and prompt.shape[0] != c):
+            want = f"[{c}, S] codebook grids" if c else "1-D tokens"
+            raise ValueError(f"prompt must be {want}, got shape {prompt.shape}")
         if prompt.shape[-1] == 0:
             raise ValueError("empty prompt: a request needs at least one "
                              "prompt token (its logits seed sampling)")
@@ -612,7 +625,7 @@ class ServeEngine:
             return [], [], None, []
         rows = torch.as_tensor(self._tables_np[adm_slots], device=self.device)
         if self._suffix_path:
-            suffixes = [r.prompt[s:] for r, s in zip(adm_reqs, starts)]
+            suffixes = [r.prompt[..., s:] for r, s in zip(adm_reqs, starts)]
             tokens, lengths = pack_prompts(suffixes, self.model.cfg, device=self.device)
             ctx = self._ctx_bucket(max(s + int(tokens.shape[-1]) for s in starts))
             last_logits, self._states = prefill_paged_suffix(
@@ -633,7 +646,7 @@ class ServeEngine:
         bs = self._block_size
         nb_full = req.prompt_len // bs
         if nb_full > start // bs:
-            self._prefix.insert(req.prompt[: nb_full * bs],
+            self._prefix.insert(req.prompt[..., : nb_full * bs],
                                 self._slot_blocks[slot_i][:nb_full], self._pool)
 
     def _ctx_bucket(self, max_pos: int) -> int:
@@ -709,15 +722,16 @@ class ServeEngine:
 
     def _chunk_tokens(self, plan: List[Tuple[int, int]], width: int,
                       rows: Optional[List[int]] = None) -> np.ndarray:
-        """Each planned slot's next prompt slice in a ``[n, width]`` grid;
-        ``rows`` maps plan entries to grid rows of a ``[max_slots, width]``
-        grid (default: row j of ``[len(plan), width]``)."""
+        """Each planned slot's next prompt slice in a ``[n, width]`` (``[n,
+        C, width]``) grid; ``rows`` maps plan entries to grid rows of a
+        ``[max_slots, ...]`` grid (default: row j of ``[len(plan), ...]``)."""
+        cfg = self.model.cfg
         n = len(plan) if rows is None else self.config.max_slots
-        toks = np.zeros((n, width), np.int32)
+        toks = np.zeros((n,) + cfg.token_lead + (width,), np.int32)
         for j, (i, take) in enumerate(plan):
             slot = self._slots[i]
-            toks[j if rows is None else rows[j], :take] = \
-                slot.req.prompt[slot.filled:slot.filled + take]
+            toks[j if rows is None else rows[j], ..., :take] = \
+                slot.req.prompt[..., slot.filled:slot.filled + take]
         return toks
 
     def _prefill_chunk_paged(self, plan: List[Tuple[int, int]]) -> torch.Tensor:
@@ -998,7 +1012,7 @@ class ServeEngine:
             tables=self._block_tables() if self._paged else None, active=mask, poison=poison)
         self._states = states
         self._cur_tok = next_tok
-        toks_np = toks.cpu().numpy()  # [B, steps]
+        toks_np = toks.cpu().numpy()  # [B, steps] or [B, C, steps]
         finite_np = finite.cpu().numpy()  # [B], ANDed over the chunk
         bad = [i for i in active if not finite_np[i]]
         t_now = self.clock()
@@ -1028,10 +1042,12 @@ class ServeEngine:
 
     # ------------------------------------------------------------ retire
     def _hit_eos(self, req: Request, toks: np.ndarray) -> bool:
-        return req.eos_id is not None and bool(np.any(toks == req.eos_id))
+        if req.eos_id is None or toks.ndim > 1:  # no EOS over codebook grids
+            return False
+        return bool(np.any(toks == req.eos_id))
 
     def _trim_eos(self, req: Request, toks: np.ndarray) -> np.ndarray:
-        if req.eos_id is None:
+        if req.eos_id is None or toks.ndim > 1:
             return toks
         hits = np.nonzero(toks == req.eos_id)[0]
         return toks[: hits[0] + 1] if hits.size else toks
@@ -1058,7 +1074,9 @@ class ServeEngine:
     def _complete(self, req: Request, gen, t_admit: float, t_first: float,
                   events: List[Tuple[float, int]], cached: int = 0,
                   fault_reason: Optional[str] = None):
-        gen = np.asarray(gen, np.int32).reshape(-1)
+        gen = np.asarray(gen, np.int32)
+        if gen.size == 0:
+            gen = empty_tokens(req.prompt)
         hw = None
         if self.config.astra_accounting:
             hw = request_hardware_report(self.model.cfg, self.chip, req.prompt_len,

@@ -41,6 +41,7 @@ import numpy as np
 from repro_torch.serve.accounting import RequestTiming
 from repro_torch.serve.engine import RequestOutput, ServeEngine
 from repro_torch.serve.faults import CANCEL_CLASS, CANCELLED, DEADLINE_EXCEEDED, RETRYABLE_FAULTS
+from repro_torch.serve.sampling import empty_tokens
 
 REJECT_QUEUE_FULL = "queue_full"
 REJECT_QUEUE_TIMEOUT = "queue_timeout"
@@ -407,8 +408,7 @@ class ServeFrontend:
         wait = max(now - p.t_enqueue, 0.0)
         timing = RequestTiming(queue_time_s=wait, ttft_s=0.0, wall_time_s=wait,
                                mean_itl_s=0.0, max_itl_s=0.0, n_token_events=0)
-        shape = (p.prompt.shape[0], 0) if p.prompt.ndim == 2 else (0,)
-        out = RequestOutput(p.rid, p.prompt, np.zeros(shape, np.int32),
+        out = RequestOutput(p.rid, p.prompt, empty_tokens(p.prompt),
                             wall_time_s=wait, hardware=None, timing=timing,
                             fault_reason=reason)
         self._finish(out)
@@ -492,8 +492,7 @@ class ServeFrontend:
         wait = max(now - t_submit, 0.0)
         timing = RequestTiming(queue_time_s=wait, ttft_s=0.0, wall_time_s=wait,
                                mean_itl_s=0.0, max_itl_s=0.0, n_token_events=0)
-        shape = (prompt.shape[0], 0) if prompt.ndim == 2 else (0,)
-        out = RequestOutput(rid, prompt, np.zeros(shape, np.int32),
+        out = RequestOutput(rid, prompt, empty_tokens(prompt),
                             wall_time_s=wait, hardware=None, timing=timing,
                             reject_reason=reason)
         self._n_rejected[reason] += 1

@@ -9,7 +9,7 @@ as is.  Two dense strategies, chosen per architecture by
 :func:`packed_prefill`:
 
 * **full-seq** — one parallel pass over the packed grid.  Exact for pure
-  global-attention stacks at any length mix: padded positions write
+  global and cross-attention stacks at any length mix: padded positions write
   garbage KV into the writer's own future positions (or the scratch
   block), and decode overwrites position ``pos`` before its ``kv_len =
   pos + 1`` mask reaches it.  Exact for any stack when every prompt has
@@ -21,6 +21,15 @@ as is.  Two dense strategies, chosen per architecture by
   of its ring).  The dense caches are written in place, so the gate goes
   into decode itself (``write``): a gated row attends with its new entry,
   as in the reference, and its old entry is put back afterwards.
+
+A stack with ``xattn`` layers takes the full-sequence pass only with
+vision embeddings (``packed_prefill(..., vision_embeds=...)``), which
+build its cross caches.  Without them it takes the masked scan, which
+decodes against the zeroed cross caches of ``init_decode_state``: the
+serving engine never passes embeddings, so it serves such a model
+text-only, as the reference's does.  Multi-codebook prompts are ``[C,
+S_i]`` grids, packed to ``[B, C, S_max]``, with ``[B, 1, C, V]`` last
+logits.
 
 The chunked-prefill scheduler adds :func:`prefill_window`, the masked
 scan windowed over the engine's own state with a start per slot; the
@@ -35,7 +44,7 @@ tokens out of an expert's capacity, and serving never drops a token.
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,7 +58,8 @@ FULL_SEQ_KINDS = ("attn", "xattn")
 
 def pack_prompts(prompts: Sequence[np.ndarray], cfg: ArchConfig, pad_id: int = 0,
                  device=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Right-pad ``[S_i]`` prompts -> (tokens ``[B, S_max]``, lengths ``[B]``)."""
+    """Right-pad ``[S_i]`` (or ``[C, S_i]`` multi-codebook) prompts ->
+    (tokens ``[B, S_max]`` / ``[B, C, S_max]``, lengths ``[B]``)."""
     if not prompts:
         raise ValueError("pack_prompts needs at least one prompt")
     lens = [int(np.asarray(p).shape[-1]) for p in prompts]
@@ -57,17 +67,18 @@ def pack_prompts(prompts: Sequence[np.ndarray], cfg: ArchConfig, pad_id: int = 0
         raise ValueError(f"empty prompt at index {lens.index(0)}: prompts "
                          "must contain at least one token")
     s_max = max(lens)
-    rows = np.full((len(prompts), s_max), pad_id, np.int32)
+    lead = np.asarray(prompts[0]).shape[:-1]
+    rows = np.full((len(prompts),) + lead + (s_max,), pad_id, np.int32)
     for i, p in enumerate(prompts):
-        rows[i, : lens[i]] = np.asarray(p, np.int32)
+        rows[i, ..., : lens[i]] = np.asarray(p, np.int32)
     return (torch.as_tensor(rows, device=device),
             torch.as_tensor(np.asarray(lens, np.int32), device=device))
 
 
 def _last_logits(logits: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-    """logits [B, S, V] -> each row's logits at ``lengths - 1``: [B, 1, V]."""
-    idx = (lengths.to(logits.device).long() - 1)[:, None, None]
-    return torch.gather(logits, 1, idx.expand(-1, 1, logits.shape[-1]))
+    """logits [B, S, ...] -> each row's logits at ``lengths - 1``: [B, 1, ...]."""
+    idx = (lengths.to(logits.device).long() - 1).reshape((-1,) + (1,) * (logits.dim() - 1))
+    return torch.gather(logits, 1, idx.expand((-1, 1) + logits.shape[2:]))
 
 
 def full_seq_packable(cfg: ArchConfig, lengths: Sequence[int]) -> bool:
@@ -88,12 +99,16 @@ def _drop_free(model):
 
 
 def prefill_full_seq(model, params, tokens: torch.Tensor, lengths: torch.Tensor,
-                     max_len: int):
-    """One parallel prefill over the packed grid.  Returns (last_logits
-    [B, 1, V], per-layer serving states: dense caches padded to
-    ``max_len``, rings, recurrent states)."""
+                     max_len: int, vision_embeds: Optional[torch.Tensor] = None):
+    """One parallel prefill over the packed grid (and ``vision_embeds [B,
+    T, D]`` for the cross-attention layers).  Returns (last_logits [B, 1,
+    V], per-layer serving states: dense caches padded to ``max_len``,
+    rings, cross caches, recurrent states)."""
     model = _drop_free(model)
-    logits, states = model.prefill(params, {"tokens": tokens}, max_len=max_len)
+    batch = {"tokens": tokens}
+    if vision_embeds is not None:
+        batch["vision_embeds"] = vision_embeds
+    logits, states = model.prefill(params, batch, max_len=max_len)
     return _last_logits(logits, lengths), {"layers": states}
 
 
@@ -121,33 +136,45 @@ def prefill_window(model, params, tokens: torch.Tensor, starts: torch.Tensor,
     reference.  A gated row past the dense cache writes at its last
     position and gets it back (``attention.attn_decode``).  ``tokens [B,
     L]`` is right-padded per row.  Returns (logits at each row's ``t ==
-    lengths[b] - 1`` ``[B, 1, V]``, meaningful only where a chunk ends
-    there; the states, updated in place where they can be)."""
+    lengths[b] - 1`` ``[B, 1, V]`` (``[B, 1, C, V]``), meaningful only
+    where a chunk ends there; the states, updated in place where they can
+    be).  ``tokens`` may be ``[B, C, L]`` multi-codebook grids."""
     model = _drop_free(model)
-    b, s = tokens.shape
+    cfg = model.cfg
+    b, s = tokens.shape[0], tokens.shape[-1]
     dev = tokens.device
     starts = starts.to(dev).long()
     lengths = lengths.to(dev)
-    last = torch.zeros((b, 1, model.cfg.vocab), dtype=torch.float32, device=dev)
+    last = torch.zeros((b, 1) + cfg.token_lead + (cfg.vocab,), dtype=torch.float32, device=dev)
     for t in range(s):
         active = t < lengths
-        logits, new = model.decode(params, tokens[:, t:t + 1], states, starts + t,
+        logits, new = model.decode(params, tokens[..., t:t + 1], states, starts + t,
                                    write=active)
         states = select_states(new, states, active)
-        last = torch.where((t == lengths - 1)[:, None, None], logits, last)
+        ends = (t == lengths - 1).reshape((-1,) + (1,) * (last.dim() - 1))
+        last = torch.where(ends, logits, last)
     return last, states
 
 
 def packed_prefill(model, params, tokens: torch.Tensor, lengths: torch.Tensor, max_len: int,
-                   force_scan: bool = False):
+                   vision_embeds: Optional[torch.Tensor] = None, force_scan: bool = False):
     """The exact dense prefill for this architecture and length mix: the
     full-sequence pass where :func:`full_seq_packable` allows it, else the
     masked scan.  ``force_scan`` takes the scan even then: the engine sets
     it when a sliding-window ring is larger than ``max_len`` (the
     full-sequence pass emits ``window``-sized rings, the scan the clamped
-    rings of ``init_decode_state``).  Returns (last_logits, states)."""
+    rings of ``init_decode_state``).  A stack with ``xattn`` layers and no
+    ``vision_embeds`` takes the scan (its cross caches stay zero: the
+    text-only serving of a vision model); with them it must take the
+    full-sequence pass, and raises where that is not exact, as the
+    reference does.  Returns (last_logits, states)."""
+    if vision_embeds is None and "xattn" in model.cfg.layer_kinds:
+        force_scan = True
     if not force_scan and full_seq_packable(model.cfg, lengths.tolist()):
-        return prefill_full_seq(model, params, tokens, lengths, max_len)
+        return prefill_full_seq(model, params, tokens, lengths, max_len, vision_embeds)
+    if vision_embeds is not None:
+        raise NotImplementedError(
+            "mixed-length prefill with vision frontends needs a full-seq-safe stack")
     return prefill_scan(model, params, tokens, lengths, max_len)
 
 
@@ -157,7 +184,8 @@ def prefill_paged_suffix(model, params, tokens: torch.Tensor, lengths: torch.Ten
     """Prefix-aware admission prefill against the paged pool: ``tokens
     [n, S_suf]`` are the admitted requests' unprefilled suffixes, ``rows
     [n, W]`` their block-table rows, ``starts [n]`` the prefix lengths
-    already resident.  Returns (last_logits [n, 1, V], states)."""
+    already resident.  ``tokens`` may be ``[n, C, S_suf]`` grids.
+    Returns (last_logits [n, 1, V] or [n, 1, C, V], states)."""
     model = _drop_free(model)
     logits, states = model.prefill_suffix(params, tokens, states, rows, starts, ctx_blocks)
     return _last_logits(logits, lengths), states

@@ -10,6 +10,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
@@ -30,6 +31,12 @@ class SamplerConfig:
 GREEDY = SamplerConfig()
 
 
+def empty_tokens(prompt: np.ndarray) -> np.ndarray:
+    """No generated tokens in ``prompt``'s format: ``(0,)``, or ``(C, 0)``
+    for a ``[C, S]`` codebook grid."""
+    return np.zeros(prompt.shape[:-1] + (0,), np.int32)
+
+
 def sample_logits(logits: torch.Tensor, sampler: SamplerConfig,
                   gen: Optional[torch.Generator]) -> torch.Tensor:
     """``logits [..., V]`` -> int32 ids ``[...]``."""
@@ -47,5 +54,6 @@ def sample_logits(logits: torch.Tensor, sampler: SamplerConfig,
 
 def sample_next_token(logits: torch.Tensor, sampler: SamplerConfig,
                       gen: Optional[torch.Generator], cfg: ArchConfig) -> torch.Tensor:
-    """Last-position logits ``[B, S, V]`` -> the next input token ``[B, 1]``."""
-    return sample_logits(logits[:, -1], sampler, gen)[:, None]
+    """Last-position logits ``[B, S, V]`` (``[B, S, C, V]`` multi-codebook)
+    -> the next input token ``[B, 1]`` (``[B, C, 1]``), what decode takes."""
+    return sample_logits(logits[:, -1], sampler, gen)[..., None]

@@ -2,7 +2,7 @@
 the port's engine, supervisor and front-end on a ``VirtualClock``, built
 on the same reduced arch and weights (``test_torch_supervisor.py``,
 ``test_torch_frontend.py``, ``test_torch_replay.py``,
-``test_torch_xlstm_serve.py``).  The reference's jitted functions are
+``test_torch_xlstm_serve.py``, ``test_torch_musicgen_serve.py``).  The reference's jitted functions are
 keyed on its ``Model``, so within one process every stack of the same
 arch and plan shares their compiles.
 """
@@ -73,8 +73,11 @@ def stack(side, models, schedule=(), retries=0, deadline=None, fe_kw=None, super
 
 
 def trace(side, cfg, n=8, seed=1, rate=50.0, suite="chat"):
+    """A generated trace of the side's traffic package (``[C, S]`` prompt
+    grids for a multi-codebook config)."""
     traffic = jtraffic if side == "ref" else ttraffic
-    return traffic.generate_trace(suite=suite, rate_rps=rate, n=n, seed=seed, vocab=cfg.vocab)
+    return traffic.generate_trace(suite=suite, rate_rps=rate, n=n, seed=seed, vocab=cfg.vocab,
+                                  n_codebooks=cfg.n_codebooks)
 
 
 def timing_tuple(o):
