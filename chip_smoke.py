@@ -5,8 +5,9 @@
 Builds the port's hand-written CUDA kernels from ``src/`` (one ``nvcc``
 per library, all started together), holds each kernel against its plain
 PyTorch version at the shapes the serving path gives it (the integer
-kernels bit for bit), times it beside its bound, then serves full-width
-stablelm-1.6b (random weights from a seed) through
+kernels bit for bit), times it beside its bound, then serves stablelm-1.6b
+at its published widths, cut to ``SL_LAYERS`` of its 24 layers (random
+weights from a seed), through
 ``repro_torch.serve.ServeEngine`` on the paged KV pool under the
 ``exact``, ``int8``, ``sc`` (bit-true stochastic streams) and ``mixed``
 (int8 qk/pv, stochastic projections) plans, on dense per-slot caches
@@ -50,7 +51,18 @@ causal prefill and the batched int8 entry at granite's shapes (``[time
 ... moe]``).  Reduced float32 models of all four families are served on
 the card and on the CPU, and their greedy tokens compared (recurrentgemma
 on dense caches and on the paged pool, its rings wrapping; granite with
-its expert sites quantized in one run).  One int8
+its expert sites quantized in one run).  Training (``[train ...]``):
+full-width qwen1.5-0.5b through ``repro_torch.launch.train.main`` (16
+steps at batch 8 x 128, checkpoints every 8, then the same run with a
+fault at step 11: its loss trajectory must equal the clean run's bit for
+bit, and the loss must fall; step time, tokens/s, peak memory and a
+checkpoint save are measured), recurrentgemma-2b at full width cut to one
+pattern period with every gradient leaf through the scan kernel's
+backward held against autograd through the plain loop (the scan's
+launches per step asserted), granite-moe-1b-a400m whole for 4 steps
+(finite loss and gradients, load-balance loss above 0), reduced models'
+losses card against CPU, and ``Model.loss`` under ``flash`` and ``int8``
+refused.  One int8
 product runs on ``wgmma`` with TMA-fed tiles at admission and on a
 weight-streaming kernel at decode: both are held bit for bit at
 stablelm's and recurrentgemma's serving shapes, at every shape the
@@ -119,6 +131,11 @@ HBM_BYTES_S = 3.35e12  # H100 SXM: HBM3 bandwidth
 # binary tensor cores' rates are measured (probe_routes): none is published
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "popc": 16 * 132 * 1.98e9, "fp32": 67e12}
 D, F, V = 2048, 5632, 100352  # stablelm-1.6b d_model, d_ff, vocab
+# stablelm's serving, profile and traffic runs keep its published widths and
+# cut its depth to SL_LAYERS of its 24 layers: a serving step is host-bound,
+# per layer, and the training phases need the time.  The kernel timings below
+# keep the 24-layer step (DECODE_GEMMS, PREFILL_GEMMS)
+SL_LAYERS = 8
 BS, HD = 16, 64  # KV block size, head dim
 # (M, K, N) of the int8 GEMMs -> how many of each one forward pass runs
 # (24 layers x q,k,v,o / up,gate / down, + lm_head): one decode step at 8
@@ -3671,6 +3688,356 @@ def log_tiles() -> None:
             f"{prefill(hd, 1)} B, float32 pool {prefill(hd, 0)} B, int8 pool {prefill(hd, 2)} B")
 
 
+# ------------------------------------------------------------------ training
+# [train]: qwen1.5-0.5b at its published widths through the train driver's
+# main(), with the reference CLI's --batch 8 --seq 128 --lr 1e-3; a clean
+# run of 16 steps checkpointing every 8 and a run with a fault at step 11,
+# which restores step 7's checkpoint and replays 8-15
+QWEN_TRAIN = ["--arch", "qwen1.5-0.5b", "--steps", "16", "--batch", "8", "--seq", "128",
+              "--lr", "1e-3", "--ckpt-every", "8", "--log-every", "4"]
+QWEN_FAIL_AT = 11
+TRAIN_TIMED_STEPS = 8  # steps timed one by one after the runs, each ended by a sync
+# [train rglru]: recurrentgemma-2b cut to one pattern period at B 2, S 256,
+# float32; every leaf's gradient with the kernel-backed scan against the
+# plain loop's under autograd, within RG_TRAIN_TOL of the leaf's largest
+# magnitude (the kernel folds carries in another order and rounds each
+# a * h + b once: ~1e-6 relative per state, summed over 256 steps)
+RG_TRAIN_B, RG_TRAIN_S = 2, 256
+RG_TRAIN_TOL = 1e-4
+# [train moe]: granite-moe-1b-a400m whole, 4 steps at B 8, S 128
+GM_TRAIN_STEPS, GM_TRAIN_B, GM_TRAIN_S = 4, 8, 128
+# [train card vs CPU]: reduced float32 models, 3 steps from one seed and one
+# init; losses within SMALL_TRAIN_TOL (float32 with TF32 off: the card's
+# GEMMs, the scan kernel and reductions sum in other orders)
+SMALL_TRAIN_STEPS, SMALL_TRAIN_TOL = 3, 1e-4
+SMALL_TRAIN = ("qwen1.5-0.5b", "granite-moe-1b-a400m", "recurrentgemma-2b")
+
+
+def _loss_and_grads(model, params, batch):
+    """(loss, aux, the gradient of every leaf of ``params``), as
+    ``launch.train.build_train_step`` takes them."""
+    from repro_torch import tree as tree_util
+
+    live = [p.detach().requires_grad_(True) for p in tree_util.leaves(params)]
+    loss, m = model.loss(tree_util.unflatten(params, live), batch)
+    return loss.detach(), m["aux"].detach(), torch.autograd.grad(loss, live)
+
+
+def _reset_peak(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)  # initializes the allocator if nothing did yet
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _peak_gb(dev) -> float:
+    return torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else float("nan")
+
+
+def profile_train_step(model, params, opt, batch, dev, ocfg) -> dict:
+    """``[profile train]``: one train step split on the host's clock into
+    forward and loss, backward and AdamW (each ended by a sync), then one
+    step under ``torch.profiler``: its host time against the device time
+    of the kernels it ran (their sum: the rest of the step the device
+    idles), how many it launched, and the three that took longest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import tree as tree_util
+    from repro_torch.launch.train import build_train_step
+    from repro_torch.optim import adamw_update, cosine_schedule
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    live = [p.detach().requires_grad_(True) for p in tree_util.leaves(params)]
+    loss, _ = model.loss(tree_util.unflatten(params, live), batch)
+    _sync(dev)
+    t1 = time.perf_counter()
+    grads = torch.autograd.grad(loss, live)
+    _sync(dev)
+    t2 = time.perf_counter()
+    adamw_update(params, tree_util.unflatten(params, list(grads)), opt, ocfg,
+                 cosine_schedule(opt["step"], 20, 100))
+    _sync(dev)
+    t3 = time.perf_counter()
+    del live, loss, grads
+    step = build_train_step(model, ocfg, 100, 20)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t4 = time.perf_counter()
+        step(params, opt, batch)
+        _sync(dev)
+        host_ms = (time.perf_counter() - t4) * 1e3
+    on_dev = [(e.self_device_time_total, e.key, e.count) for e in prof.key_averages()
+              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(r[0] for r in on_dev) / 1e3
+    out = dict(forward_ms=(t1 - t0) * 1e3, backward_ms=(t2 - t1) * 1e3,
+               adamw_ms=(t3 - t2) * 1e3, host_ms=host_ms, device_ms=dev_ms,
+               kernels=sum(r[2] for r in on_dev))
+    top = "; ".join(f"{k[:60]} {t / 1e3:.2f} ms x{c}" for t, k, c in sorted(on_dev)[::-1][:3])
+    busy = f"{dev_ms / host_ms:.1%}" if dev_ms > 0 else "not measured"
+    log(f"[profile train] one step: forward and loss {out['forward_ms']:.1f} ms, backward "
+        f"{out['backward_ms']:.1f} ms, AdamW {out['adamw_ms']:.1f} ms (host clock, each ended "
+        f"by a sync); profiled: host {host_ms:.1f} ms, device kernels {dev_ms:.2f} ms over "
+        f"{out['kernels']} launches, device busy {busy}; longest: {top}")
+    return out
+
+
+def train_qwen(cfg, dev, argv) -> dict:
+    """Phase ``[train]``: the driver's clean run (``launch.train.main`` on
+    ``argv``, whose ``--arch`` is ``cfg``) and its faulted run,
+    their loss trajectories equal bit for bit over every step, the loss
+    falling, and the costs: peak device memory of the clean run, one
+    synchronous save of the whole state (params, ``m``, ``v``) and the
+    median of ``TRAIN_TIMED_STEPS`` steps timed one by one.  The
+    checkpoints go to a temporary directory that is removed after."""
+    import shutil
+    import statistics
+    import tempfile
+
+    from repro_torch import tree as tree_util
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.data import DataConfig, SyntheticLMDataset, batch_to
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch import train
+    from repro_torch.models.model import Model
+    from repro_torch.optim import AdamWConfig
+
+    steps, batch, seq = (int(argv[argv.index(f) + 1]) for f in ("--steps", "--batch", "--seq"))
+    root = tempfile.mkdtemp(prefix="train_ckpt_")
+    out = {}
+    try:
+        log(f"[train] checkpoints under {root}: {shutil.disk_usage(root).free / 2**30:.1f} GiB "
+            "free")
+        reset_launches()
+        _reset_peak(dev)
+        clean = train.main(argv + ["--ckpt-dir", os.path.join(root, "clean")])
+        peak = _peak_gb(dev)
+        counts = {k: v for k, v in launch_counts().items() if v}
+        shutil.rmtree(os.path.join(root, "clean"))
+        faulted = train.main(argv + ["--ckpt-dir", os.path.join(root, "faulted"),
+                                     "--fail-at", str(QWEN_FAIL_AT)])
+        shutil.rmtree(os.path.join(root, "faulted"))
+        cl = [clean["metrics"][s]["loss"] for s in range(steps)]
+        fl = [faulted["metrics"][s]["loss"] for s in range(steps)]
+        moved = [s for s in range(steps) if cl[s] != fl[s]]
+        log(f"[train] clean losses {cl}")
+        log(f"[train] faulted run (fault at step {QWEN_FAIL_AT}, restarts "
+            f"{faulted['restarts']}): losses equal to the clean run's at "
+            f"{steps - len(moved)} of {steps} steps; differing at {moved}")
+        assert faulted["restarts"] == 1 and clean["restarts"] == 0
+        assert not moved, [(s, cl[s], fl[s]) for s in moved]
+        first, last = float(np.mean(cl[:3])), float(np.mean(cl[-3:]))
+        assert last < first, (first, last)
+        t0 = time.perf_counter()
+        path = save_checkpoint(os.path.join(root, "timed"), steps - 1, clean["state"])
+        save_s = time.perf_counter() - t0
+        ckpt_bytes = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+        shutil.rmtree(os.path.join(root, "timed"))
+        model = Model(cfg, device=dev)
+        step = train.build_train_step(model, AdamWConfig(lr=1e-3), steps + TRAIN_TIMED_STEPS,
+                                      20)
+        ds = SyntheticLMDataset(DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch,
+                                           seed=0))
+        params, opt = clean["state"]["params"], clean["state"]["opt"]
+        del clean, faulted
+        times = []
+        for s in range(steps, steps + TRAIN_TIMED_STEPS):
+            b = batch_to(ds.batch_at(s), dev)
+            _sync(dev)
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, b)
+            loss = float(m["loss"])  # waits for the step
+            times.append((time.perf_counter() - t0) * 1e3)
+            assert np.isfinite(loss)
+        prof = profile_train_step(model, params, opt, b, dev, AdamWConfig(lr=1e-3))
+        n_params = sum(p.numel() for p in tree_util.leaves(params))
+        step_ms = statistics.median(times)
+        out = dict(step_ms=step_ms, tok_s=batch * seq / step_ms * 1e3, peak_gb=peak,
+                   save_s=save_s, ckpt_gb=ckpt_bytes / 1e9, loss_first3=first, loss_last3=last,
+                   **prof)
+        log(f"[train] {cfg.name} ({cfg.n_layers}L d{cfg.d_model}, {n_params / 1e6:.1f}M "
+            f"params, float32 masters, bf16 compute), batch {batch} x {seq}: loss "
+            f"{first:.4f} -> {last:.4f} (mean of the first and last 3 steps); step "
+            f"{step_ms:.1f} ms median of {TRAIN_TIMED_STEPS} ({min(times):.1f}-{max(times):.1f}),"
+            f" {out['tok_s']:.0f} training tok/s; peak device memory {out['peak_gb']:.2f} GB "
+            f"(max_memory_allocated, clean run); one synchronous checkpoint save "
+            f"{save_s:.2f} s for {out['ckpt_gb']:.2f} GB; kernels launched in the clean run: "
+            f"{counts or 'none (plain attention, exact plan: no hand-written kernel on this path)'}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def train_rglru(cfg, dev, timer=time_ms) -> dict:
+    """Phase ``[train rglru]``: ``cfg`` is recurrentgemma-2b at published
+    widths cut to one pattern period (``rglru``, ``rglru``, ``local``),
+    float32.  One
+    loss and gradient through the kernel-backed scan must launch the scan
+    3 times per ``rglru`` layer (forward, remat's recompute, backward) and
+    its backward once per layer; every leaf's gradient is held against the
+    same loss with autograd through the plain loop, on the card.  The
+    backward's kernel launch is timed beside the forward's at this shape.
+    Returns the launch counts of the kernel-backed step (the ``train``
+    entry of the scan row's ``launches_by_plan``)."""
+    import repro_torch.kernels.rglru_scan as rg_pkg
+    from repro_torch import tree as tree_util
+    from repro_torch.data import DataConfig, SyntheticLMDataset, batch_to
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.kernels.rglru_scan import ops as rg
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+    from repro_torch.models.model import Model
+
+    model = Model(cfg, device=dev)
+    params = model.init(seed=0)
+    ds = SyntheticLMDataset(DataConfig(vocab=cfg.vocab, seq_len=RG_TRAIN_S,
+                                       global_batch=RG_TRAIN_B, seed=0))
+    batch = batch_to(ds.batch_at(0), dev)
+    reset_launches()
+    loss, _, got = _loss_and_grads(model, params, batch)
+    _sync(dev)
+    counts = launch_counts()
+    n = cfg.layer_kinds.count("rglru")
+    assert counts["rglru_scan"] == 3 * n and counts["rglru_scan_backward"] == n, counts
+    assert counts[f"rglru_scan_s{RG_TRAIN_S}"] == 3 * n
+    real = rg_pkg.rglru_scan
+    rg_pkg.rglru_scan = rglru_scan_ref  # the models import the package's attribute
+    try:
+        plain_loss, _, want = _loss_and_grads(model, params, batch)
+    finally:
+        rg_pkg.rglru_scan = real
+    worst, names = 0.0, []
+    for (name, _), g, w in zip(tree_util.paths(params), got, want):
+        share = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        if share > worst:
+            worst, names = share, [name]
+    assert worst <= RG_TRAIN_TOL, (worst, names)
+    assert abs(float(loss) - float(plain_loss)) <= 1e-5 * abs(float(plain_loss))
+    # the backward's kernel launch at this shape, beside the forward's
+    gen = torch.Generator(device=dev).manual_seed(7)
+    shape = (RG_TRAIN_B, RG_TRAIN_S, cfg.d_rnn)
+    a = torch.rand(*shape, generator=gen, device=dev) * 0.799 + 0.2
+    x = torch.randn(*shape, generator=gen, device=dev)
+    dh = torch.randn(*shape, generator=gen, device=dev)
+    a_next = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], dim=1).flip(1).contiguous()
+    dh_rev = dh.flip(1).contiguous()
+    fwd_ms = timer(lambda: rg._scan(a, x))
+    bwd_ms = timer(lambda: rg._scan(a_next, dh_rev))
+    ta, tx = a.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    h = rg.rglru_scan(ta, tx)
+    whole_ms = timer(lambda: torch.autograd.grad(h, (ta, tx), dh, retain_graph=True))
+    log(f"[train rglru] {cfg.name} one period ({'/'.join(cfg.layer_kinds)}, d{cfg.d_model}, "
+        f"d_rnn {cfg.d_rnn}, vocab {cfg.vocab}) float32, B {RG_TRAIN_B} S {RG_TRAIN_S}: loss "
+        f"{float(loss):.6f} (plain scan {float(plain_loss):.6f}); every leaf's gradient within "
+        f"{worst:.2e} of its largest magnitude (limit {RG_TRAIN_TOL}; worst {names}); scan "
+        f"launches in one loss and gradient: {counts['rglru_scan']} = 3 x {n} rglru layers "
+        f"(forward, remat recompute, backward), backward {counts['rglru_scan_backward']}")
+    log(f"[time rglru_scan backward] B={RG_TRAIN_B} S={RG_TRAIN_S} D={cfg.d_rnn}: backward "
+        f"kernel launch {bwd_ms:.4f} ms beside the forward's {fwd_ms:.4f} ms at this shape; "
+        f"the whole backward (shift, flips, the launch, da = g h_prev) {whole_ms:.4f} ms")
+    del params, got, want
+    _free(dev)
+    return {"counts": counts, "bwd_ms": bwd_ms, "fwd_ms": fwd_ms, "whole_ms": whole_ms,
+            "worst": worst}
+
+
+def train_moe(cfg, dev) -> dict:
+    """Phase ``[train moe]``: ``cfg`` is granite-moe-1b-a400m whole
+    (float32 masters, bf16 compute); ``GM_TRAIN_STEPS`` steps of loss, gradient
+    and AdamW with no checkpoint; the loss, every gradient and the
+    load-balance loss finite, the latter above 0."""
+    from repro_torch import tree as tree_util
+    from repro_torch.data import DataConfig, SyntheticLMDataset, batch_to
+    from repro_torch.models.model import Model
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, cosine_schedule
+
+    model = Model(cfg, device=dev)
+    params = model.init(seed=0)
+    opt = adamw_init(params)
+    n_params = sum(p.numel() for p in tree_util.leaves(params))
+    ds = SyntheticLMDataset(DataConfig(vocab=cfg.vocab, seq_len=GM_TRAIN_S,
+                                       global_batch=GM_TRAIN_B, seed=0))
+    ocfg = AdamWConfig(lr=1e-3)
+    _reset_peak(dev)
+    rows, times = [], []
+    for s in range(GM_TRAIN_STEPS):
+        b = batch_to(ds.batch_at(s), dev)
+        _sync(dev)
+        t0 = time.perf_counter()
+        loss, aux, grads = _loss_and_grads(model, params, b)
+        finite = torch.stack([g.isfinite().all() for g in grads]).all()
+        params, opt, st = adamw_update(params, tree_util.unflatten(params, list(grads)), opt,
+                                       ocfg, cosine_schedule(opt["step"], 1, GM_TRAIN_STEPS))
+        rows.append((float(loss), float(aux), bool(finite), float(st["grad_norm"])))
+        times.append((time.perf_counter() - t0) * 1e3)
+        del grads
+    peak = _peak_gb(dev)
+    log(f"[train moe] {cfg.name} ({cfg.n_layers}L d{cfg.d_model}, {cfg.moe.n_experts} experts "
+        f"top-{cfg.moe.top_k}, {n_params / 1e9:.3f}B params), batch {GM_TRAIN_B} x "
+        f"{GM_TRAIN_S}: (loss, aux, grads finite, grad norm) per step {rows}; step "
+        f"{times[-1]:.1f} ms (the last; the first {times[0]:.1f}); peak device memory "
+        f"{peak:.2f} GB")
+    for loss, aux, finite, gnorm in rows:
+        assert np.isfinite(loss) and np.isfinite(gnorm) and finite and aux > 0, rows
+    del params, opt
+    _free(dev)
+    return {"step_ms": times[-1], "peak_gb": peak, "rows": rows}
+
+
+def train_card_vs_cpu(dev) -> None:
+    """Phase ``[train card vs CPU]``: reduced float32 qwen, granite and
+    recurrentgemma, ``SMALL_TRAIN_STEPS`` steps of the train step on the
+    card and on the CPU from one init (made on the CPU) and one batch
+    sequence; losses within ``SMALL_TRAIN_TOL``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import DataConfig, SyntheticLMDataset, batch_to
+    from repro_torch.launch.train import build_train_step
+    from repro_torch.models.model import Model
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cpu = torch.device("cpu")
+    for name in SMALL_TRAIN:
+        cfg = get_arch(name).reduced(dtype="float32")
+        init = Model(cfg, device=cpu).init(seed=0)
+        ds = SyntheticLMDataset(DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=2, seed=0))
+        losses = {}
+        for side, d in (("cpu", cpu), ("card", dev)):
+            step = build_train_step(Model(cfg, device=d), AdamWConfig(lr=1e-3),
+                                    SMALL_TRAIN_STEPS, 1)
+            params = _to(init, d)
+            opt = adamw_init(params)
+            losses[side] = []
+            for s in range(SMALL_TRAIN_STEPS):
+                params, opt, m = step(params, opt, batch_to(ds.batch_at(s), d))
+                losses[side].append(float(m["loss"]))
+        diff = max(abs(a - b) for a, b in zip(losses["cpu"], losses["card"]))
+        log(f"[train card vs CPU] {cfg.name} float32, {SMALL_TRAIN_STEPS} steps: card "
+            f"{losses['card']} CPU {losses['cpu']}; max |diff| {diff:.2e} (limit "
+            f"{SMALL_TRAIN_TOL})")
+        assert diff <= SMALL_TRAIN_TOL, (name, losses)
+
+
+def train_guard(dev) -> None:
+    """Phase ``[train guard]``: ``Model.loss`` on the card under
+    ``attn_impl="flash"`` and under ``int8`` raises (the kernels have no
+    backward, and rounding has no gradient), never detaches."""
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import Model
+    from repro_torch.models.transformer import ModelOptions
+
+    cfg = get_arch("qwen1.5-0.5b").reduced()
+    params = tree_util.map_leaves(lambda t: t.requires_grad_(True),
+                                  Model(cfg, device=dev).init(seed=0))
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 16), device=dev)}
+    for label, opts in (("flash", ModelOptions(attn_impl="flash")),
+                        ("int8", ModelOptions(plan="int8"))):
+        try:
+            Model(cfg, opts, device=dev).loss(params, batch)
+        except RuntimeError as e:
+            assert "has no backward" in str(e), e
+            log(f"[train guard] Model.loss under {label} on {dev}: refused ({e})")
+        else:
+            raise AssertionError(f"Model.loss under {label} returned instead of raising")
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
@@ -3755,6 +4122,7 @@ def main() -> None:
     cfg = get_arch("stablelm-1.6b")
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff, cfg.vocab,
             cfg.dtype) == (24, 2048, 32, 64, 5632, 100352, "bfloat16")
+    cfg = dataclasses.replace(cfg, n_layers=SL_LAYERS)  # published widths, depth cut
     params = Model(cfg, device=dev).init(seed=0)
     prompts = make_prompts(cfg.vocab, np.random.default_rng(0))
     summary = {}
@@ -3857,8 +4225,26 @@ def main() -> None:
     small_vlm_mg_card_vs_cpu(dev)
     elapsed("card against CPU")
 
+    # training: qwen through the driver, the scan's gradient, MoE, card vs CPU
+    qwen = get_arch("qwen1.5-0.5b")
+    assert (qwen.n_layers, qwen.d_model, qwen.n_heads, qwen.head_dim, qwen.d_ff, qwen.vocab,
+            qwen.tie_embeddings, qwen.dtype) == (24, 1024, 16, 64, 2816, 151936, True,
+                                                 "bfloat16")
+    train_qwen(qwen, dev, QWEN_TRAIN)
+    elapsed("train")
+    rg_train = dataclasses.replace(rg, n_layers=len(rg.block_pattern), dtype="float32")
+    assert (rg_train.layer_kinds, rg_train.n_pattern_units) == (("rglru", "rglru", "local"), 1)
+    rg_launches["train"] = train_rglru(rg_train, dev)["counts"]
+    elapsed("train rglru")
+    train_moe(gm, dev)
+    elapsed("train moe")
+    train_card_vs_cpu(dev)
+    train_guard(dev)
+    elapsed("train card vs CPU")
+
     # launches: summed over the serving runs of the row's model (the rows
-    # at recurrentgemma's shapes over its runs, those at granite's,
+    # at recurrentgemma's shapes over its runs and its training step,
+    # ``train``, whose scan launches at S 256 fall in the rglru_scan row; those at granite's,
     # llama-3.2-vision's and musicgen's over theirs, the others over the
     # stablelm runs) and over the row's wrappers (the binary stochastic GEMM's two
     # entries, counted by kernel); launches_by_plan: each run's own

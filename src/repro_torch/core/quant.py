@@ -13,6 +13,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.kernels import refuse_grad
+
 MAG_MAX = 127  # 7-bit magnitude
 STREAM_LEN = 128  # bits per stochastic stream (paper: 128-bit + sign)
 
@@ -45,7 +47,10 @@ def quantize(x: torch.Tensor, axis: Optional[int] = None,
     ``axis=None`` -> per-tensor scale; ``axis=k`` -> per-channel reduced
     along ``k`` (the scale keeps dims for broadcasting).  ``scale``
     overrides the dynamic absmax (static calibrated activation scales).
+    Rounding has no gradient: a tensor that requires grad is refused while
+    grad is enabled (the quantized plans do not train).
     """
+    refuse_grad("quantize", x)
     xf = x.to(torch.float32)
     if scale is None:
         if axis is None:

@@ -59,8 +59,20 @@ kernel's dequantizing branch) are also counted apart, as
 the binary stochastic GEMM's entries as ``stoch_gemm_codes_stream`` /
 ``_wgmma`` and ``stoch_matmul_codes_batched_stream`` / ``_wgmma``, and
 ``rglru_scan``'s by the sequence length they took, as ``rglru_scan_s<S>``
-(a key for each length launched since the last reset).
+(a key for each length launched since the last reset), and its backward
+launches (the same kernel over the reversed sequence) also apart, as
+``rglru_scan_backward``.
+
+``rglru_scan`` is the one kernel with a gradient (a
+``torch.autograd.Function``).  Every other wrapper calls
+:func:`refuse_grad` before it picks the device, so on the CPU and on the
+card alike it raises when autograd would record it with an input that
+requires grad, instead of returning a tensor cut from the graph.  Its
+integer operands never require grad, so the quantized paths are refused
+where the codes are made from float tensors: ``core.quant.quantize`` and
+the entries that dequantize (``int8_matmul_t``, ``stoch_matmul``).
 """
+import torch
 
 # wrappers that also count their launches by kernel (``paths``)
 PATH_COUNTED = ("int8_gemm", "int8_gemm_batched", "stoch_gemm_codes",
@@ -68,6 +80,16 @@ PATH_COUNTED = ("int8_gemm", "int8_gemm_batched", "stoch_gemm_codes",
 # counters of a wrapper's int8-pool branch -> the wrapper that keeps them
 INT8_BRANCHES = {"paged_attention_decode_int8": "paged_attention_decode",
                  "paged_attention_prefill_int8": "paged_attention_prefill"}
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise when grad is enabled and one of ``tensors`` (None allowed)
+    requires grad: the kernel has no backward, and its output would leave
+    the graph without a word."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what} has no backward, and an input requires grad: training runs the "
+            "plain attention (attn_impl='naive') under the exact plan")
 
 
 def kernel_wrappers() -> dict:
@@ -109,6 +131,7 @@ def reset_launches() -> None:
         for path in paths:
             paths[path] = 0
     wrappers["rglru_scan"].lengths.clear()
+    wrappers["rglru_scan"].backward_launches = 0
 
 
 def launch_counts() -> dict:
@@ -119,4 +142,5 @@ def launch_counts() -> dict:
     for name in PATH_COUNTED:
         counts.update({f"{name}_{path}": c for path, c in wrappers[name].paths.items()})
     counts.update({f"rglru_scan_s{s}": c for s, c in wrappers["rglru_scan"].lengths.items()})
+    counts["rglru_scan_backward"] = wrappers["rglru_scan"].backward_launches
     return counts

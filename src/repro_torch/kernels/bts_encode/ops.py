@@ -15,7 +15,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.core.bitstream import GENERATORS, LFSR_ORDER, N_WORDS
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 from repro_torch.kernels.bts_encode.ref import bts_encode_ref
 
 GENERATOR_IDS = {name: i for i, name in enumerate(GENERATORS)}  # the kernel's ``gen``
@@ -41,6 +41,7 @@ def _lib(device: torch.device):
 def bts_encode(q: torch.Tensor, generator: str = "bresenham") -> Tuple[torch.Tensor, torch.Tensor]:
     """int8 codes ``[R, C]`` -> (packed streams ``[R, C, 4]`` int32, signs
     ``[R, C]`` int8 in {+1, -1})."""
+    refuse_grad("bts_encode", q)
     if generator not in GENERATOR_IDS:
         raise ValueError(f"unknown generator {generator!r}; valid: {', '.join(GENERATORS)}")
     if q.device.type == "cpu":

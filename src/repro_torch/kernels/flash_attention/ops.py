@@ -22,7 +22,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 from repro_torch.kernels._build import HEAD_DIMS
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
@@ -45,6 +45,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q [B, Hq, Sq, D], k/v [B, Hkv, Sk, D] -> [B, Hq, Sq, D] in q.dtype.
     Query ``i`` sees key ``j`` when ``j <= i`` (causal) and ``i - j <
     window`` (``window > 0``); ``softcap > 0`` caps logits before the mask."""
+    refuse_grad("flash_attention", q, k, v)
     b, hq, sq, d = q.shape
     if k.dim() != 4 or v.shape != k.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"flash_attention: k {tuple(k.shape)}, v {tuple(v.shape)} do not "

@@ -29,7 +29,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.core.quant import QTensor
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 from repro_torch.kernels.int8_matmul.ref import int8_matmul_acc_ref
 
 _BK = 64  # the mma kernel's K step; its split-K chunks are multiples of it
@@ -176,6 +176,7 @@ def _launch(x: torch.Tensor, w_t: torch.Tensor, what: str) -> torch.Tensor:
 def int8_gemm(x: torch.Tensor, w_t: torch.Tensor) -> torch.Tensor:
     """int8 ``x [M, K]`` x int8 ``w_t [N, K]`` -> int32 ``[M, N]``: one
     launch of the kernel :func:`int8_gemm_plan` picks."""
+    refuse_grad("int8_gemm", x, w_t)
     if x.dim() != 2 or w_t.dim() != 2 or x.shape[1] != w_t.shape[1]:
         raise ValueError(f"int8_gemm: shapes {tuple(x.shape)} x {tuple(w_t.shape)} "
                          "are not [M, K] x [N, K]")
@@ -223,6 +224,7 @@ def int8_gemm_batched(x: torch.Tensor, w_t: torch.Tensor) -> torch.Tensor:
     """int8 ``x [B, M, K]`` x int8 ``w_t [B, N, K]`` -> int32 ``[B, M, N]``:
     B independent products in one launch of the kernel
     :func:`int8_batched_plan` picks."""
+    refuse_grad("int8_gemm_batched", x, w_t)
     if (x.dim() != 3 or w_t.dim() != 3 or x.shape[0] != w_t.shape[0]
             or x.shape[2] != w_t.shape[2]):
         raise ValueError(f"int8_gemm_batched: shapes {tuple(x.shape)} x {tuple(w_t.shape)} "
@@ -254,5 +256,6 @@ int8_gemm_batched.paths = dict.fromkeys(BATCHED_PATHS, 0)
 def int8_matmul_t(xq: QTensor, wq_t: QTensor) -> torch.Tensor:
     """``xq [M, K]`` x pre-transposed ``wq_t [N, K]`` (scale ``[1, N]``)
     -> dequantized float32 ``[M, N]``."""
+    refuse_grad("int8_gemm", xq.scale, wq_t.scale)
     acc = int8_gemm(xq.q, wq_t.q)
     return (acc.to(torch.float32) * xq.scale) * wq_t.scale

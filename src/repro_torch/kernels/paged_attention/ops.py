@@ -27,7 +27,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 from repro_torch.kernels._build import HEAD_DIMS
 from repro_torch.kernels.paged_attention.ref import (
     dense_decode_ref, paged_decode_ref, paged_prefill_ref,
@@ -167,6 +167,7 @@ def paged_attention_decode(q, k_pool, v_pool, table, kv_len, k_scale=None, v_sca
     ``kv_len == 0`` gives zeros.  An int8 pool needs its per-KV-head
     ``k_scale``/``v_scale`` ``[KVH]``.  Returns [B, H, hd] in ``q.dtype``
     (float32 or bfloat16 on the card)."""
+    refuse_grad("paged_attention_decode", q, k_pool, v_pool, k_scale, v_scale)
     qd, ks, vs = _prepare(q, k_pool, v_pool, k_scale, v_scale)
     b, h, hd = q.shape
     kvh = k_pool.shape[1]
@@ -190,6 +191,7 @@ def paged_attention_prefill(q, k_pool, v_pool, table, start, k_scale=None, v_sca
     written suffix).  Padded suffix rows compute values callers discard.
     Scales as in :func:`paged_attention_decode`.  Returns [B, H, S, hd] in
     ``q.dtype``."""
+    refuse_grad("paged_attention_prefill", q, k_pool, v_pool, k_scale, v_scale)
     qd, ks, vs = _prepare(q, k_pool, v_pool, k_scale, v_scale)
     b, h, s, hd = q.shape
     kvh = k_pool.shape[1]
@@ -220,6 +222,7 @@ def dense_attention_decode(q, k, v, kv_len, *, softcap: float = 0.0):
     invisible and ``kv_len == 0`` gives zeros.  q is cast to the cache
     dtype first, as the reference's wrapper casts it.  Returns [B, H, hd]
     in ``q.dtype`` (float32 or bfloat16 on the card)."""
+    refuse_grad("dense_attention_decode", q, k, v)
     b, h, hd = q.shape
     if k.dim() != 4 or v.shape != k.shape or k.shape[0] != b or k.shape[3] != hd:
         raise ValueError(f"dense attention: caches {tuple(k.shape)}/{tuple(v.shape)} do "

@@ -8,6 +8,15 @@ run of 4 steps a warp, carries folded across runs and chunks
 ``B``, ``S`` and ``D`` go in as they are.  On a CPU tensor the wrapper
 runs the plain loop (``ref.rglru_scan_ref``); on a CUDA tensor it
 launches ``csrc/rglru_scan.cu`` or raises.
+
+The scan has a gradient.  With grad enabled and an input that requires
+it, the wrapper runs as :class:`RGLRUScan`, whose backward is the same
+recurrence run backwards: ``g_t = dh_t + a_{t+1} g_{t+1}`` is the
+forward scan of the time-reversed ``dh`` with the decays shifted by one
+step (``a_S = 0``), so it is one more launch of the same kernel (the
+plain loop on the CPU); then ``db_t = g_t`` and ``da_t = g_t h_{t-1}``
+(``h_{-1} = 0``).  Backward launches are counted with the others and
+also apart (``backward_launches``).
 """
 from __future__ import annotations
 
@@ -28,15 +37,8 @@ def _lib():
     return fn
 
 
-def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a`` (decays in (0, 1]), ``b`` (driven inputs) ``[B, S, D]`` ->
-    every state ``h [B, S, D]`` of ``h_t = a_t * h_{t-1} + b_t``, ``h_{-1}
-    = 0``, in ``a.dtype``."""
-    if a.dim() != 3 or b.shape != a.shape:
-        raise ValueError(f"rglru_scan: a {tuple(a.shape)} and b {tuple(b.shape)} must be "
-                         "one [B, S, D] shape")
-    if b.device != a.device:
-        raise ValueError(f"rglru_scan: b on {b.device}, a on {a.device}")
+def _scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One scan: the plain loop on the CPU, one counted launch on the card."""
     if a.device.type == "cpu":
         return rglru_scan_ref(a, b)
     if a.device.type != "cuda":
@@ -56,5 +58,39 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
-rglru_scan.launches = 0
+class RGLRUScan(torch.autograd.Function):
+    """The scan with its reverse-scan backward (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        h = _scan(a, b)
+        ctx.save_for_backward(a, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh: torch.Tensor):
+        a, h = ctx.saved_tensors
+        a_next = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], dim=1)  # a_{t+1}, a_S = 0
+        before = rglru_scan.launches
+        g = _scan(a_next.flip(1), dh.to(a.dtype).flip(1)).flip(1)
+        rglru_scan.backward_launches += rglru_scan.launches - before
+        h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
+        return g * h_prev, g
+
+
+def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a`` (decays in (0, 1]), ``b`` (driven inputs) ``[B, S, D]`` ->
+    every state ``h [B, S, D]`` of ``h_t = a_t * h_{t-1} + b_t``, ``h_{-1}
+    = 0``, in ``a.dtype``; differentiable in ``a`` and ``b``."""
+    if a.dim() != 3 or b.shape != a.shape:
+        raise ValueError(f"rglru_scan: a {tuple(a.shape)} and b {tuple(b.shape)} must be "
+                         "one [B, S, D] shape")
+    if b.device != a.device:
+        raise ValueError(f"rglru_scan: b on {b.device}, a on {a.device}")
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return RGLRUScan.apply(a, b)
+    return _scan(a, b)
+
+
+rglru_scan.launches = rglru_scan.backward_launches = 0
 rglru_scan.lengths = collections.Counter()

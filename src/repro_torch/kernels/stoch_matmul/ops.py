@@ -41,7 +41,7 @@ import torch
 from repro_torch.core.bitstream import N_WORDS, STREAM_LEN, encode, encode_signed
 from repro_torch.core.ossm import W_GEN, X_GEN, WeightCodes
 from repro_torch.core.quant import QTensor
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 from repro_torch.kernels.stoch_matmul.ref import (
     stoch_gemm_codes_ref, stoch_matmul_codes_ref, stoch_matmul_packed_ref,
 )
@@ -173,6 +173,7 @@ def stoch_matmul_packed(xs: torch.Tensor, sx: torch.Tensor, ws: torch.Tensor,
     ``ws [(B,) N, K, 4]``, ``sw [(B,) N, K]`` -> int32 ``[(B,) M, N]``:
     ``sum_k sx * sw * popcount(xs & ws)``."""
     tensors = (xs, sx, ws, sw)
+    refuse_grad("stoch_matmul_packed", *tensors)
     if _check_device(tensors, "stoch_matmul_packed"):
         return stoch_matmul_packed_ref(xs, sx, ws, sw)
     if (xs.dtype, sx.dtype, ws.dtype, sw.dtype) != (torch.int32, torch.int8) * 2:
@@ -203,6 +204,7 @@ def stoch_matmul_codes(xq: torch.Tensor, ws: torch.Tensor, sw: torch.Tensor,
     (``bts_encode`` differs from it only at -128), with the codes encoded
     while the kernel stages its tiles."""
     tensors = (xq, ws, sw)
+    refuse_grad("stoch_matmul_codes", *tensors)
     if _check_device(tensors, "stoch_matmul_codes"):
         return stoch_matmul_codes_ref(xq, ws, sw, x_gen)
     if (xq.dtype, ws.dtype, sw.dtype) != (torch.int8, torch.int32, torch.int8):
@@ -261,6 +263,7 @@ def stoch_gemm_codes(xq: torch.Tensor, wq_t: torch.Tensor, x_gen: str = X_GEN,
     [N, K]`` -> int32 ``[M, N]``: each operand's streams from its
     generator's table, summed with their signs on the binary tensor cores."""
     tensors = (xq, wq_t)
+    refuse_grad("stoch_gemm_codes", *tensors)
     if _check_device(tensors, "stoch_gemm_codes"):
         return stoch_gemm_codes_ref(xq, wq_t, x_gen, w_gen)
     if xq.dtype != torch.int8 or wq_t.dtype != torch.int8:
@@ -283,6 +286,7 @@ def stoch_matmul_codes_batched(xq: torch.Tensor, wq_t: torch.Tensor, x_gen: str 
     int32 ``[B, M, N]``: B independent products in one launch of the
     binary tensor-core kernel."""
     tensors = (xq, wq_t)
+    refuse_grad("stoch_matmul_codes_batched", *tensors)
     if _check_device(tensors, "stoch_matmul_codes_batched"):
         return stoch_gemm_codes_ref(xq, wq_t, x_gen, w_gen)
     if xq.dtype != torch.int8 or wq_t.dtype != torch.int8:
@@ -306,5 +310,6 @@ def stoch_matmul(xq: QTensor, w: WeightCodes, x_gen: str = X_GEN) -> torch.Tenso
     """Quantized ``xq [M, K]`` through the OSSM array against a weight's
     cached codes (``[N, K]``, scale ``[1, N]``, streams under ``w.gen``) ->
     dequantized float32 ``[M, N]``."""
+    refuse_grad("stoch_gemm_codes", xq.scale, w.scale)
     acc = stoch_gemm_codes(xq.q, w.q, x_gen, w.gen)
     return acc.to(torch.float32) * STREAM_LEN * xq.scale * w.scale

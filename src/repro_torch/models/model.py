@@ -2,15 +2,49 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
+
+import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.plan import ExecutionPlan
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.transformer import (
-    ModelOptions, decode_step, forward, init_decode_state, init_params, prepare_params,
-    suffix_forward,
+    ModelOptions, decode_step, forward, forward_aux, init_decode_state, init_params,
+    prepare_params, suffix_forward,
 )
+
+# the per-weight caches ``prepare`` adds; stale after the first update
+PREPARED_KEYS = frozenset({"wc", "wq_t", "wsc_t", "head_wc", "head_wq_t", "head_wsc_t",
+                           "caches"})
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  z_loss: float = 0.0) -> torch.Tensor:
+    """Mean token cross entropy of float32 ``logits [..., V]`` against
+    ``labels [...]`` (label -1 masked), plus ``z_loss`` times the mean
+    squared log-partition over the same tokens."""
+    valid = (labels >= 0).to(torch.float32)
+    labels = labels.clamp_min(0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None])[..., 0] - logz
+    count = valid.sum().clamp_min(1.0)
+    loss = -(ll * valid).sum() / count
+    if z_loss:
+        loss = loss + z_loss * ((logz ** 2) * valid).sum() / count
+    return loss
+
+
+def _prepared_keys(tree, path="params"):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            if k in PREPARED_KEYS:
+                yield f"{path}.{k}"
+            else:
+                yield from _prepared_keys(v, f"{path}.{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _prepared_keys(v, f"{path}.{i}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,6 +81,29 @@ class Model:
     def prepare(self, params) -> Dict[str, Any]:
         """Params with this plan's per-weight caches (int8 codes, cast copies)."""
         return prepare_params(params, self.cfg, self.plan)
+
+    # ------------------------------------------------------------- train
+    def loss(self, params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Next-token loss of ``batch`` (``{"tokens" [B, S] or [B, C, S],
+        ["vision_embeds" [B, T, D]]}``, tensors on the model's device):
+        cross entropy with ``opts.z_loss`` over positions shifted by one
+        (along S for every codebook), plus the MoE load-balance loss.
+        Returns (loss, {"loss", "aux"}).  ``params`` are the raw float32
+        masters: a dict carrying ``prepare``'s caches is refused, since
+        they would not follow an update."""
+        stale = next(_prepared_keys(params), None)
+        if stale is not None:
+            raise ValueError(f"Model.loss takes raw params, not prepared ones ({stale} is a "
+                             "weight cache that would go stale after the first update)")
+        tokens = batch["tokens"]
+        logits, aux, _ = forward_aux(params, tokens, self.cfg, self.opts,
+                                     vision_embeds=batch.get("vision_embeds"))
+        if self.cfg.n_codebooks:  # tokens [B, C, S], logits [B, S, C, V]
+            labels = tokens[:, :, 1:].transpose(1, 2)  # [B, S-1, C]
+        else:
+            labels = tokens[:, 1:]
+        loss = cross_entropy(logits[:, :-1], labels, self.opts.z_loss) + aux
+        return loss, {"loss": loss, "aux": aux}
 
     # ------------------------------------------------------------- serve
     def prefill(self, params, batch, max_len: Optional[int] = None):

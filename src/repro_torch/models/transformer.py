@@ -37,7 +37,9 @@ import functools
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tree as tree_util
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.astra_layer import (
     ComputeConfig, batched_sc_weight_t, batched_weight_t, quantize_weight_t, sc_weight_t,
@@ -65,12 +67,17 @@ class ModelOptions:
     paged pools as int8 against the plan's calibrated per-KV-head scales.
     ``capacity_factor``: a MoE layer's expert capacity on the sequence
     paths (decode is always drop-free; the serving prefills raise it to
-    ``n_experts``, drop-free too)."""
+    ``n_experts``, drop-free too).  ``remat``: a full-sequence pass that
+    autograd records runs each pattern period (the reference's scanned
+    unit) under activation checkpointing.  ``z_loss``: the weight of
+    ``Model.loss``'s log-partition penalty."""
 
     plan: Optional[Union[ExecutionPlan, str, dict, ComputeConfig]] = None
     attn_impl: str = "naive"
     kv_quant: str = "none"
     capacity_factor: float = 1.25
+    remat: bool = True
+    z_loss: float = 1e-4
 
     ATTN_IMPLS = ("naive", "flash")
     KV_QUANTS = ("none", "int8")
@@ -242,16 +249,21 @@ _CORE_GEMMS = {"attn": _ATTN_GEMMS, "local": _ATTN_GEMMS, "xattn": _ATTN_GEMMS,
 
 
 # ------------------------------------------------------------------ blocks
-def _mlp(p, x, cfg, sites, capacity_factor: float = 1.25, full_capacity: bool = False):
-    """The block's MLP or MoE with its residual (the MoE's load-balance
-    loss is dropped: no serving path reads it)."""
+def _mlp_aux(p, x, cfg, sites, capacity_factor: float = 1.25, full_capacity: bool = False):
+    """The block's MLP or MoE with its residual, and the MoE's load-balance
+    loss (None without a MoE)."""
     if "mlp" not in p:
-        return x
+        return x, None
     h2 = norm_apply(p["post_norm"], x, cfg.norm, cfg.norm_eps)
     if cfg.moe is not None:
-        return x + moe_mod.moe_apply(p["mlp"], h2, cfg, sites, capacity_factor,
-                                     full_capacity)[0]
-    return x + mlp_apply(p["mlp"], h2, cfg, sites)
+        out, aux = moe_mod.moe_apply(p["mlp"], h2, cfg, sites, capacity_factor, full_capacity)
+        return x + out, aux
+    return x + mlp_apply(p["mlp"], h2, cfg, sites), None
+
+
+def _mlp(p, x, cfg, sites, capacity_factor: float = 1.25, full_capacity: bool = False):
+    """:func:`_mlp_aux` without the load-balance loss (the serving paths)."""
+    return _mlp_aux(p, x, cfg, sites, capacity_factor, full_capacity)[0]
 
 
 _CORE_SEQ = {"rglru": rglru_mod.rglru_seq, "mlstm": xlstm_mod.mlstm_seq,
@@ -265,30 +277,86 @@ def _head(params, x, cfg, opts):
     return head_apply(params["head"], params["embedding"], x, cfg, opts.plan.site("lm_head"))
 
 
+def _block_seq(p, x, cfg, kind, sites, opts, vision_embeds, return_state, max_len):
+    """One block over the full sequence: (x, serving state | None, MoE aux
+    | None)."""
+    h = norm_apply(p["pre_norm"], x, cfg.norm, cfg.norm_eps)
+    if kind in _CORE_SEQ:
+        out, st = _CORE_SEQ[kind](p["core"], h, cfg, sites, return_state=return_state)
+    else:
+        out, st = attn.attn_seq(p["core"], h, cfg, kind=kind, sites=sites,
+                                use_flash=(opts.attn_impl == "flash"),
+                                kv_src=vision_embeds, return_cache=return_state,
+                                max_len=max_len)
+    x, aux = _mlp_aux(p, x + out, cfg, sites, opts.capacity_factor)
+    return x, st, aux
+
+
+def _records_grad(x: torch.Tensor, blocks) -> bool:
+    """Whether autograd records a pass of ``blocks`` over ``x``."""
+    return x.requires_grad or any(isinstance(t, torch.Tensor) and t.requires_grad
+                                  for t in tree_util.leaves(blocks))
+
+
+def forward_aux(params, tokens: torch.Tensor, cfg: ArchConfig, opts: ModelOptions,
+                return_states: bool = False, max_len: Optional[int] = None,
+                vision_embeds: Optional[torch.Tensor] = None):
+    """Full-sequence pass over ``tokens [B, S]`` (``[B, C, S]``
+    multi-codebook).  Returns (logits [B, S, V] (``[B, S, C, V]``), the
+    MoE layers' load-balance losses summed (a float32 scalar, 0 without a
+    MoE), per-layer serving states | None: dense ``KVCache``s, the
+    ``xattn`` layers' cross caches of ``vision_embeds [B, T, D]``'s K/V,
+    and recurrent states).  A stack with ``xattn`` layers needs
+    ``vision_embeds``.  A MoE layer runs at ``opts.capacity_factor``.
+
+    With ``opts.remat``, while grad is enabled and the pass returns no
+    states, each pattern period whose input or parameters require grad
+    runs under ``torch.utils.checkpoint`` (non-reentrant): its activations
+    are recomputed in the backward pass, as the reference's
+    ``jax.checkpoint`` over its scanned unit does.  Remainder layers are
+    not checkpointed, as in the reference."""
+    _check_supported(cfg)
+    x = embed_tokens(params["embedding"], tokens, cfg)
+    layer_sites = _layer_sites(opts.plan, cfg)
+    kinds = cfg.layer_kinds
+    remat = opts.remat and not return_states and torch.is_grad_enabled()
+
+    def run(lo: int, hi: int, x):
+        aux, sts = None, []
+        for li in range(lo, hi):
+            x, st, a = _block_seq(params["layers"][li], x, cfg, kinds[li], layer_sites[li], opts,
+                                  vision_embeds, return_states, max_len)
+            if a is not None:
+                aux = a if aux is None else aux + a
+            sts.append(st)
+        return x, aux, sts
+
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    states: List[Any] = []
+    period = len(cfg.block_pattern)
+    n_unit = cfg.n_pattern_units * period
+    bounds = [(lo, lo + period) for lo in range(0, n_unit, period)]
+    bounds += [(li, li + 1) for li in range(n_unit, cfg.n_layers)]
+    for lo, hi in bounds:
+        if remat and lo < n_unit and _records_grad(x, params["layers"][lo:hi]):
+            x, aux, sts = checkpoint(run, lo, hi, x, use_reentrant=False,
+                                     preserve_rng_state=False)  # the blocks draw nothing
+        else:
+            x, aux, sts = run(lo, hi, x)
+        if aux is not None:
+            total = total + aux
+        states += sts
+    return _head(params, x, cfg, opts), total, (states if return_states else None)
+
+
 def forward(params, tokens: torch.Tensor, cfg: ArchConfig, opts: ModelOptions,
             return_states: bool = False, max_len: Optional[int] = None,
             vision_embeds: Optional[torch.Tensor] = None):
-    """Full-sequence pass over ``tokens [B, S]`` (``[B, C, S]``
-    multi-codebook).  Returns (logits [B, S, V] (``[B, S, C, V]``),
-    per-layer serving states | None: dense ``KVCache``s, the ``xattn``
-    layers' cross caches of ``vision_embeds [B, T, D]``'s K/V, and
-    recurrent states).  A stack with ``xattn`` layers needs
-    ``vision_embeds``.  A MoE layer runs at ``opts.capacity_factor``."""
-    _check_supported(cfg)
-    x = embed_tokens(params["embedding"], tokens, cfg)
-    states: List[Any] = []
-    for p, kind, sites in zip(params["layers"], cfg.layer_kinds, _layer_sites(opts.plan, cfg)):
-        h = norm_apply(p["pre_norm"], x, cfg.norm, cfg.norm_eps)
-        if kind in _CORE_SEQ:
-            out, st = _CORE_SEQ[kind](p["core"], h, cfg, sites, return_state=return_states)
-        else:
-            out, st = attn.attn_seq(p["core"], h, cfg, kind=kind, sites=sites,
-                                    use_flash=(opts.attn_impl == "flash"),
-                                    kv_src=vision_embeds, return_cache=return_states,
-                                    max_len=max_len)
-        x = _mlp(p, x + out, cfg, sites, opts.capacity_factor)
-        states.append(st)
-    return _head(params, x, cfg, opts), (states if return_states else None)
+    """:func:`forward_aux` without the load-balance loss: (logits,
+    per-layer serving states | None)."""
+    logits, _, states = forward_aux(params, tokens, cfg, opts, return_states, max_len,
+                                    vision_embeds)
+    return logits, states
 
 
 def decode_step(params, token: torch.Tensor, states, pos: torch.Tensor, cfg: ArchConfig,

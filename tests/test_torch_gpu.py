@@ -594,3 +594,32 @@ def test_xlstm_blocks_on_card_match_cpu(cuda, kind):
 
     for g, w in zip(run(to(p), x.to(cuda)), run(p, x)):
         torch.testing.assert_close(g.cpu(), w, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 37, 130), (1, 256, 64)])
+def test_rglru_scan_gradient_on_card(cuda, shape):
+    """The scan's gradient on the card: forward and backward each one
+    launch of the kernel (the backward counted apart too), ``da``/``db``
+    against autograd through the plain loop on the card within 2e-5 of
+    the largest gradient (each side scans in its own order); and a
+    training call into flash attention raises there as on the CPU."""
+    from repro_torch.kernels import launch_counts, reset_launches
+
+    gen = torch.Generator().manual_seed(sum(shape))
+    a = (torch.rand(*shape, generator=gen) * 0.95 + 0.04).to(cuda)
+    b = torch.randn(*shape, generator=gen).to(cuda)
+    dh = torch.randn(*shape, generator=gen).to(cuda)
+    reset_launches()
+    ta, tb = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+    got = torch.autograd.grad(rg_ops.rglru_scan(ta, tb), (ta, tb), dh)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["rglru_scan"] == 2 and counts["rglru_scan_backward"] == 1
+    pa, pb = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+    want = torch.autograd.grad(rglru_scan_ref(pa, pb), (pa, pb), dh)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 2e-5 * float(w.abs().max())
+    q = torch.randn(1, 2, 8, 64, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="has no backward"):
+        fa_ops.flash_attention(q, q.detach()[:, :1], q.detach()[:, :1])
