@@ -62,7 +62,12 @@ backward held against autograd through the plain loop (the scan's
 launches per step asserted), granite-moe-1b-a400m whole for 4 steps
 (finite loss and gradients, load-balance loss above 0), reduced models'
 losses card against CPU, and ``Model.loss`` under ``flash`` and ``int8``
-refused.  One int8
+refused.  Sharded training (``[shard]``): two ranks spawned on the card
+over a gloo group (``FileStore``), the collectives gloo takes on CUDA
+tensors printed, full-width qwen1.5-0.5b on a data 2 x model 1 mesh for 4
+ZeRO-3 steps held against ``[train]``'s first losses (each rank's step ms
+and peak memory printed), and a reduced float32 qwen3-moe-30b-a3b's two
+sharded steps held against the one-process card steps.  One int8
 product runs on ``wgmma`` with TMA-fed tiles at admission and on a
 weight-streaming kernel at decode: both are held bit for bit at
 stablelm's and recurrentgemma's serving shapes, at every shape the
@@ -3852,7 +3857,7 @@ def train_qwen(cfg, dev, argv) -> dict:
         step_ms = statistics.median(times)
         out = dict(step_ms=step_ms, tok_s=batch * seq / step_ms * 1e3, peak_gb=peak,
                    save_s=save_s, ckpt_gb=ckpt_bytes / 1e9, loss_first3=first, loss_last3=last,
-                   **prof)
+                   losses=cl, **prof)
         log(f"[train] {cfg.name} ({cfg.n_layers}L d{cfg.d_model}, {n_params / 1e6:.1f}M "
             f"params, float32 masters, bf16 compute), batch {batch} x {seq}: loss "
             f"{first:.4f} -> {last:.4f} (mean of the first and last 3 steps); step "
@@ -4036,6 +4041,253 @@ def train_guard(dev) -> None:
             log(f"[train guard] Model.loss under {label} on {dev}: refused ({e})")
         else:
             raise AssertionError(f"Model.loss under {label} returned instead of raising")
+
+
+# [shard]: the sharded ZeRO-3 step (repro_torch.parallel.step) on two ranks
+# sharing cuda:0, a gloo group over a FileStore in a temporary directory;
+# full-width qwen1.5-0.5b on data 2 x model 1 under tp_fsdp, [train]'s seed,
+# lr, warmup, total steps and batch, its losses held within SHARD_TOL of
+# [train]'s first clean losses (bf16 compute: each rank runs half the rows,
+# so cuBLAS may pick other kernels).  The warmup makes the held steps'
+# updates small (learning-rate scales 0, 0.05, 0.10, 0.15), too small to
+# move those losses past SHARD_TOL, so the update is held on its own: the
+# params after the held steps, gathered, against a one-process run of the
+# same steps on rank 0, as |sharded - one-process| / |one-process - start|
+# over every leaf (within SHARD_UPDATE_TOL) and per leaf (SHARD_LEAF_TOL).
+# Two controls read the same gap and must lie past SHARD_UPDATE_TOL: a
+# state left unchanged (1 by construction) and a step on rank 0's rows
+# alone (what a step that skips the gradient sum over the data-parallel
+# ranks does).  Then reduced float32 qwen3-moe-30b-a3b from a state two
+# one-process card steps left, SHARD_MOE_STEPS sharded steps against the
+# one-process card steps: losses within 1e-5, aux within 1e-6 relative,
+# every updated leaf within 1e-5 of its largest magnitude
+SHARD_STEPS, SHARD_TOL = 4, 5e-3
+SHARD_UPDATE_TOL, SHARD_LEAF_TOL = 0.25, 0.5
+SHARD_MOE_STEPS, SHARD_MOE_B, SHARD_MOE_S = 2, 8, 128  # 1024 tokens: a group of 512 a rank
+SHARD_MOE_WARM = 2  # one-process steps before the held ones
+
+
+def _moe_shard_setup(dev):
+    """(cfg, model, the state after SHARD_MOE_WARM one-process steps, the
+    held steps' batches, the one-process step) for the MoE check."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import build_train_step
+    from repro_torch.models.model import Model
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cfg = get_arch("qwen3-moe-30b-a3b").reduced(dtype="float32", n_layers=2)
+    model = Model(cfg, device=dev)
+    step = build_train_step(model, AdamWConfig(lr=1e-3), 8, 1)
+    rng = np.random.default_rng(7)
+    batches = [{"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (SHARD_MOE_B, SHARD_MOE_S))
+                                           .astype(np.int32)).to(dev)}
+               for _ in range(SHARD_MOE_WARM + SHARD_MOE_STEPS)]
+    params = model.init(seed=0)
+    state = {"params": params, "opt": adamw_init(params)}
+    for b in batches[:SHARD_MOE_WARM]:
+        p, o, _ = step(state["params"], state["opt"], b)
+        state = {"params": p, "opt": o}
+    return cfg, model, state, batches[SHARD_MOE_WARM:], step
+
+
+def _update_gap(got, want, start):
+    """(|got - want| / |want - start| over every leaf, that ratio for each
+    leaf whose ``want`` moved, as {index: ratio}): how far ``got``'s
+    update lies from ``want``'s, as a share of ``want``'s."""
+    num = den = 0.0
+    per_leaf = {}
+    for i, (g, w, s0) in enumerate(zip(got, want, start)):
+        d = float(torch.sum(torch.square(g.float() - w.float())))
+        u = float(torch.sum(torch.square(w.float() - s0.float())))
+        num, den = num + d, den + u
+        if u > 0:
+            per_leaf[i] = (d / u) ** 0.5
+    return (num / den) ** 0.5, per_leaf
+
+
+def _shard_update_check(model, dev, ds, lr, total, got, half) -> dict:
+    """The sharded run's params after SHARD_STEPS steps (``got``, full)
+    against a one-process run of the same steps from the same init, and
+    the two controls' gaps (``_update_gap``): the init itself (a state
+    left unchanged) and a one-process run on each batch's first ``half``
+    rows (rank 0's rows: a step that skips the gradient sum)."""
+    from repro_torch import tree as tree_util
+    from repro_torch.data import batch_to
+    from repro_torch.launch.train import build_train_step
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    def run(rows):
+        step = build_train_step(model, AdamWConfig(lr=lr), total, 20)
+        params = model.init(seed=0)
+        opt = adamw_init(params)
+        losses, norms = [], []
+        for s in range(SHARD_STEPS):
+            b = {k: v[:rows] for k, v in batch_to(ds.batch_at(s), dev).items()}
+            params, opt, m = step(params, opt, b)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        return tree_util.leaves(params), losses, norms
+
+    start = tree_util.leaves(model.init(seed=0))
+    want, losses, norms = run(None)
+    names = [p for p, _ in tree_util.paths(model.param_shapes())]
+    gap, per_leaf = _update_gap(got, want, start)
+    worst = sorted(per_leaf, key=per_leaf.get)[::-1][:3]
+    own = run(half)[0]
+    rec = {"gap": gap, "worst": [(names[i], per_leaf[i]) for i in worst],
+           "unchanged_gap": _update_gap(start, want, start)[0],
+           "own_rows_gap": _update_gap(own, want, start)[0],
+           "one_process_losses": losses, "one_process_grad_norms": norms}
+    del own, want, start
+    return rec
+
+
+def shard_rank(rank, world, out, qwen_argv, dev_type="cuda", reduced=False) -> None:
+    """One rank of ``[shard]`` (spawned by ``repro_torch.parallel.spawn``):
+    the collectives probe, the full-width qwen steps, the MoE check; each
+    rank writes its record to ``out``.  ``dev_type="cpu"`` and ``reduced``
+    rehearse it on the CPU."""
+    import statistics
+
+    import torch.distributed as dist
+
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import get_arch
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.launch.mesh import MeshShape, make_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.parallel.step import build_sharded_train_step, probe_collectives
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0) if dev_type == "cuda" else torch.device(dev_type)
+    rec = {"rank": rank, "probe": probe_collectives(dev)}
+    mesh = make_mesh(MeshShape((2, 1), ("data", "model")), dev_type)
+    steps, batch, seq = (int(qwen_argv[qwen_argv.index(f) + 1])
+                         for f in ("--steps", "--batch", "--seq"))
+    lr = float(qwen_argv[qwen_argv.index("--lr") + 1])
+    cfg = get_arch("qwen1.5-0.5b")
+    cfg = cfg.reduced() if reduced else cfg
+    model = Model(cfg, device=dev)
+    step = build_sharded_train_step(model, AdamWConfig(lr=lr), mesh, "tp_fsdp", steps, 20)
+    params = model.init(seed=0)
+    state = step.shard_state({"params": params, "opt": adamw_init(params)})
+    del params
+    rec["local_gb"] = sum(t.to_local().numel() * 4 for part in (
+        state["params"], state["opt"]["m"], state["opt"]["v"])
+        for t in tree_util.leaves(part)) / 1e9
+    ds = SyntheticLMDataset(DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch, seed=0))
+    _free(dev)
+    _reset_peak(dev)
+    losses, norms, times = [], [], []
+    for s in range(SHARD_STEPS):
+        _sync(dev)
+        t0 = time.perf_counter()
+        p, o, m = step(state["params"], state["opt"], ds.batch_at(s))
+        losses.append(float(m["loss"]))  # waits for the step
+        times.append((time.perf_counter() - t0) * 1e3)
+        norms.append(float(m["grad_norm"]))
+        state = {"params": p, "opt": o}
+    rec.update(losses=losses, grad_norms=norms, step_ms=times,
+               median_ms=statistics.median(times), peak_gb=_peak_gb(dev))
+    got = [step.gather(t) for t in tree_util.leaves(state["params"])]
+    del state, p, o, step
+    _free(dev)
+    if rank == 0:
+        rec["update"] = _shard_update_check(model, dev, ds, lr, steps, got, batch // 2)
+    del got, model
+    _free(dev)
+    dist.barrier()
+
+    # the MoE check: the one-process card steps, then the sharded ones
+    mcfg, mmodel, start, batches, one_step = _moe_shard_setup(dev)
+    want, st = [], start
+    for b in batches:
+        with torch.no_grad():
+            aux = float(mmodel.loss(st["params"], b)[1]["aux"])
+        p, o, m = one_step(st["params"], st["opt"], b)
+        want.append((float(m["loss"]), aux))
+        st = {"params": p, "opt": o}
+    ref_leaves = [tree_util.leaves(st["params"]), tree_util.leaves(st["opt"]["m"]),
+                  tree_util.leaves(st["opt"]["v"])]
+    mstep = build_sharded_train_step(mmodel, AdamWConfig(lr=1e-3), mesh, "tp_fsdp", 8, 1)
+    sst = mstep.shard_state(start)
+    got = []
+    for b in batches:
+        p, o, m = mstep(sst["params"], sst["opt"], {"tokens": b["tokens"].cpu()})
+        got.append((float(m["loss"]), float(m["aux"])))
+        sst = {"params": p, "opt": o}
+    full = mstep.full_state(sst)
+    errs = []
+    for mine, ref in zip([tree_util.leaves(full["params"]), tree_util.leaves(full["opt"]["m"]),
+                          tree_util.leaves(full["opt"]["v"])], ref_leaves):
+        errs += [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                 for a, b in zip(mine, ref)]
+    rec["moe"] = {"losses": [g[0] for g in got], "one_process_losses": [w[0] for w in want],
+                  "aux": [g[1] for g in got], "max_leaf_rel": max(errs),
+                  "one_process_aux": [a for _, a in want]}
+    with open(os.path.join(out, f"shard_{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def shard_phase(dev, train_out: dict, reduced: bool = False) -> None:
+    """Phase ``[shard]``: two ranks on ``dev`` (see ``shard_rank``); the
+    probe, the losses against ``[train]``'s, each rank's peak memory and
+    step times, the MoE check.  Raises on any gap past its bound."""
+    import tempfile
+
+    from repro_torch.parallel.spawn import spawn
+
+    _free(dev)
+    out = tempfile.mkdtemp(prefix="shard_")
+    try:
+        spawn(shard_rank, 2, out, QWEN_TRAIN, dev.type, reduced, store_dir=out)
+        recs = []
+        for r in range(2):
+            with open(os.path.join(out, f"shard_{r}.json")) as f:
+                recs.append(json.load(f))
+    finally:
+        import shutil
+
+        shutil.rmtree(out, ignore_errors=True)
+    where = torch.cuda.get_device_name(0) if dev.type == "cuda" else dev.type
+    log(f"[shard] gloo on {dev.type} tensors of {where}: {recs[0]['probe']}")
+    want = train_out["losses"][:SHARD_STEPS]
+    got = recs[0]["losses"]
+    gaps = [abs(a - b) for a, b in zip(got, want)]
+    log(f"[shard] qwen1.5-0.5b full width, mesh data 2 x model 1 (tp_fsdp), batch "
+        f"{QWEN_TRAIN[QWEN_TRAIN.index('--batch') + 1]} x {QWEN_TRAIN[QWEN_TRAIN.index('--seq') + 1]}"
+        f": losses {got} against [train]'s {want}: largest gap {max(gaps):.3e} "
+        f"(bound {SHARD_TOL})")
+    for rec in recs:
+        log(f"[shard] rank {rec['rank']}: step ms {[round(t, 1) for t in rec['step_ms']]} "
+            f"(median {rec['median_ms']:.1f}); peak device memory {rec['peak_gb']:.2f} GB "
+            f"(max_memory_allocated over the steps; [train]'s one process: "
+            f"{train_out['peak_gb']:.2f} GB); params + m + v held {rec['local_gb']:.2f} GB")
+    upd = recs[0]["update"]
+    ngap = max(abs(a - b) / b for a, b in zip(recs[0]["grad_norms"],
+                                              upd["one_process_grad_norms"]))
+    log(f"[shard] update after {SHARD_STEPS} steps against a one-process run of them on rank "
+        f"0: gap {upd['gap']:.3e} of the one-process update over every leaf (bound "
+        f"{SHARD_UPDATE_TOL}), the three largest of one leaf "
+        f"{', '.join(f'{n} {g:.3e}' for n, g in upd['worst'])} (bound "
+        f"{SHARD_LEAF_TOL}); controls: state unchanged {upd['unchanged_gap']:.3e}, "
+        f"rank 0's rows alone {upd['own_rows_gap']:.3e}; grad norms {recs[0]['grad_norms']} "
+        f"against the one-process {upd['one_process_grad_norms']} (largest relative gap "
+        f"{ngap:.3e}); the one-process losses {upd['one_process_losses']}")
+    assert recs[0]["losses"] == recs[1]["losses"], "the ranks disagree on the loss"
+    assert max(gaps) <= SHARD_TOL, (got, want)
+    assert upd["gap"] <= SHARD_UPDATE_TOL and upd["worst"][0][1] <= SHARD_LEAF_TOL, upd
+    assert min(upd["unchanged_gap"], upd["own_rows_gap"]) > SHARD_UPDATE_TOL, upd
+    moe = recs[0]["moe"]
+    lgap = max(abs(a - b) for a, b in zip(moe["losses"], moe["one_process_losses"]))
+    agap = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(moe["aux"], moe["one_process_aux"]))
+    log(f"[shard moe] reduced float32 qwen3-moe-30b-a3b, {SHARD_MOE_STEPS} steps on data 2 x "
+        f"model 1 against the one-process card steps: losses {moe['losses']} vs "
+        f"{moe['one_process_losses']} (gap {lgap:.3e}), aux gap {agap:.3e}, largest updated "
+        f"leaf gap {moe['max_leaf_rel']:.3e} of its largest magnitude")
+    assert lgap < 1e-5 and agap <= 1e-6 and moe["max_leaf_rel"] <= 1e-5, moe
 
 
 def _to(tree, device):
@@ -4230,7 +4482,7 @@ def main() -> None:
     assert (qwen.n_layers, qwen.d_model, qwen.n_heads, qwen.head_dim, qwen.d_ff, qwen.vocab,
             qwen.tie_embeddings, qwen.dtype) == (24, 1024, 16, 64, 2816, 151936, True,
                                                  "bfloat16")
-    train_qwen(qwen, dev, QWEN_TRAIN)
+    train_out = train_qwen(qwen, dev, QWEN_TRAIN)
     elapsed("train")
     rg_train = dataclasses.replace(rg, n_layers=len(rg.block_pattern), dtype="float32")
     assert (rg_train.layer_kinds, rg_train.n_pattern_units) == (("rglru", "rglru", "local"), 1)
@@ -4241,6 +4493,8 @@ def main() -> None:
     train_card_vs_cpu(dev)
     train_guard(dev)
     elapsed("train card vs CPU")
+    shard_phase(dev, train_out)
+    elapsed("shard")
 
     # launches: summed over the serving runs of the row's model (the rows
     # at recurrentgemma's shapes over its runs and its training step,

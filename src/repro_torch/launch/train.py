@@ -12,8 +12,13 @@ recovery.  The data and the checkpoints are exact, so a resumed run
 reproduces the fault-free loss trajectory bit for bit on one device and
 one set of kernels.
 
-Runs on the card unless ``--device cpu``.  Sharding (``--production-mesh``)
-is not ported yet and is refused.
+Runs on the card unless ``--device cpu``.  ``--production-mesh`` trains
+sharded over the 16 x 16 ``("data", "model")`` mesh (``parallel.step``:
+ZeRO-3 storage by the rule table, ``tp_fsdp``) on every rank of a
+launcher's world, which must be the mesh's size (``WORLD_SIZE``; the
+group comes from the launcher's ``env://``, or is the one already
+initialised); rank 0 writes the checkpoints, full arrays that a
+one-process run reads as its own.
 
 Usage (a reduced model on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b --reduced \
@@ -23,6 +28,7 @@ Usage (a reduced model on the CPU):
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
@@ -32,14 +38,30 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_arch
 from repro_torch.data import DataConfig, Prefetcher, SyntheticLMDataset, batch_to
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import MeshShape, make_mesh, mesh_shape
 from repro_torch.models.model import Model
 from repro_torch.models.transformer import ModelOptions
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, cosine_schedule
+from repro_torch.parallel.step import build_sharded_train_step
 from repro_torch.runtime import FaultInjector, run_with_restarts
+from repro_torch.runtime.elastic import ShardedCheckpoints
 
-SHARDING_REFUSAL = ("--production-mesh: sharding is not ported yet (ROADMAP.md, queue 1 "
-                    "item 4: parallel/sharding.py as DeviceMesh/DTensor rules, then "
-                    "launch/mesh.py); this driver trains on one device")
+
+def _join_world(spec: MeshShape, cuda: bool) -> None:
+    """Join the launcher's group (``env://``; NCCL with one card a rank,
+    at ``LOCAL_RANK``) unless one is initialised; the world must be the
+    mesh's size."""
+    import torch.distributed as dist
+
+    world = (dist.get_world_size() if dist.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", "1")))
+    if world != spec.size:
+        raise SystemExit(f"mesh {spec.label} over {spec.mesh_dim_names}: needs a world of "
+                         f"{spec.size} ranks; the launcher's world size is {world}")
+    if not dist.is_initialized():
+        if cuda:
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        dist.init_process_group("nccl" if cuda else "gloo", init_method="env://")
 
 
 def build_train_step(model: Model, ocfg: AdamWConfig, total_steps: int, warmup: int):
@@ -74,17 +96,18 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--fail-at", default="", help="comma-separated steps to inject faults")
     ap.add_argument("--production-mesh", action="store_true",
-                    help="refused: sharding is not ported yet")
+                    help="shard over the 16 x 16 mesh (a launcher's world of 256)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--prefetch", action="store_true",
                     help="background data prefetch w/ straggler deadline+backup")
     ap.add_argument("--prefetch-timeout", type=float, default=30.0)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.production_mesh:
-        raise SystemExit(SHARDING_REFUSAL)
-
+    spec = mesh_shape() if args.production_mesh else None
+    if spec is not None:
+        _join_world(spec, cuda=resolve_device(args.device).type == "cuda")
     device = resolve_device(args.device)
+    mesh = None if spec is None else make_mesh(spec, device.type)
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -99,12 +122,18 @@ def main(argv=None):
     prefetcher = (Prefetcher(dataset, timeout_s=args.prefetch_timeout).start()
                   if args.prefetch else None)
     injector = FaultInjector(int(s) for s in args.fail_at.split(",") if s)
-    train_step = build_train_step(model, ocfg, args.steps, args.warmup)
+    train_step = build_sharded_train_step(model, ocfg, mesh, "tp_fsdp", args.steps, args.warmup)
     mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
 
     def init_state():
         params = model.init(args.seed)
-        return {"params": params, "opt": adamw_init(params)}
+        state = {"params": params, "opt": adamw_init(params)}
+        return state if mesh is None else train_step.shard_state(state)
+
+    if mesh is not None and mgr is not None:
+        shapes = model.param_shapes()
+        mgr = ShardedCheckpoints(CheckpointManager(args.ckpt_dir, async_write=False),
+                                 train_step, {"params": shapes, "opt": adamw_init(shapes)})
 
     t_last = [time.time()]
 
@@ -112,10 +141,14 @@ def main(argv=None):
         injector.check(step)
         batch = prefetcher.get(step) if prefetcher else dataset.batch_at(step)
         params, opt, metrics = train_step(state["params"], state["opt"],
-                                          batch_to(batch, device))
+                                          batch_to(batch, device) if mesh is None else batch)
         return {"params": params, "opt": opt}, metrics
 
+    quiet = mesh is not None and torch.distributed.get_rank() != 0
+
     def on_metrics(step, m):
+        if quiet:
+            return
         if step % args.log_every == 0 or step == args.steps - 1:
             dt = time.time() - t_last[0]
             t_last[0] = time.time()
@@ -136,6 +169,8 @@ def main(argv=None):
     if prefetcher and prefetcher.substituted_steps:
         print(f"straggler substitutions at steps {prefetcher.substituted_steps}")
     losses = [m["loss"] for m in summary["metrics"].values()]
+    if quiet:
+        return summary
     print(f"done: {len(losses)} steps, restarts={summary['restarts']}, "
           f"first-loss {losses[0]:.4f} last-loss {losses[-1]:.4f}, wall {summary['wall_s']:.1f}s")
     return summary

@@ -137,10 +137,14 @@ def combine(expert_out: torch.Tensor, slot: torch.Tensor, gates: torch.Tensor,
 def moe_apply(p, x: torch.Tensor, cfg: ArchConfig,
               sites: Union[ComputeConfig, SiteBinding] = EXACT,
               capacity_factor: float = 1.25, full_capacity: bool = False,
-              group_size: int = MOE_GROUP) -> Tuple[torch.Tensor, torch.Tensor]:
+              group_size: int = MOE_GROUP, dp=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """``x [B, S, D]`` -> (output ``[B, S, D]`` in ``x``'s dtype, the
     load-balance loss, a float32 scalar).  ``full_capacity`` (decode)
-    sizes the buffers so no pair can drop."""
+    sizes the buffers so no pair can drop.  With ``dp``
+    (``parallel.dp.DataParallel``; ``x`` is this rank's rows) the loss is
+    the global batch's: both token means are summed over the
+    data-parallel ranks before their product, its gradient this rank's
+    part."""
     m = cfg.moe
     b, s, d = x.shape
     sites = as_binding(sites)
@@ -167,7 +171,15 @@ def moe_apply(p, x: torch.Tensor, cfg: ArchConfig,
     expert_out = product(h, "w_down", "expert_down")  # [E, G, min(cap, g), D]
     out = combine(expert_out, slot, gates, x.dtype).reshape(b, s, d)
     # Switch load-balance loss: E * sum(mean router prob x dispatch fraction)
-    me = probs.mean((0, 1))
-    ce = (onehot.sum(2) > 0).to(torch.float32).mean((0, 1))
-    aux = e * torch.sum(me * ce) * m.load_balance_coef
+    if dp is None:
+        me = probs.mean((0, 1))
+        ce = (onehot.sum(2) > 0).to(torch.float32).mean((0, 1))
+        aux = e * torch.sum(me * ce) * m.load_balance_coef
+        return out.to(x.dtype), aux
+    n_tok = t * dp.size
+    me_part = probs.sum((0, 1)) / n_tok
+    ce = dp.sum((onehot.sum(2) > 0).to(torch.float32).sum((0, 1))) / n_tok
+    me = dp.sum(me_part)
+    aux = dp.global_value(e * torch.sum(me_part * ce) * m.load_balance_coef,
+                       e * torch.sum(me * ce) * m.load_balance_coef)
     return out.to(x.dtype), aux

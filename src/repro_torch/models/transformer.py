@@ -155,11 +155,15 @@ def block_init(gen: torch.Generator, cfg: ArchConfig, kind: str, device=None):
 
 def init_params(cfg: ArchConfig, seed: int, device) -> Dict[str, Any]:
     """Random float32 parameters drawn from a seeded ``torch.Generator`` on
-    ``device`` (the reference's shapes and scales; not its draws)."""
+    ``device`` (the reference's shapes and scales; not its draws).  On the
+    meta device, which has no generator, the same tree of shapes and
+    dtypes with nothing drawn."""
     _check_supported(cfg)
     dev = torch.device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = None
+    if dev.type != "meta":
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
     return {
         "embedding": embedding_init(gen, cfg, dev),
         "head": head_init(gen, cfg, dev),
@@ -249,14 +253,17 @@ _CORE_GEMMS = {"attn": _ATTN_GEMMS, "local": _ATTN_GEMMS, "xattn": _ATTN_GEMMS,
 
 
 # ------------------------------------------------------------------ blocks
-def _mlp_aux(p, x, cfg, sites, capacity_factor: float = 1.25, full_capacity: bool = False):
+def _mlp_aux(p, x, cfg, sites, capacity_factor: float = 1.25, full_capacity: bool = False,
+             dp=None):
     """The block's MLP or MoE with its residual, and the MoE's load-balance
-    loss (None without a MoE)."""
+    loss (None without a MoE; over every data-parallel rank's tokens with
+    ``dp``)."""
     if "mlp" not in p:
         return x, None
     h2 = norm_apply(p["post_norm"], x, cfg.norm, cfg.norm_eps)
     if cfg.moe is not None:
-        out, aux = moe_mod.moe_apply(p["mlp"], h2, cfg, sites, capacity_factor, full_capacity)
+        out, aux = moe_mod.moe_apply(p["mlp"], h2, cfg, sites, capacity_factor, full_capacity,
+                                     dp=dp)
         return x + out, aux
     return x + mlp_apply(p["mlp"], h2, cfg, sites), None
 
@@ -277,7 +284,7 @@ def _head(params, x, cfg, opts):
     return head_apply(params["head"], params["embedding"], x, cfg, opts.plan.site("lm_head"))
 
 
-def _block_seq(p, x, cfg, kind, sites, opts, vision_embeds, return_state, max_len):
+def _block_seq(p, x, cfg, kind, sites, opts, vision_embeds, return_state, max_len, dp=None):
     """One block over the full sequence: (x, serving state | None, MoE aux
     | None)."""
     h = norm_apply(p["pre_norm"], x, cfg.norm, cfg.norm_eps)
@@ -288,7 +295,7 @@ def _block_seq(p, x, cfg, kind, sites, opts, vision_embeds, return_state, max_le
                                 use_flash=(opts.attn_impl == "flash"),
                                 kv_src=vision_embeds, return_cache=return_state,
                                 max_len=max_len)
-    x, aux = _mlp_aux(p, x + out, cfg, sites, opts.capacity_factor)
+    x, aux = _mlp_aux(p, x + out, cfg, sites, opts.capacity_factor, dp=dp)
     return x, st, aux
 
 
@@ -300,14 +307,16 @@ def _records_grad(x: torch.Tensor, blocks) -> bool:
 
 def forward_aux(params, tokens: torch.Tensor, cfg: ArchConfig, opts: ModelOptions,
                 return_states: bool = False, max_len: Optional[int] = None,
-                vision_embeds: Optional[torch.Tensor] = None):
+                vision_embeds: Optional[torch.Tensor] = None, dp=None):
     """Full-sequence pass over ``tokens [B, S]`` (``[B, C, S]``
     multi-codebook).  Returns (logits [B, S, V] (``[B, S, C, V]``), the
     MoE layers' load-balance losses summed (a float32 scalar, 0 without a
     MoE), per-layer serving states | None: dense ``KVCache``s, the
     ``xattn`` layers' cross caches of ``vision_embeds [B, T, D]``'s K/V,
     and recurrent states).  A stack with ``xattn`` layers needs
-    ``vision_embeds``.  A MoE layer runs at ``opts.capacity_factor``.
+    ``vision_embeds``.  A MoE layer runs at ``opts.capacity_factor``;
+    with ``dp`` (``parallel.dp.DataParallel``) its load-balance loss is
+    that of every data-parallel rank's tokens.
 
     With ``opts.remat``, while grad is enabled and the pass returns no
     states, each pattern period whose input or parameters require grad
@@ -325,7 +334,7 @@ def forward_aux(params, tokens: torch.Tensor, cfg: ArchConfig, opts: ModelOption
         aux, sts = None, []
         for li in range(lo, hi):
             x, st, a = _block_seq(params["layers"][li], x, cfg, kinds[li], layer_sites[li], opts,
-                                  vision_embeds, return_states, max_len)
+                                  vision_embeds, return_states, max_len, dp)
             if a is not None:
                 aux = a if aux is None else aux + a
             sts.append(st)

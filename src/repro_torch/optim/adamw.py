@@ -11,7 +11,7 @@ at once.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -44,18 +44,22 @@ def global_norm(tree) -> torch.Tensor:
 
 
 def adamw_update(params, grads, state, cfg: AdamWConfig,
-                 lr_scale: Union[torch.Tensor, float] = 1.0
+                 lr_scale: Union[torch.Tensor, float] = 1.0,
+                 gnorm: Optional[torch.Tensor] = None,
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One step: gradients scaled by ``min(1, clip_norm / |g|)``, moments
     updated, the bias-corrected step plus ``weight_decay * p`` taken at
-    ``lr * lr_scale``.  Returns (params, state, {"grad_norm"})."""
+    ``lr * lr_scale``.  Returns (params, state, {"grad_norm"}).  ``gnorm``
+    is ``|g|`` when the caller has it (a sharded step: ``grads`` are this
+    rank's shards), else ``global_norm(grads)``."""
     p = tree_util.leaves(params)
     g = [leaf.to(torch.float32) for leaf in tree_util.leaves(grads)]
     m, v = tree_util.leaves(state["m"]), tree_util.leaves(state["v"])
     if not (len(p) == len(g) == len(m) == len(v)):
         raise ValueError(f"adamw_update: {len(p)} params, {len(g)} grads, {len(m)} m, "
                          f"{len(v)} v")
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     step = state["step"] + 1
     t = step.to(torch.float32)

@@ -623,3 +623,53 @@ def test_rglru_scan_gradient_on_card(cuda, shape):
     q = torch.randn(1, 2, 8, 64, device=cuda, requires_grad=True)
     with pytest.raises(RuntimeError, match="has no backward"):
         fa_ops.flash_attention(q, q.detach()[:, :1], q.detach()[:, :1])
+
+
+@pytest.mark.gpu
+def test_sharded_step_on_two_ranks_sharing_the_card(cuda, tmp_path):
+    """The sharded ZeRO-3 step (``repro_torch.parallel.step``) on two ranks
+    sharing the card (gloo over a ``FileStore`` under ``tmp_path``; data 2
+    x model 1, ``tp_fsdp``), reduced float32 qwen1.5-0.5b, one step from a
+    state two one-process steps left, against the one-process card step:
+    the loss within 1e-5, every gradient, ``m`` and ``v`` leaf within 1e-5
+    of its largest magnitude (the CPU test's bar), every updated param
+    leaf within 1e-4 of its largest magnitude (seen on the card: 3.5e-5,
+    a q/k/v bias: Adam divides each element by the root of its own few
+    squared gradients, which carries cuBLAS's other summation order over
+    half the rows into a bias's small, cancelling gradients; 1.1e-6 on the
+    CPU, whose test holds 1e-5)."""
+    import os
+
+    import torch_dist_workers as W
+    from repro_torch import tree as tree_util
+    from repro_torch.launch.train import build_train_step
+    from repro_torch.models.model import Model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.parallel.spawn import spawn
+
+    cfg = W.small_cfg("qwen1.5-0.5b")
+    start = W.mid_run_state(cfg, 8, 32)
+    torch.save(start, os.path.join(tmp_path, "start.pt"))
+    spawn(W.card_two_ranks, 2, str(tmp_path), store_dir=str(tmp_path))
+    got = torch.load(os.path.join(tmp_path, "card.pt"))
+    assert "all_reduce yes" in got["probe"]
+    on_card = tree_util.map_leaves(lambda t: t.to(cuda), start)
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in W.make_batch(cfg, 8, 32).items()}
+    model = Model(cfg, device=cuda)
+    live = [t.detach().requires_grad_(True) for t in tree_util.leaves(on_card["params"])]
+    grads = torch.autograd.grad(model.loss(tree_util.unflatten(on_card["params"], live),
+                                           batch)[0], live)
+    step = build_train_step(model, AdamWConfig(lr=W.LR), W.TOTAL, W.WARMUP)
+    p2, o2, m = step(on_card["params"], on_card["opt"], batch)
+    assert abs(got["loss"] - float(m["loss"])) < 1e-5
+    errs = {}
+    for part, want in (("grads", grads), ("params", tree_util.leaves(p2)),
+                       ("m", tree_util.leaves(o2["m"])), ("v", tree_util.leaves(o2["v"]))):
+        errs[part] = [float((g - w.cpu()).abs().max()) / float(w.abs().max())
+                      for g, w in zip(got[part], want)]
+    names = [n for n, _ in tree_util.paths(start["params"])]
+    for part, e in errs.items():
+        i = max(range(len(e)), key=e.__getitem__)
+        print(f"[sharded on card] {part}: worst {e[i]:.3e} at {names[i]}")
+    for part, e in errs.items():
+        assert max(e) <= (1e-4 if part == "params" else 1e-5), part

@@ -3,7 +3,13 @@
 * ``src/repro_torch`` and ``chip_smoke.py`` import neither ``jax`` nor
   anything of the reference package ``repro`` (only tests import both);
 * entry points default to the card: without ``device=`` they raise when
-  no GPU is visible instead of running on the CPU;
+  no GPU is visible instead of running on the CPU (the meshes, the
+  sharded step and elastic restore too); the dry run
+  (``launch.dryrun``), which computes nothing on a device, is the one
+  entry point exempt;
+* importing ``repro_torch.parallel`` (or any module of the port) starts
+  no process group, and the models import nothing of it (the sharded
+  step hands them its data-parallel sums as an argument);
 * the engine serves the dense per-slot layout by default and refuses it
   only with an int8 KV store;
 * every kernel wrapper has a plain version beside it and a launch
@@ -56,6 +62,14 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
     assert not bad, "\n".join(bad)
 
 
+def test_models_import_nothing_of_parallel():
+    models = os.path.join(PORT, "models")
+    bad = [f"{f}: {mod}" for f in sorted(os.listdir(models)) if f.endswith(".py")
+           for mod in _imported_modules(os.path.join(models, f))
+           if mod.startswith("repro_torch.parallel")]
+    assert not bad, bad
+
+
 def _all_port_modules():
     import repro_torch
 
@@ -86,6 +100,39 @@ def test_entry_points_default_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         Model(cfg, device="cuda")
     ServeEngine(cpu_model, params, device="cpu")  # asked for the CPU: fine
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+    from repro_torch.parallel.step import build_sharded_train_step
+
+    import torch.distributed as dist
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_host_mesh()
+    assert not dist.is_initialized()  # refused before any group was made
+    with pytest.raises(ValueError, match="needs 256 ranks; the world has 1"):
+        make_production_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):  # its model is on the card
+        build_sharded_train_step(Model(cfg), None, object())
+    # exempt: the dry run reads shapes on the meta device, on no card
+    rec = dryrun.run_cell("qwen1.5-0.5b", "train_4k", False, "auto")
+    assert rec["status"] == "ok" and rec["memory"]["argument_size_in_bytes"] > 0
+
+
+def test_parallel_starts_no_process_group_and_host_mesh_is_one_by_one():
+    import torch.distributed as dist
+
+    import repro_torch.parallel  # noqa: F401
+    import repro_torch.parallel.spawn  # noqa: F401
+    import repro_torch.parallel.step  # noqa: F401
+    import repro_torch.runtime.elastic  # noqa: F401
+    from repro_torch.launch.mesh import make_host_mesh
+
+    assert not dist.is_initialized()
+    try:
+        mesh = make_host_mesh("cpu")
+        assert tuple(mesh.shape) == (1, 1) and mesh.mesh_dim_names == ("data", "model")
+    finally:
+        dist.destroy_process_group()
 
 
 def test_engine_serves_the_dense_layout_by_default():

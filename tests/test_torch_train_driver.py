@@ -9,8 +9,8 @@ and the gradient norm within 1e-3 relative (bf16 GEMM inputs round at
 2^-8; Adam then amplifies a small gradient's rounding in its step, so
 params are not compared there).  ``main`` with an injected fault
 reproduces its clean run bit for bit (step-addressable data and exact
-checkpoints), refuses ``--production-mesh`` and runs on the card unless
-told otherwise.
+checkpoints), refuses ``--production-mesh`` when the launcher's world is
+not the mesh's size and runs on the card unless told otherwise.
 """
 import os
 
@@ -90,10 +90,16 @@ def test_fault_replay_equals_the_clean_run_bit_for_bit(tmp_path, capsys):
     assert "restarts=2" in out and out.count("done:") == 2
 
 
-def test_production_mesh_is_refused():
-    with pytest.raises(SystemExit, match="sharding is not ported yet") as e:
+def test_production_mesh_is_refused(monkeypatch):
+    """Refused only when the launcher's world is not the mesh's size, with
+    both sizes named (here one process against 16 x 16)."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(SystemExit, match="needs a world of 256 ranks") as e:
         train.main(ARGS + ["--production-mesh"])
-    assert "ROADMAP.md" in str(e.value)
+    assert "world size is 1" in str(e.value)
+    monkeypatch.setenv("WORLD_SIZE", "8")
+    with pytest.raises(SystemExit, match="16x16 .* 256 ranks; the launcher's world size is 8"):
+        train.main(ARGS + ["--production-mesh"])
 
 
 def test_main_runs_on_the_card_unless_told(monkeypatch, tmp_path):
